@@ -1,0 +1,142 @@
+"""Build, load and launch the hand-written CUDA kernels under ``csrc/``.
+
+The sources compile with ``nvcc`` into one shared library with a plain C
+interface, bound with ``ctypes`` (no PyTorch headers, so a build takes
+seconds). The library is built at first use into
+``build/p2p_bridge_tpu_torch/<hash>/`` at the repository root, keyed by a
+hash of the sources and the flags, so an edited source rebuilds. A failed
+build raises.
+
+Every op module checks its tensors and then calls :func:`launch`, which
+runs the C entry point on ``torch.cuda.current_stream()``, raises on a
+non-zero ``cudaGetLastError()``, and adds one to the kernel's count in
+:data:`launch_counts`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = ("fps.cu", "ball_query_group.cu", "voxelize.cu", "conv3d_gn.cu")
+HEADERS = ("common.cuh",)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "p2p_bridge_tpu_torch"
+
+# kernel name -> number of launches since the last reset
+launch_counts = {"fps": 0, "ball_query_group": 0, "avg_voxelize": 0, "conv3d_gn": 0}
+
+_P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+_SIGNATURES = {
+    # name: (restype, argtypes)
+    "p2pb_fps": (_I, (_P, _I, _I, _I, _P, _P, _P)),
+    "p2pb_fps_scratch_bytes": (_LL, (_I, _I)),
+    "p2pb_ball_query_group": (_I, (_P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P, _P)),
+    "p2pb_avg_voxelize": (_I, (_P, _P, _I, _I, _I, _I, _P, _P, _P)),
+    "p2pb_conv3d_gn": (
+        _I, (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P, _P)),
+    "p2pb_conv3d_gn_scratch_bytes": (_LL, (_I, _I, _I, _I)),
+    "p2pb_error_string": (ctypes.c_char_p, (_I,)),
+}
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    return path
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in HEADERS + SOURCES:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return BUILD_ROOT / h.hexdigest()[:16] / "libp2pb_kernels.so"
+
+
+def build() -> Path:
+    """Compile the kernels unless the library for these sources exists."""
+    out = library_path()
+    if out.exists():
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, out)  # atomic: a concurrent build sees whole files only
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build()))
+    for name, (restype, argtypes) in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.restype = restype
+        fn.argtypes = argtypes
+    return lib
+
+
+def on_card(t: torch.Tensor) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU tensor
+    (run the plain version); any other device raises."""
+    if t.is_cuda:
+        return True
+    if t.device.type != "cpu":
+        raise ValueError(f"tensors must lie on a CUDA card or the CPU, not {t.device}")
+    return False
+
+
+def launch(kernel: str, entry: str, device: torch.device, *args) -> None:
+    """Run C entry point ``entry`` on the current stream of ``device``."""
+    lib = library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, entry)(*args, stream)
+    if err != 0:
+        msg = lib.p2pb_error_string(err).decode()
+        raise RuntimeError(f"{kernel}: CUDA error {err} ({msg})")
+    launch_counts[kernel] += 1
+
+
+def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
+            device: torch.device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape``
+    (None matches any size) on ``device``."""
+    if t.device != device:
+        raise ValueError(f"{name}: expected device {device}, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if t.dim() != len(shape) or any(
+            s is not None and s != d for s, d in zip(shape, t.shape)):
+        raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")

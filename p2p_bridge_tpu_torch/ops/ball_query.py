@@ -1,0 +1,76 @@
+"""Fused ball query + group (port of p2p_bridge_tpu/ops/ball_query.py,
+grouping.py and fused_group.py).
+
+For each centre: the first K points in index order with squared distance
+(per-coordinate squares) < radius^2; slots past the hit count repeat the
+first hit; a centre with no hit gets index 0. The rows at those indices
+are gathered. On a CUDA tensor :func:`ball_query_group` launches kernel K4
+(``csrc/ball_query_group.cu``); on a CPU tensor it runs the plain version.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import kernels
+from .common import batched_take, pairwise_sqdist_exact
+
+
+def _radius_sq(radius: float) -> float:
+    # radius^2 rounded to f32 once, as the JAX package compares against it
+    return float(np.float32(radius * radius))
+
+
+def ball_query(centers: torch.Tensor, points: torch.Tensor, radius: float,
+               num_neighbors: int) -> torch.Tensor:
+    """Plain PyTorch ball query: [B, M, 3], [B, N, 3] -> idx [B, M, K] int32."""
+    N = points.shape[1]
+    K = num_neighbors
+    mask = pairwise_sqdist_exact(centers, points) < _radius_sq(radius)  # [B, M, N]
+    iota = torch.arange(N, device=points.device)
+    # hits ranked by ascending index: key N - i (> 0); misses get 0
+    key = torch.where(mask, N - iota, torch.zeros_like(iota))
+    vals = torch.topk(key, min(K, N), dim=-1, sorted=True).values
+    if K > N:
+        vals = torch.nn.functional.pad(vals, (0, K - N))
+    first_hit = torch.argmax(mask.to(torch.int8), dim=-1)  # 0 when no hit
+    idx = torch.where(vals > 0, N - vals, first_hit[..., None])
+    return idx.int()
+
+
+def ball_query_group_plain(centers, points, rows, radius, num_neighbors):
+    idx = ball_query(centers, points, radius, num_neighbors)
+    return batched_take(rows.float(), idx), idx
+
+
+def _ball_query_group_cuda(centers, points, rows, radius, num_neighbors):
+    B, M, _ = centers.shape
+    N, C, K = points.shape[1], rows.shape[-1], num_neighbors
+    dev = centers.device
+    kernels.require(centers, "centers", torch.float32, (B, M, 3), dev)
+    kernels.require(points, "points", torch.float32, (B, N, 3), dev)
+    kernels.require(rows, "rows", torch.float32, (B, N, C), dev)
+    out = torch.empty((B, M, K, C), dtype=torch.float32, device=dev)
+    idx = torch.empty((B, M, K), dtype=torch.int32, device=dev)
+    kernels.launch(
+        "ball_query_group", "p2pb_ball_query_group", dev, centers.data_ptr(),
+        points.data_ptr(), rows.data_ptr(), B, M, N, C, K,
+        _radius_sq(radius), out.data_ptr(), idx.data_ptr())
+    return out, idx
+
+
+def ball_query_group(centers: torch.Tensor, points: torch.Tensor,
+                     rows: torch.Tensor, radius: float, num_neighbors: int):
+    """Radius query + row gather.
+
+    Args:
+      centers: [B, M, 3] query centres.
+      points: [B, N, 3] selection coordinates.
+      rows: [B, N, C] rows to gather (typically [coords | features]).
+    Returns:
+      (gathered [B, M, K, C] f32, idx [B, M, K] int32)
+    """
+    if kernels.on_card(centers):
+        return _ball_query_group_cuda(centers, points, rows, radius, num_neighbors)
+    return ball_query_group_plain(centers, points, rows, radius, num_neighbors)

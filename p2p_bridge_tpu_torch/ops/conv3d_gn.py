@@ -1,0 +1,75 @@
+"""3x3x3 SAME voxel convolution + GroupNorm (+ swish), the contract of
+p2p_bridge_tpu/models/modules.py:428-434 (ZPackConv3d with ``gn``) and the
+math of p2p_bridge_tpu/ops/pallas/conv3d_kernel.py:_ref_conv and
+_apply_gn_xla.
+
+On a CUDA tensor :func:`conv3d_gn` launches kernel K1
+(``csrc/conv3d_gn.cu``); on a CPU tensor it runs the plain version.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from .. import kernels
+
+
+def apply_group_norm(y: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                     groups: int, eps: float, act: bool) -> torch.Tensor:
+    """GroupNorm over all voxels per (cloud, group), variance E[y^2] - m^2,
+    affine gamma/beta of shape [C] or [B, C], optional swish."""
+    B, C = y.shape[0], y.shape[-1]
+    yg = y.float().reshape(B, -1, groups, C // groups)
+    m = yg.mean(dim=(1, 3), keepdim=True)
+    v = (yg * yg).mean(dim=(1, 3), keepdim=True) - m * m
+    yn = ((yg - m) * torch.rsqrt(v + eps)).reshape(y.shape)
+    spatial = [1] * (y.dim() - 2)
+    gamma = gamma.float().expand(B, C).reshape(B, *spatial, C)
+    beta = beta.float().expand(B, C).reshape(B, *spatial, C)
+    yn = yn * gamma + beta
+    if act:
+        yn = yn * torch.sigmoid(yn)
+    return yn.to(y.dtype)
+
+
+def conv3d_gn_plain(x, weight, bias, gamma, beta, groups=8, eps=1e-5, act=False):
+    y = F.conv3d(x.permute(0, 4, 1, 2, 3), weight.permute(4, 3, 0, 1, 2),
+                 bias, padding=1)
+    return apply_group_norm(y.permute(0, 2, 3, 4, 1), gamma, beta, groups, eps, act)
+
+
+def _conv3d_gn_cuda(x, weight, bias, gamma, beta, groups, eps, act):
+    B, R = x.shape[0], x.shape[1]
+    cin, cout = weight.shape[3], weight.shape[4]
+    dev = x.device
+    kernels.require(x, "x", torch.float32, (B, R, R, R, cin), dev)
+    kernels.require(weight, "weight", torch.float32, (3, 3, 3, cin, cout), dev)
+    kernels.require(bias, "bias", torch.float32, (cout,), dev)
+    affine_shape = (B, cout) if gamma.dim() == 2 else (cout,)
+    kernels.require(gamma, "gamma", torch.float32, affine_shape, dev)
+    kernels.require(beta, "beta", torch.float32, affine_shape, dev)
+    if cout % groups:
+        raise ValueError(f"Cout={cout} is not a multiple of groups={groups}")
+    lib = kernels.library()
+    y = torch.empty((B, R, R, R, cout), dtype=torch.float32, device=dev)
+    scratch = torch.empty(lib.p2pb_conv3d_gn_scratch_bytes(B, R, cout, groups),
+                          dtype=torch.uint8, device=dev)
+    kernels.launch(
+        "conv3d_gn", "p2pb_conv3d_gn", dev, x.data_ptr(), weight.data_ptr(),
+        bias.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+        int(gamma.dim() == 2), B, R, cin, cout, groups, eps, int(act),
+        y.data_ptr(), scratch.data_ptr())
+    return y
+
+
+def conv3d_gn(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+              gamma: torch.Tensor, beta: torch.Tensor, groups: int = 8,
+              eps: float = 1e-5, act: bool = False) -> torch.Tensor:
+    """x [B, R, R, R, Cin] f32, weight [3, 3, 3, Cin, Cout] (DHWIO), bias
+    [Cout], gamma/beta [Cout] shared or [B, Cout] per cloud (the AdaGN
+    fold) -> [B, R, R, R, Cout]."""
+    if kernels.on_card(x):
+        return _conv3d_gn_cuda(x.contiguous(), weight.contiguous(), bias.contiguous(),
+                               gamma.contiguous(), beta.contiguous(), groups, eps, act)
+    return conv3d_gn_plain(x, weight, bias, gamma, beta, groups, eps, act)

@@ -1,0 +1,147 @@
+"""Weights into the port: JAX param trees and reference torch state_dicts.
+
+The port's module tree carries the reference torch ``state_dict`` keys, so
+the name map of p2p_bridge_tpu/utils/torch_compat.py serves both ways:
+
+* ``load_jax_params(model, params)`` maps every flax leaf to its torch key
+  with ``_torch_key`` and inverts ``_transform`` (kernel [in, out] ->
+  weight [out, in]; conv kernel [3, 3, 3, in, out] -> [out, in, 3, 3, 3]).
+* ``convert_torch_state_dict(port.state_dict(), flax_template)`` (in the
+  JAX package) is the other direction, with no new mapping code.
+* ``load_torch_state_dict(model, sd)`` loads a reference checkpoint; its
+  1x1 convolutions ([out, in, 1] or [out, in, 1, 1]) load into the port's
+  Linear weights [out, in].
+
+Every loader is strict: each port parameter is set exactly once and each
+source entry is used.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from p2p_bridge_tpu.utils.torch_compat import _torch_key
+
+Path = Tuple[str, ...]
+_LEAF_TO_TORCH = {"kernel": "weight", "scale": "weight", "bias": "bias"}
+
+
+def flatten_params(params: Mapping) -> Dict[Path, np.ndarray]:
+    """Nested dicts of arrays -> {path: numpy array}. A top-level
+    ``{"params": tree}`` wrapper (flax variables) is unwrapped."""
+    if set(params) == {"params"}:
+        params = params["params"]
+    flat: Dict[Path, np.ndarray] = {}
+
+    def walk(node, prefix):
+        for k, v in node.items():
+            if isinstance(v, Mapping):
+                walk(v, prefix + (str(k),))
+            else:
+                flat[prefix + (str(k),)] = np.asarray(v)
+
+    walk(params, ())
+    return flat
+
+
+def unflatten_params(flat: Mapping[str, np.ndarray], sep: str = "/") -> dict:
+    """{"a/b/c": array} (the .npz layout) -> nested dicts."""
+    tree: dict = {}
+    for key, value in flat.items():
+        parts = key.split(sep)
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = np.asarray(value)
+    return tree
+
+
+def load_npz(path: str) -> dict:
+    """JAX params saved with flattened ``a/b/c`` keys -> nested dicts."""
+    with np.load(path) as z:
+        return unflatten_params({k: z[k] for k in z.files})
+
+
+def _conv_counts(paths) -> dict:
+    """PVConvs per SA/FP stage, as convert_torch_state_dict counts them."""
+    counts = {"sa": {}, "fp": {}}
+    for path in paths:
+        name = path[0]
+        if not name.startswith(("sa", "fp")):
+            continue
+        kind = name[:2]
+        if "_conv" in name:
+            stage = int(name[2:].split("_conv")[0])
+            j = int(name.split("_conv")[1])
+            counts[kind][stage] = max(counts[kind].get(stage, 0), j + 1)
+        elif name.endswith("_module"):
+            counts[kind].setdefault(int(name[2:].split("_")[0]), 0)
+    return counts
+
+
+def _to_torch_layout(leaf: np.ndarray, leaf_name: str) -> np.ndarray:
+    """Inverse of torch_compat._transform for the port's layouts."""
+    if leaf_name != "kernel":
+        return leaf
+    if leaf.ndim == 2:  # Dense [in, out] -> Linear [out, in]
+        return leaf.T
+    if leaf.ndim == 5:  # [k, k, k, in, out] -> Conv3d [out, in, k, k, k]
+        return leaf.transpose(4, 3, 0, 1, 2)
+    raise ValueError(f"unexpected kernel rank {leaf.ndim}")
+
+
+def jax_params_to_state_dict(params: Mapping, model: nn.Module) -> Dict[str, torch.Tensor]:
+    """The port state_dict holding ``params`` (a JAX/flax param tree)."""
+    target = model.state_dict()
+    flat = flatten_params(params)
+    counts = _conv_counts(flat)
+    out: Dict[str, torch.Tensor] = {}
+    for path, leaf in flat.items():
+        leaf_name = path[-1]
+        key = f"{_torch_key(path[:-1], counts)}.{_LEAF_TO_TORCH[leaf_name]}"
+        if key not in target:
+            raise KeyError(f"{'/'.join(path)} maps to {key}, which the model lacks")
+        if key in out:
+            raise KeyError(f"{key} is mapped twice (second: {'/'.join(path)})")
+        value = _to_torch_layout(leaf, leaf_name)
+        if tuple(value.shape) != tuple(target[key].shape):
+            raise ValueError(f"shape of {key}: model {tuple(target[key].shape)}, "
+                             f"params {tuple(value.shape)} ({'/'.join(path)})")
+        out[key] = torch.tensor(value, dtype=torch.float32)
+    missing = sorted(set(target) - set(out))
+    if missing:
+        raise KeyError(f"params leave {len(missing)} model entries unset: {missing[:8]}")
+    return out
+
+
+def load_jax_params(model: nn.Module, params: Mapping) -> nn.Module:
+    """Load a JAX param tree (nested dicts of numpy arrays) into ``model``."""
+    model.load_state_dict(jax_params_to_state_dict(params, model), strict=True)
+    return model
+
+
+def load_torch_state_dict(model: nn.Module, state_dict: Mapping) -> nn.Module:
+    """Load a reference-named torch state_dict into ``model`` (strict).
+    Weights of 1x1 convolutions load into the matching Linear weights."""
+    target = model.state_dict()
+    extra = sorted(set(state_dict) - set(target))
+    missing = sorted(set(target) - set(state_dict))
+    if extra or missing:
+        raise KeyError(f"state_dict mismatch: missing {missing[:8]}, unexpected {extra[:8]}")
+    out = {}
+    for key, want in target.items():
+        value = torch.as_tensor(state_dict[key])
+        if value.shape != want.shape:
+            squeezed = value.reshape(value.shape[:2]) if (
+                value.dim() > 2 and all(s == 1 for s in value.shape[2:])) else value
+            if squeezed.shape != want.shape:
+                raise ValueError(f"shape of {key}: model {tuple(want.shape)}, "
+                                 f"checkpoint {tuple(value.shape)}")
+            value = squeezed
+        out[key] = value.to(want.dtype)
+    model.load_state_dict(out, strict=True)
+    return model

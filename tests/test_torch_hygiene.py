@@ -1,0 +1,94 @@
+"""What the PyTorch port may import, and the facts it copies from the JAX
+package: the PVDS_PUNet configuration, the plan builder, the width."""
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+import yaml
+
+from p2p_bridge_tpu.models.pvcnn import build_pvcnn2_plan as jax_plan
+from p2p_bridge_tpu_torch.config import PVDS_PUNET
+from p2p_bridge_tpu_torch.models.pvcnn import build_pvcnn2_plan as port_plan
+from p2p_bridge_tpu_torch.models.unet_pvc import build_unet_from_config
+
+ROOT = Path(__file__).resolve().parent.parent
+MAIN_PATH = [
+    "p2p_bridge_tpu_torch", "p2p_bridge_tpu_torch.kernels", "p2p_bridge_tpu_torch.config",
+    "p2p_bridge_tpu_torch.ops", "p2p_bridge_tpu_torch.ops.conv3d_gn",
+    "p2p_bridge_tpu_torch.models.modules", "p2p_bridge_tpu_torch.models.pvcnn",
+    "p2p_bridge_tpu_torch.models.unet_pvc", "p2p_bridge_tpu_torch.models.p2pb",
+    "p2p_bridge_tpu_torch.weights", "p2p_bridge_tpu_torch.inference",
+    "p2p_bridge_tpu_torch.denoise_object", "chip_smoke",
+]
+
+
+def clean_env(**extra):
+    env = {k: v for k, v in os.environ.items() if k != "P2PB_PLATFORM"}
+    env["PYTHONPATH"] = str(ROOT)
+    env.update(extra)
+    return env
+
+
+def test_main_path_imports_no_jax_flax_or_yaml():
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {MAIN_PATH!r}: importlib.import_module(m)\n"
+        "print(json.dumps(sorted(m for m in ('jax', 'flax', 'yaml') if m in sys.modules)))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=clean_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_port_sources_never_import_jax():
+    for path in (ROOT / "p2p_bridge_tpu_torch").rglob("*.py"):
+        for line in path.read_text().splitlines():
+            words = line.split()
+            if words[:1] in (["import"], ["from"]) and len(words) > 1:
+                assert words[1].split(".")[0] not in ("jax", "flax"), f"{path}: {line}"
+
+
+def test_chip_smoke_refuses_without_a_card():
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
+                         env=clean_env(CUDA_VISIBLE_DEVICES=""),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
+
+
+def test_pvds_punet_dict_equals_yaml():
+    with open(ROOT / "configs" / "PVDS_PUNet.yaml") as f:
+        cfg = yaml.safe_load(f)
+    assert PVDS_PUNET["data"] == {"npoints": cfg["data"]["npoints"]}
+    assert PVDS_PUNET["diffusion"] == cfg["diffusion"]
+    assert PVDS_PUNET["model"] == cfg["model"]
+
+
+@pytest.mark.parametrize("name", ["PVDS_PUNet", "PVDL_SNPP", "PVDL_ARKIT"])
+def test_plan_builder_copy_equals_original(name):
+    with open(ROOT / "configs" / f"{name}.yaml") as f:
+        cfg = yaml.safe_load(f)
+    pvd, model = cfg["model"]["PVD"], cfg["model"]
+    extra = pvd.get("extra_feature_channels", model.get("extra_feature_channels", 0))
+    kw = dict(
+        npoints=cfg["data"]["npoints"], channels=pvd["channels"],
+        n_sa_blocks=pvd["n_sa_blocks"], n_fp_blocks=pvd["n_fp_blocks"],
+        radius=pvd["radius"], voxel_resolutions=pvd["voxel_resolutions"],
+        input_dim=model.get("in_dim", 3),
+        extra_feature_channels=pvd.get("feat_embed_dim", extra),
+        embed_dim=model.get("time_embed_dim", 64), attentions=pvd["attentions"],
+        out_mlp=pvd.get("out_mlp", 128), centers=pvd.get("centers"))
+    assert dataclasses.asdict(port_plan(**kw)) == dataclasses.asdict(jax_plan(**kw))
+
+
+def test_full_width_parameter_count():
+    with torch.device("meta"):
+        model = build_unet_from_config(PVDS_PUNET)
+    assert sum(p.numel() for p in model.parameters()) == 26_441_155

@@ -1,0 +1,226 @@
+"""The port's point ops against the JAX package's, on the CPU.
+
+Each op of the port runs its plain PyTorch version here (CPU tensors); the
+JAX side runs its XLA path and, for the ops with a TPU kernel, the Pallas
+kernel in interpret mode as tests/test_pallas_kernels.py runs it.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+import p2p_bridge_tpu.ops as jops
+import p2p_bridge_tpu.ops.pallas.fps_kernel as jfps_kernel
+import p2p_bridge_tpu.ops.pallas.neighborhood_kernel as jnbr_kernel
+from p2p_bridge_tpu.ops.fps import _furthest_point_sample_xla
+from p2p_bridge_tpu.ops.pallas.voxelize_kernel import avg_voxelize_scatter_pallas
+from p2p_bridge_tpu_torch import kernels, ops
+from p2p_bridge_tpu_torch.ops import ball_query as bq
+from p2p_bridge_tpu_torch.ops import voxelize as vox
+
+
+def t(a):
+    return torch.from_numpy(np.asarray(a))
+
+
+@pytest.fixture
+def interpret_pallas(monkeypatch):
+    """Run the FPS and neighbourhood Pallas kernels in interpret mode."""
+    orig = pl.pallas_call
+
+    def patched(*args, **kwargs):
+        kwargs["interpret"] = True
+        return orig(*args, **kwargs)
+
+    monkeypatch.setattr(jfps_kernel.pl, "pallas_call", patched)
+    monkeypatch.setattr(jnbr_kernel.pl, "pallas_call", patched)
+
+
+@pytest.fixture(autouse=True)
+def no_kernel_launch():
+    """CPU tensors take the plain versions: no kernel is launched."""
+    before = dict(kernels.launch_counts)
+    yield
+    assert kernels.launch_counts == before
+
+
+def test_pairwise_and_take_match_jax():
+    rng = np.random.default_rng(0)
+    a = rng.normal(size=(2, 40, 3)).astype(np.float32)
+    b = rng.normal(size=(2, 70, 3)).astype(np.float32)
+    np.testing.assert_allclose(ops.pairwise_sqdist(t(a), t(b)).numpy(),
+                               np.asarray(jops.pairwise_sqdist(a, b)), atol=1e-6)
+    from p2p_bridge_tpu.ops.common import pairwise_sqdist_exact
+    np.testing.assert_array_equal(ops.pairwise_sqdist_exact(t(a), t(b)).numpy(),
+                                  np.asarray(pairwise_sqdist_exact(a, b)))
+    idx = rng.integers(0, 70, size=(2, 5, 4)).astype(np.int32)
+    np.testing.assert_array_equal(ops.batched_take(t(b), t(idx)).numpy(),
+                                  np.asarray(jops.batched_take(jnp.asarray(b), jnp.asarray(idx))))
+
+
+@pytest.mark.parametrize("B,N,M", [(2, 200, 48), (1, 131, 131), (9, 300, 96), (1, 2048, 64)])
+def test_fps_matches_xla(B, N, M):
+    x = np.random.default_rng(N).normal(size=(B, N, 3)).astype(np.float32)
+    want = np.asarray(_furthest_point_sample_xla(jnp.asarray(x), M))
+    got = ops.furthest_point_sample(t(x), M)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("B,N,M", [(2, 200, 48), (9, 300, 96)])
+def test_fps_matches_pallas_interpret(interpret_pallas, B, N, M):
+    x = np.random.default_rng(B).normal(size=(B, N, 3)).astype(np.float32)
+    want = np.asarray(jfps_kernel.furthest_point_sample_pallas(jnp.asarray(x), M))
+    np.testing.assert_array_equal(ops.furthest_point_sample(t(x), M).numpy(), want)
+
+
+BQ_CASES = [
+    (2, 300, 64, 32, 35, 0.2),
+    (2, 150, 32, 16, 131, 0.4),
+    (1, 40, 8, 32, 7, 0.9),     # K > hits: pad with the first hit
+    (1, 64, 8, 8, 5, 0.01),     # mostly empty balls: index 0
+    (1, 20, 4, 32, 4, 2.0),     # K > N
+]
+
+
+def bq_inputs(B, N, M, C):
+    rng = np.random.default_rng(N + M)
+    pts = rng.random((B, N, 3)).astype(np.float32)
+    sel = rng.integers(0, N, (B, M))
+    cen = np.take_along_axis(pts, sel[..., None], axis=1)
+    rows = rng.normal(size=(B, N, C)).astype(np.float32)
+    return cen, pts, rows
+
+
+@pytest.mark.parametrize("B,N,M,K,C,r", BQ_CASES)
+def test_ball_query_group_matches_xla(B, N, M, K, C, r):
+    cen, pts, rows = bq_inputs(B, N, M, C)
+    want_g, want_i = jops.ball_query_group(jnp.asarray(cen), jnp.asarray(pts),
+                                           jnp.asarray(rows), r, K)
+    got_g, got_i = ops.ball_query_group(t(cen), t(pts), t(rows), r, K)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    np.testing.assert_array_equal(got_g.numpy(), np.asarray(want_g))
+    np.testing.assert_array_equal(bq.ball_query(t(cen), t(pts), r, K).numpy(),
+                                  np.asarray(jops.ball_query(cen, pts, r, K)))
+
+
+@pytest.mark.parametrize("B,N,M,K,C,r", BQ_CASES[:4])
+def test_ball_query_group_matches_pallas_interpret(interpret_pallas, B, N, M, K, C, r):
+    cen, pts, rows = bq_inputs(B, N, M, C)
+    want_g, want_i = jnbr_kernel.ball_query_group_pallas(
+        jnp.asarray(cen), jnp.asarray(pts), jnp.asarray(rows), r, K)
+    got_g, got_i = ops.ball_query_group(t(cen), t(pts), t(rows), r, K)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    # the Pallas gather rides a bf16 hi/lo split: ~1e-5 relative
+    scale = np.abs(rows).max()
+    np.testing.assert_allclose(got_g.numpy(), np.asarray(want_g), atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("r,C,hi", [(8, 11, 8), (8, 11, 2), (4, 128, 4)])
+def test_voxelize_matches_jax(r, C, hi):
+    """Against the exact scatter and the Pallas scatter kernel (interpret),
+    for uniform and collision-heavy voxel indices."""
+    rng = np.random.default_rng(r * C)
+    B, N = 2, 300
+    feat = rng.normal(size=(B, N, C)).astype(np.float32)
+    voxc = rng.integers(0, hi, size=(B, N, 3)).astype(np.int32)
+    got = ops.avg_voxelize(t(feat), t(voxc), r).numpy()
+    want = np.asarray(jops.avg_voxelize(jnp.asarray(feat), jnp.asarray(voxc), r, exact=True))
+    np.testing.assert_allclose(got, want, atol=1e-6)
+    idx = jops.flat_voxel_index(jnp.asarray(voxc), r)
+    kern = np.asarray(avg_voxelize_scatter_pallas(jnp.asarray(feat), idx, r ** 3, interpret=True))
+    np.testing.assert_allclose(got.reshape(B, r ** 3, C), kern, atol=1e-6)
+
+
+@pytest.mark.parametrize("r", [4, 8, 32])
+def test_normalize_coords_to_voxels_matches_jax(r):
+    x = np.random.default_rng(5).normal(size=(2, 500, 3)).astype(np.float32) * 0.4
+    wv, wc = jops.normalize_coords_to_voxels(jnp.asarray(x), r)
+    gv, gc = vox.normalize_coords_to_voxels(t(x), r)
+    assert gv.dtype == torch.int32
+    # the centroid and the max norm sum 500 points in another order than
+    # XLA: measured 1.6e-6 relative on coords up to r - 1 = 31
+    np.testing.assert_allclose(gc.numpy(), np.asarray(wc), rtol=4e-6, atol=1e-6)
+    np.testing.assert_array_equal(gv.numpy(), np.asarray(wv))
+
+
+def devox_inputs(r=8, C=16, N=200):
+    rng = np.random.default_rng(r)
+    grid = rng.normal(size=(2, r, r, r, C)).astype(np.float32)
+    coords = rng.uniform(0, r - 1, size=(2, N, 3)).astype(np.float32)
+    coords[:, 0] = 0.0            # frac == 0 at the low edge
+    coords[:, 1] = r - 1.0        # the r-1 corner: no high step
+    coords[:, 2] = [3.0, 2.0, 5.0]
+    coords[:, 3] = [r - 1.0, 0.5, 2.0]
+    return grid, coords
+
+
+def test_devoxelize_matches_jax():
+    grid, coords = devox_inputs()
+    want = np.asarray(jops.trilinear_devoxelize(jnp.asarray(grid), jnp.asarray(coords), 8))
+    got = ops.trilinear_devoxelize(t(grid), t(coords), 8).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-6)
+    wo, wm = jops.trilinear_devoxelize_with_mean(jnp.asarray(grid), jnp.asarray(coords), 8)
+    go, gm = ops.trilinear_devoxelize_with_mean(t(grid), t(coords), 8)
+    np.testing.assert_allclose(go.numpy(), np.asarray(wo), atol=1e-6)
+    np.testing.assert_allclose(gm.numpy(), np.asarray(wm), atol=1e-6)
+
+
+@pytest.mark.parametrize("M", [1, 2, 3, 64])
+def test_three_nn_interpolate_matches_jax(M):
+    rng = np.random.default_rng(M)
+    pts = rng.random((2, 150, 3)).astype(np.float32)
+    cen = rng.random((2, M, 3)).astype(np.float32)
+    feat = rng.normal(size=(2, M, 9)).astype(np.float32)
+    ww, wi = jops.three_nn(jnp.asarray(pts), jnp.asarray(cen))
+    gw, gi = ops.three_nn(t(pts), t(cen))
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+    np.testing.assert_allclose(gw.numpy(), np.asarray(ww), atol=1e-6)
+    want = jops.nearest_neighbor_interpolate(jnp.asarray(pts), jnp.asarray(cen), jnp.asarray(feat))
+    got = ops.nearest_neighbor_interpolate(t(pts), t(cen), t(feat))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
+
+
+def test_knn_matches_jax():
+    rng = np.random.default_rng(11)
+    q = rng.normal(size=(1, 6, 3)).astype(np.float32)
+    p = rng.normal(size=(1, 1024, 3)).astype(np.float32)
+    p[0, 700] = p[0, 3]  # a duplicate: equal distances stay in index order
+    wd, wi = jops.knn(jnp.asarray(q), jnp.asarray(p), 256)
+    gd, gi = ops.knn(t(q), t(p), 256)
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+    np.testing.assert_allclose(gd.numpy(), np.asarray(wd), atol=1e-6)
+
+
+def test_require_rejects_bad_tensors():
+    x = torch.zeros(2, 5, 3)
+    dev = x.device
+    kernels.require(x, "x", torch.float32, (2, None, 3), dev)
+    with pytest.raises(TypeError):
+        kernels.require(x.double(), "x", torch.float32, (2, 5, 3), dev)
+    with pytest.raises(ValueError, match="shape"):
+        kernels.require(x, "x", torch.float32, (2, 5, 4), dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.require(x.transpose(0, 1), "x", torch.float32, (5, 2, 3), dev)
+    with pytest.raises(ValueError, match="device"):
+        kernels.require(x, "x", torch.float32, (2, 5, 3), torch.device("meta"))
+
+
+def test_wrappers_take_the_plain_version_only_on_the_cpu():
+    assert not kernels.on_card(torch.zeros(1))
+    meta = torch.zeros(1, 8, 3, device="meta")
+    with pytest.raises(ValueError, match="CUDA card or the CPU"):
+        ops.furthest_point_sample(meta, 2)
+    with pytest.raises(ValueError, match="CUDA card or the CPU"):
+        ops.avg_voxelize(meta, meta.int(), 4)
+
+
+def test_library_path_follows_sources():
+    """The build is keyed by the sources and flags, inside build/."""
+    path = kernels.library_path()
+    assert path == kernels.library_path()
+    assert path.name == "libp2pb_kernels.so"
+    assert path.parent.parent == kernels.BUILD_ROOT
+    assert all((kernels.CSRC / s).exists() for s in kernels.SOURCES + kernels.HEADERS)
