@@ -1,9 +1,10 @@
 """Configurations as plain nested dicts.
 
 The port reads no YAML on its main path (the card's machine has no
-PyYAML). ``PVDS_PUNET`` holds the ``data.npoints``, ``diffusion`` and
-``model`` values of ``configs/PVDS_PUNet.yaml``; a test keeps the two
-equal. Only the CLI reads YAML files.
+PyYAML). ``PVDS_PUNET`` holds the ``data.npoints``, ``diffusion``,
+``model`` and ``training.amp`` values of ``configs/PVDS_PUNet.yaml``; a
+test keeps the two equal. ``training.amp`` makes the backbone compute in
+bf16, as in the JAX package. Only the CLI reads YAML files.
 """
 
 from __future__ import annotations
@@ -50,6 +51,7 @@ PVDS_PUNET = {
             "out_mlp": 128,
         },
     },
+    "training": {"amp": True},
 }
 
 

@@ -1,5 +1,7 @@
-// K4: fused ball query + group, centres [B, M, 3], points [B, N, 3],
-// rows [B, N, C] -> gathered [B, M, K, C] f32 and idx [B, M, K] int32.
+// K4: fused ball query + group, centres [B, M, 3] f32, points [B, N, 3] f32,
+// rows [B, N, C] T (f32 or bf16) -> gathered [B, M, K, C] T and idx
+// [B, M, K] int32. The distance test is f32 whatever T is; the gathered
+// rows are bit copies.
 //
 // Replaces p2p_bridge_tpu/ops/pallas/neighborhood_kernel.py:
 // ball_query_group_pallas (_bqg_kernel).
@@ -10,7 +12,7 @@
 // index 0 everywhere. The rows of those indices are then copied out.
 //
 // What bounds it on the H100: the scan reads points until K hits are found
-// (up to all N for a sparse ball), and the copy writes K * C floats per centre;
+// (up to all N for a sparse ball), and the copy writes K * C elements per centre;
 // both are memory traffic, the copy being the larger at sa0 (C = 35, K = 32).
 // Design: one warp per centre. The warp tests 32 consecutive points at once
 // (a coalesced 384-byte read), forms the hit mask with __ballot_sync, ranks
@@ -22,10 +24,11 @@
 
 namespace {
 
+template <typename T>
 __global__ void ball_query_group_kernel(
     const float* __restrict__ centers, const float* __restrict__ points,
-    const float* __restrict__ rows, int B, int M, int N, int C, int K,
-    float r2, float* __restrict__ out, int32_t* __restrict__ idx_out) {
+    const T* __restrict__ rows, int B, int M, int N, int C, int K,
+    float r2, T* __restrict__ out, int32_t* __restrict__ idx_out) {
   const long long w = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (w >= (long long)B * M) return;  // uniform across the warp
@@ -57,25 +60,38 @@ __global__ void ball_query_group_kernel(
   for (int k = cnt + lane; k < K; k += 32) io[k] = first;
   __syncwarp();
 
-  const float* src = rows + (size_t)b * N * C;
-  float* o = out + (size_t)w * K * C;
+  const T* src = rows + (size_t)b * N * C;
+  T* o = out + (size_t)w * K * C;
   for (int k = 0; k < K; ++k) {
-    const float* row = src + (size_t)io[k] * C;
+    const T* row = src + (size_t)io[k] * C;
     for (int c = lane; c < C; c += 32) o[(size_t)k * C + c] = row[c];
   }
 }
 
-}  // namespace
-
-P2PB_API int p2pb_ball_query_group(const void* centers, const void* points,
-                                   const void* rows, int B, int M, int N,
-                                   int C, int K, float r2, void* out,
-                                   void* idx, void* stream) {
+template <typename T>
+int ball_query_group(const void* centers, const void* points, const void* rows,
+                     int B, int M, int N, int C, int K, float r2, void* out,
+                     void* idx, cudaStream_t s) {
   const int threads = 256;  // 8 centres per block
   const long long warps = (long long)B * M;
   const int blocks = (int)((warps * 32 + threads - 1) / threads);
-  ball_query_group_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const float*)centers, (const float*)points, (const float*)rows, B, M, N,
-      C, K, r2, (float*)out, (int32_t*)idx);
+  ball_query_group_kernel<T><<<blocks, threads, 0, s>>>(
+      (const float*)centers, (const float*)points, (const T*)rows, B, M, N, C,
+      K, r2, (T*)out, (int32_t*)idx);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// rows and out are bf16 when bf16 = 1, else f32
+P2PB_API int p2pb_ball_query_group(const void* centers, const void* points,
+                                   const void* rows, int B, int M, int N,
+                                   int C, int K, float r2, int bf16, void* out,
+                                   void* idx, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (bf16)
+    return ball_query_group<p2pb::bf16>(centers, points, rows, B, M, N, C, K,
+                                        r2, out, idx, s);
+  return ball_query_group<float>(centers, points, rows, B, M, N, C, K, r2, out,
+                                 idx, s);
 }

@@ -8,7 +8,10 @@ The flags are those of the root denoise_object.py, plus ``--device``.
 (``.pt``/``.pth``, or a checkpoint dict holding one under ``model`` /
 ``ema``) or an ``.npz`` of JAX params with flattened ``a/b/c`` keys; the
 ``opt.yaml`` saved beside it gives the configuration. Free ``--a.b value``
-arguments override configuration entries. This slice computes in f32.
+arguments override configuration entries. The backbone computes in the
+configuration's dtype: bf16 where ``training.amp`` is set and
+``model.compute_dtype`` is not (the shipped PVDS_PUNet), f32 with
+``--model.compute_dtype f32``.
 """
 
 from __future__ import annotations
@@ -20,12 +23,11 @@ import os
 import numpy as np
 import torch
 
-from p2p_bridge_tpu.data.transforms import normalize_unit_sphere
-from p2p_bridge_tpu.utils.io import load_point_cloud, write_xyz
-
-from .inference import patch_based_denoise
+from .inference import normalize_unit_sphere, patch_based_denoise
 from .models.p2pb import P2PBridge
-from .models.unet_pvc import build_unet_from_config
+from .models.unet_pvc import build_unet_from_config, compute_dtype
+from .utils.config import apply_dot_overrides, load_yaml
+from .utils.io import load_point_cloud, write_xyz
 from .weights import load_jax_params, load_npz, load_torch_state_dict
 
 logger = logging.getLogger("p2pb")
@@ -52,15 +54,13 @@ def parse_args(argv=None):
 def load_config(model_path: str, overrides) -> dict:
     """opt.yaml beside the weights (or in their directory's parent), with
     ``--a.b value`` overrides applied."""
-    from p2p_bridge_tpu.utils.config import Config, apply_dot_overrides  # reads YAML
-
     base = os.path.dirname(os.path.abspath(model_path))
     for cand in (base, os.path.dirname(base)):
         path = os.path.join(cand, "opt.yaml")
         if os.path.exists(path):
-            cfg = Config.load(path)
+            cfg = load_yaml(path)
             apply_dot_overrides(cfg, list(overrides))
-            return cfg.to_dict()
+            return cfg
     raise FileNotFoundError(f"opt.yaml not found near {model_path}")
 
 
@@ -84,10 +84,7 @@ def main(argv=None) -> str:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda, but no CUDA device is available")
     cfg = load_config(args.model_path, overrides)
-    model_cfg = cfg["model"]
-    if model_cfg.get("compute_dtype") != "f32":
-        logger.info("computing in f32 (the bf16 path is not ported yet)")
-        model_cfg["compute_dtype"] = "f32"
+    logger.info("computing in %s", compute_dtype(cfg))
     torch.manual_seed(args.seed)
 
     model = build_unet_from_config(cfg)

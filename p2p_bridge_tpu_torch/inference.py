@@ -15,6 +15,18 @@ import torch
 from .ops import batched_take, furthest_point_sample, knn
 
 
+def normalize_unit_sphere(pcl: np.ndarray, center=None, scale=None):
+    """Bounding-box centre and max-norm scale of a cloud [N, 3] (a copy of
+    p2p_bridge_tpu/data/transforms.py:normalize_unit_sphere) ->
+    (normalised cloud, center [1, 3], scale)."""
+    if center is None:
+        center = (pcl.max(axis=0, keepdims=True) + pcl.min(axis=0, keepdims=True)) / 2
+    pcl = pcl - center
+    if scale is None:
+        scale = np.sqrt((pcl**2).sum(axis=1)).max()
+    return pcl / scale, center, scale
+
+
 def _denoise_one(bridge, pcl: torch.Tensor, patch_size: int, num_seeds: int,
                  steps: int, clip_denoise: bool, save_intermediate: bool):
     """pcl [1, N, 3] -> (flat denoised [1, S*K, 3], chain [T, S*K, 3] or None)."""

@@ -1,11 +1,11 @@
 """Build, load and launch the hand-written CUDA kernels under ``csrc/``.
 
-The sources compile with ``nvcc`` into one shared library with a plain C
-interface, bound with ``ctypes`` (no PyTorch headers, so a build takes
-seconds). The library is built at first use into
-``build/p2p_bridge_tpu_torch/<hash>/`` at the repository root, keyed by a
-hash of the sources and the flags, so an edited source rebuilds. A failed
-build raises.
+The sources compile with ``nvcc`` (one process per source, all started
+together) and link into one shared library with a plain C interface,
+bound with ``ctypes`` (no PyTorch headers, so a build takes seconds). The
+library is built at first use into ``build/p2p_bridge_tpu_torch/<hash>/``
+at the repository root, keyed by a hash of the sources and the flags, so
+an edited source rebuilds. A failed build raises.
 
 Every op module checks its tensors and then calls :func:`launch`, which
 runs the C entry point on ``torch.cuda.current_stream()``, raises on a
@@ -27,27 +27,32 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("fps.cu", "ball_query_group.cu", "voxelize.cu", "conv3d_gn.cu")
+SOURCES = ("fps.cu", "ball_query_group.cu", "voxelize.cu", "conv3d_gn.cu",
+           "devoxelize.cu", "interpolate.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "p2p_bridge_tpu_torch"
 
 # kernel name -> number of launches since the last reset
-launch_counts = {"fps": 0, "ball_query_group": 0, "avg_voxelize": 0, "conv3d_gn": 0}
+launch_counts = {"fps": 0, "ball_query_group": 0, "avg_voxelize": 0, "conv3d_gn": 0,
+                 "trilinear_devoxelize": 0, "three_nn_interpolate": 0}
 
 _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _SIGNATURES = {
-    # name: (restype, argtypes)
+    # name: (restype, argtypes); every launching entry ends with the stream
     "p2pb_fps": (_I, (_P, _I, _I, _I, _P, _P, _P)),
     "p2pb_fps_scratch_bytes": (_LL, (_I, _I)),
-    "p2pb_ball_query_group": (_I, (_P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P, _P)),
-    "p2pb_avg_voxelize": (_I, (_P, _P, _I, _I, _I, _I, _P, _P, _P)),
+    "p2pb_ball_query_group": (_I, (_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P, _P, _P)),
+    "p2pb_avg_voxelize": (_I, (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P)),
     "p2pb_conv3d_gn": (
-        _I, (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P, _P)),
-    "p2pb_conv3d_gn_scratch_bytes": (_LL, (_I, _I, _I, _I)),
+        _I, (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P, _P, _P)),
+    "p2pb_conv3d_gn_scratch_bytes": (_LL, (_I, _I, _I, _I, _I)),
+    "p2pb_trilinear_devoxelize": (_I, (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P)),
+    "p2pb_devoxelize_scratch_bytes": (_LL, (_I, _I, _I)),
+    "p2pb_three_nn_interpolate": (_I, (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P)),
     "p2pb_error_string": (ctypes.c_char_p, (_I,)),
 }
 
@@ -78,20 +83,31 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the kernels unless the library for these sources exists."""
+    """Compile the kernels unless the library for these sources exists:
+    one nvcc per source, all at once, then one link."""
     out = library_path()
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent build sees whole files only
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        objs = [os.path.join(tmp, src + ".o") for src in SOURCES]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(CSRC / src)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(SOURCES, objs)]
+        failed = []
+        for src, proc in zip(SOURCES, procs):
+            log = proc.communicate()[0]
+            if proc.returncode != 0:
+                failed.append(f"{src} ({proc.returncode}):\n{log}")
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        lib = os.path.join(tmp, "lib.so")
+        proc = subprocess.run([nvcc, "-shared", "-o", lib, *objs],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"link failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+        os.replace(lib, out)  # atomic: a concurrent build sees whole files only
     return out
 
 
@@ -113,6 +129,13 @@ def on_card(t: torch.Tensor) -> bool:
     if t.device.type != "cpu":
         raise ValueError(f"tensors must lie on a CUDA card or the CPU, not {t.device}")
     return False
+
+
+def data_dtype(t: torch.Tensor) -> torch.dtype:
+    """The element type of a kernel's data tensor: f32 or bf16."""
+    if t.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"kernels take float32 or bfloat16 data, not {t.dtype}")
+    return t.dtype
 
 
 def launch(kernel: str, entry: str, device: torch.device, *args) -> None:

@@ -2,9 +2,10 @@
 p2p_bridge_tpu/models/p2pb.py, inference half; ``loss_fn`` comes with
 training).
 
-The schedule and the per-step sampler coefficients are the JAX package's
-numpy ``BridgeSchedule`` / ``SamplerPlan``; ``sample`` is a Python loop over
-the plan with one backbone forward per step. x0 is the clean cloud, x1 the
+The schedule and the per-step sampler coefficients are numpy
+(``schedules.BridgeSchedule`` / ``SamplerPlan``); ``sample`` is a Python
+loop over the plan with one backbone forward per step. The sampler state
+stays f32 whatever the backbone computes in. x0 is the clean cloud, x1 the
 noisy one. Tensors are [B, N, C].
 """
 
@@ -16,7 +17,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-from p2p_bridge_tpu.models.schedules import BridgeSchedule, space_indices
+from .schedules import BridgeSchedule, space_indices
 
 
 def _coef(values, steps: torch.Tensor) -> torch.Tensor:

@@ -227,40 +227,45 @@ class PVConv(nn.Module):
     AdaGN (+ swish)] -> SE gate -> trilinear devoxelize -> + point-branch
     SharedMLP -> optional linear attention.
 
-    features [B, N, C_in], coords [B, N, 3] -> [B, N, C_out]. Each conv and
-    its norm run as one ``conv3d_gn`` call, AdaGN folded into a per-cloud
-    affine; the SE gate is applied on the points (it commutes with the
-    linear devoxelization)."""
+    features [B, N, C_in], coords [B, N, 3] -> [B, N, C_out] in ``dtype``.
+    Each conv and its norm run as one ``conv3d_gn`` call (inputs in
+    ``dtype``, f32 accumulator and statistics), AdaGN folded into a
+    per-cloud f32 affine; the SE gate is applied on the points (it
+    commutes with the linear devoxelization)."""
 
     def __init__(self, spec: PVConvSpec, cond_dim: int = 0, dropout: float = 0.1,
-                 use_se: bool = True, attn_heads: int = 4):
+                 use_se: bool = True, attn_heads: int = 4,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.spec = spec
+        self.dtype = dtype
         cin, cout = spec.in_channels, spec.out_channels
 
         def norm():
-            return AdaGN(cout, cond_dim) if cond_dim else GroupNorm(8, cout, eps=1e-5)
+            return (AdaGN(cout, cond_dim, dtype=dtype) if cond_dim
+                    else GroupNorm(8, cout, eps=1e-5, dtype=dtype))
 
         layers = [nn.Conv3d(cin, cout, 3, padding=1), norm(), Swish(),
                   nn.Dropout(dropout), nn.Conv3d(cout, cout, 3, padding=1), norm()]
         if use_se:
-            layers.append(SE(cout))
+            layers.append(SE(cout, dtype=dtype))
         self.voxel_layers = nn.Sequential(*layers)
-        self.point_features = SharedMLP(cin, (cout,), cond_dim)
+        self.point_features = SharedMLP(cin, (cout,), cond_dim, dtype=dtype)
         if spec.attention:
-            self.attn = LinearAttention(cout, heads=attn_heads)
+            self.attn = LinearAttention(cout, heads=attn_heads, dtype=dtype)
 
     def _conv_gn(self, x, conv, norm, cond, act):
         if isinstance(norm, AdaGN) and cond is not None:
             gamma, beta = norm.affine(cond)
         else:
             gamma, beta = norm.weight, norm.bias
-        weight = conv.weight.permute(2, 3, 4, 1, 0)  # -> [3, 3, 3, Cin, Cout]
+        weight = conv.weight.permute(2, 3, 4, 1, 0).to(self.dtype)  # [3, 3, 3, Cin, Cout]
         return conv3d_gn(x, weight, conv.bias, gamma, beta, groups=8, eps=1e-5, act=act)
 
     def forward(self, features, coords, cond=None):
         r = self.spec.resolution
         vl = self.voxel_layers
+        features = features.to(self.dtype)
         vox, cont = normalize_coords_to_voxels(coords, r)
         grid = avg_voxelize(features.contiguous(), vox, r)
         h = self._conv_gn(grid, vl[0], vl[1], cond, act=True)
@@ -281,11 +286,11 @@ class PointNetSAModule(nn.Module):
     """Set abstraction: FPS centres -> ball query + group -> SharedMLP ->
     max over the neighbours. Returns (features [B, M, C_out], centres)."""
 
-    def __init__(self, spec: SASpec, cond_dim: int = 0):
+    def __init__(self, spec: SASpec, cond_dim: int = 0, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.spec = spec
         self.mlps = nn.ModuleList(
-            [SharedMLP(spec.in_channels + 3, spec.mlp_channels, cond_dim)])
+            [SharedMLP(spec.in_channels + 3, spec.mlp_channels, cond_dim, dtype=dtype)])
 
     def forward(self, features, coords, cond=None):
         s = self.spec
@@ -301,13 +306,15 @@ class PointNetSAModule(nn.Module):
 class PointNetFPModule(nn.Module):
     """Feature propagation: 3-NN upsample + skip concat + SharedMLP."""
 
-    def __init__(self, spec: FPSpec, cond_dim: int = 0):
+    def __init__(self, spec: FPSpec, cond_dim: int = 0, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.spec = spec
-        self.mlp = SharedMLP(spec.in_channels, spec.mlp_channels, cond_dim)
+        self.mlp = SharedMLP(spec.in_channels, spec.mlp_channels, cond_dim, dtype=dtype)
 
     def forward(self, coords, skip_features, lower_coords, lower_features, cond=None):
-        interp = nearest_neighbor_interpolate(coords, lower_coords, lower_features)
+        interp = nearest_neighbor_interpolate(coords.contiguous(), lower_coords.contiguous(),
+                                              lower_features.contiguous())
         if skip_features is not None:
+            # a bf16 interp beside an f32 skip promotes to f32, as in JAX
             interp = torch.cat([interp, skip_features], dim=-1)
         return self.mlp(interp, cond)

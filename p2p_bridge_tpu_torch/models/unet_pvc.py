@@ -1,9 +1,13 @@
 """PVCNN2 U-Net denoiser backbone (port of p2p_bridge_tpu/models/unet_pvc.py).
 
 x [B, N, 3] noisy coords, x_cond [B, N, F] extra features, t [B] bridge
-noise levels -> prediction [B, N, out_dim]. Submodule names are the
+noise levels -> prediction [B, N, out_dim] f32. Submodule names are the
 reference torch ``state_dict`` keys (``sa_layers``, ``fp_layers``,
 ``embedf``, ``global_pnet``, ``global_att``, ``classifier``...).
+
+``dtype`` is the compute dtype of the JAX module's ``dtype``: every block
+computes in it except the time embedding, the feature-embedding
+GroupNorm and the classifier's last Linear, which stay f32 as there.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ from .modules import (
     AdaGN,
     Attention,
     GroupNorm,
+    Linear,
     LinearAttention,
     Pnet2Stage,
     SharedMLP,
@@ -34,9 +39,11 @@ class PVCNN2Unet(nn.Module):
                  extra_feature_channels: int = 0, feat_embed_dim: int = 0,
                  embed_dim: int = 64, use_global_embedding: bool = True,
                  global_embedding_dim: int = 1024, attention_type: str = "linear",
-                 attention_heads: int = 4, dropout: float = 0.1, use_se: bool = True):
+                 attention_heads: int = 4, dropout: float = 0.1, use_se: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.plan = plan
+        self.dtype = dtype
         self.input_dim = input_dim
         self.extra_feature_channels = extra_feature_channels
         self.embed_dim = embed_dim
@@ -46,24 +53,25 @@ class PVCNN2Unet(nn.Module):
         self.embed_feats = None
         if f_embed != extra_feature_channels:
             src = input_dim if extra_feature_channels == 0 else extra_feature_channels
+            # the JAX module's embed_feats_gn has no dtype: f32 out
             self.embed_feats = nn.Sequential(
-                nn.Linear(src, f_embed), GroupNorm(8, f_embed, eps=1e-5), Swish(),
-                nn.Linear(f_embed, f_embed))
+                Linear(src, f_embed, dtype=dtype), GroupNorm(8, f_embed, eps=1e-5, dtype=None),
+                Swish(), Linear(f_embed, f_embed, dtype=dtype))
 
         cond_dim = 0
         if use_global_embedding:
             c = global_embedding_dim
-            self.global_pnet = Pnet2Stage(input_dim, (c // 8, c // 4), (c // 2, c))
+            self.global_pnet = Pnet2Stage(input_dim, (c // 8, c // 4), (c // 2, c), dtype)
             cond_dim = c
         self.embedf = time_embed_mlp(embed_dim)
 
         def pvconv(spec):
             return PVConv(spec, cond_dim=cond_dim, dropout=dropout, use_se=use_se,
-                          attn_heads=attention_heads)
+                          attn_heads=attention_heads, dtype=dtype)
 
         sa_layers = []
         for stage in plan.sa_stages:
-            sa = PointNetSAModule(stage.sa, cond_dim)
+            sa = PointNetSAModule(stage.sa, cond_dim, dtype)
             convs = [pvconv(s) for s in stage.convs]
             sa_layers.append(nn.Sequential(*convs, sa) if convs else sa)
         self.sa_layers = nn.ModuleList(sa_layers)
@@ -71,21 +79,23 @@ class PVCNN2Unet(nn.Module):
         kind = attention_type.lower()
         self.global_att = None
         if kind == "linear":
-            self.global_att = LinearAttention(plan.bottleneck_channels, heads=attention_heads)
+            self.global_att = LinearAttention(plan.bottleneck_channels, heads=attention_heads,
+                                              dtype=dtype)
         elif kind == "flash":
             self.global_att = Attention(plan.bottleneck_channels, heads=attention_heads)
 
         fp_layers = []
         for stage in plan.fp_stages:
-            fp = PointNetFPModule(stage.fp, cond_dim)
+            fp = PointNetFPModule(stage.fp, cond_dim, dtype)
             convs = [pvconv(s) for s in stage.convs]
             fp_layers.append(nn.Sequential(fp, *convs) if convs else fp)
         self.fp_layers = nn.ModuleList(fp_layers)
 
         last = plan.fp_stages[-1]
         head_in = last.convs[-1].out_channels if last.convs else last.fp.mlp_channels[-1]
+        # the last Linear stays f32: the regression target is full precision
         self.classifier = nn.Sequential(
-            SharedMLP(head_in, (plan.out_mlp,)), nn.Dropout(dropout),
+            SharedMLP(head_in, (plan.out_mlp,), dtype=dtype), nn.Dropout(dropout),
             nn.Linear(plan.out_mlp, out_dim))
 
     @staticmethod
@@ -114,6 +124,7 @@ class PVCNN2Unet(nn.Module):
 
         cond = self.global_pnet(coords) if self.use_global_embedding else None
         temb = self.embedf(timestep_embedding(t, self.embed_dim))
+        # f32 coords beside bf16 features promote to f32, as in JAX
         features = torch.cat([coords, features], dim=-1)
 
         def with_temb(feat):
@@ -148,22 +159,22 @@ class PVCNN2Unet(nn.Module):
         return out(drop(head(cur)).float())
 
 
+def compute_dtype(cfg) -> torch.dtype:
+    """bf16 when ``model.compute_dtype`` is "bf16", or is unset and
+    ``training.amp`` is true; else f32 (the JAX package's rule)."""
+    amp = cfg.get("training", {}).get("amp", False)
+    name = cfg["model"].get("compute_dtype", "bf16" if amp else "f32")
+    return torch.bfloat16 if name == "bf16" else torch.float32
+
+
 def build_unet_from_config(cfg) -> PVCNN2Unet:
-    """The backbone of a reference-style config (nested dict). Computes in
-    f32 only: ``model.compute_dtype`` bf16, or ``training.amp`` without an
-    explicit f32, raises."""
+    """The backbone of a reference-style config (nested dict), computing
+    in :func:`compute_dtype`."""
     model_cfg = cfg["model"]
     pvd = model_cfg["PVD"]
     input_dim = model_cfg.get("in_dim", 3)
     extra = pvd.get("extra_feature_channels", model_cfg.get("extra_feature_channels", 0))
     f_embed = pvd.get("feat_embed_dim", extra)
-    amp = cfg.get("training", {}).get("amp", False)
-    compute_dtype = model_cfg.get("compute_dtype", "bf16" if amp else "f32")
-    if compute_dtype != "f32":
-        raise NotImplementedError(
-            f"compute_dtype {compute_dtype!r} is not ported yet: the bf16 slice, with "
-            "the devoxelize kernel, is next on ROADMAP.md; set model.compute_dtype "
-            "to 'f32'")
     plan = build_pvcnn2_plan(
         npoints=cfg["data"]["npoints"],
         channels=list(pvd["channels"]),
@@ -191,6 +202,7 @@ def build_unet_from_config(cfg) -> PVCNN2Unet:
         attention_heads=pvd.get("attention_heads", 4),
         dropout=model_cfg.get("dropout", 0.1),
         use_se=pvd.get("use_se", True),
+        dtype=compute_dtype(cfg),
     )
 
 

@@ -1,9 +1,10 @@
 """Point-cloud ops of the port, channels-last like the JAX package
 (``[B, N, C]`` points, ``[B, r, r, r, C]`` grids).
 
-The plain ``ball_query`` and the fused ``conv3d_gn`` are reached through
-their modules (``ops.ball_query``, ``ops.conv3d_gn``), whose names they
-share."""
+The plain ``ball_query``, the fused ``conv3d_gn`` and
+``three_nn_interpolate`` (which also returns the weights and indices) are
+reached through their modules (``ops.ball_query``, ``ops.conv3d_gn``,
+``ops.interpolate``)."""
 
 from .ball_query import ball_query_group
 from .common import batched_take, pairwise_sqdist, pairwise_sqdist_exact

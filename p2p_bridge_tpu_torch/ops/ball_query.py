@@ -4,8 +4,10 @@ grouping.py and fused_group.py).
 For each centre: the first K points in index order with squared distance
 (per-coordinate squares) < radius^2; slots past the hit count repeat the
 first hit; a centre with no hit gets index 0. The rows at those indices
-are gathered. On a CUDA tensor :func:`ball_query_group` launches kernel K4
-(``csrc/ball_query_group.cu``); on a CPU tensor it runs the plain version.
+are gathered in their own dtype (f32 or bf16; the distances are f32 from
+f32 coordinates). On a CUDA tensor :func:`ball_query_group` launches
+kernel K4 (``csrc/ball_query_group.cu``); on a CPU tensor it runs the
+plain version.
 """
 
 from __future__ import annotations
@@ -41,22 +43,22 @@ def ball_query(centers: torch.Tensor, points: torch.Tensor, radius: float,
 
 def ball_query_group_plain(centers, points, rows, radius, num_neighbors):
     idx = ball_query(centers, points, radius, num_neighbors)
-    return batched_take(rows.float(), idx), idx
+    return batched_take(rows, idx), idx
 
 
 def _ball_query_group_cuda(centers, points, rows, radius, num_neighbors):
     B, M, _ = centers.shape
     N, C, K = points.shape[1], rows.shape[-1], num_neighbors
-    dev = centers.device
+    dev, dt = centers.device, kernels.data_dtype(rows)
     kernels.require(centers, "centers", torch.float32, (B, M, 3), dev)
     kernels.require(points, "points", torch.float32, (B, N, 3), dev)
-    kernels.require(rows, "rows", torch.float32, (B, N, C), dev)
-    out = torch.empty((B, M, K, C), dtype=torch.float32, device=dev)
+    kernels.require(rows, "rows", dt, (B, N, C), dev)
+    out = torch.empty((B, M, K, C), dtype=dt, device=dev)
     idx = torch.empty((B, M, K), dtype=torch.int32, device=dev)
     kernels.launch(
         "ball_query_group", "p2pb_ball_query_group", dev, centers.data_ptr(),
         points.data_ptr(), rows.data_ptr(), B, M, N, C, K,
-        _radius_sq(radius), out.data_ptr(), idx.data_ptr())
+        _radius_sq(radius), int(dt == torch.bfloat16), out.data_ptr(), idx.data_ptr())
     return out, idx
 
 
@@ -67,9 +69,9 @@ def ball_query_group(centers: torch.Tensor, points: torch.Tensor,
     Args:
       centers: [B, M, 3] query centres.
       points: [B, N, 3] selection coordinates.
-      rows: [B, N, C] rows to gather (typically [coords | features]).
+      rows: [B, N, C] f32 or bf16 rows to gather (typically [coords | features]).
     Returns:
-      (gathered [B, M, K, C] f32, idx [B, M, K] int32)
+      (gathered [B, M, K, C] of rows' dtype, idx [B, M, K] int32)
     """
     if kernels.on_card(centers):
         return _ball_query_group_cuda(centers, points, rows, radius, num_neighbors)

@@ -3,8 +3,12 @@ p2p_bridge_tpu/models/modules.py:428-434 (ZPackConv3d with ``gn``) and the
 math of p2p_bridge_tpu/ops/pallas/conv3d_kernel.py:_ref_conv and
 _apply_gn_xla.
 
-On a CUDA tensor :func:`conv3d_gn` launches kernel K1
-(``csrc/conv3d_gn.cu``); on a CPU tensor it runs the plain version.
+x and weight are f32 or bf16 (the compute dtype); bias, gamma and beta
+are f32. The conv accumulates in f32, the GroupNorm statistics come from
+that f32 accumulator and the result is stored in x's dtype, as the TPU
+kernel's epilogue does. On a CUDA tensor :func:`conv3d_gn` launches
+kernel K1 (``csrc/conv3d_gn.cu``); on a CPU tensor it runs the plain
+version.
 """
 
 from __future__ import annotations
@@ -34,31 +38,37 @@ def apply_group_norm(y: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
 
 
 def conv3d_gn_plain(x, weight, bias, gamma, beta, groups=8, eps=1e-5, act=False):
-    y = F.conv3d(x.permute(0, 4, 1, 2, 3), weight.permute(4, 3, 0, 1, 2),
-                 bias, padding=1)
-    return apply_group_norm(y.permute(0, 2, 3, 4, 1), gamma, beta, groups, eps, act)
+    """In f32 on x's and weight's values (exact products of bf16 inputs),
+    stored in x's dtype."""
+    y = F.conv3d(x.float().permute(0, 4, 1, 2, 3), weight.float().permute(4, 3, 0, 1, 2),
+                 bias.float(), padding=1)
+    y = apply_group_norm(y.permute(0, 2, 3, 4, 1), gamma, beta, groups, eps, act)
+    return y.to(x.dtype)
 
 
 def _conv3d_gn_cuda(x, weight, bias, gamma, beta, groups, eps, act):
     B, R = x.shape[0], x.shape[1]
     cin, cout = weight.shape[3], weight.shape[4]
-    dev = x.device
-    kernels.require(x, "x", torch.float32, (B, R, R, R, cin), dev)
-    kernels.require(weight, "weight", torch.float32, (3, 3, 3, cin, cout), dev)
+    dev, dt = x.device, kernels.data_dtype(x)
+    kernels.require(x, "x", dt, (B, R, R, R, cin), dev)
+    kernels.require(weight, "weight", dt, (3, 3, 3, cin, cout), dev)
     kernels.require(bias, "bias", torch.float32, (cout,), dev)
     affine_shape = (B, cout) if gamma.dim() == 2 else (cout,)
     kernels.require(gamma, "gamma", torch.float32, affine_shape, dev)
     kernels.require(beta, "beta", torch.float32, affine_shape, dev)
     if cout % groups:
         raise ValueError(f"Cout={cout} is not a multiple of groups={groups}")
+    if dt == torch.bfloat16 and cout % 8:
+        raise ValueError(f"bf16 conv3d_gn needs Cout % 8 == 0, got Cout={cout}")
+    bf16 = int(dt == torch.bfloat16)
     lib = kernels.library()
-    y = torch.empty((B, R, R, R, cout), dtype=torch.float32, device=dev)
-    scratch = torch.empty(lib.p2pb_conv3d_gn_scratch_bytes(B, R, cout, groups),
+    y = torch.empty((B, R, R, R, cout), dtype=dt, device=dev)
+    scratch = torch.empty(lib.p2pb_conv3d_gn_scratch_bytes(B, R, cout, groups, bf16),
                           dtype=torch.uint8, device=dev)
     kernels.launch(
         "conv3d_gn", "p2pb_conv3d_gn", dev, x.data_ptr(), weight.data_ptr(),
         bias.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-        int(gamma.dim() == 2), B, R, cin, cout, groups, eps, int(act),
+        int(gamma.dim() == 2), B, R, cin, cout, groups, eps, int(act), bf16,
         y.data_ptr(), scratch.data_ptr())
     return y
 
@@ -66,9 +76,9 @@ def _conv3d_gn_cuda(x, weight, bias, gamma, beta, groups, eps, act):
 def conv3d_gn(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
               gamma: torch.Tensor, beta: torch.Tensor, groups: int = 8,
               eps: float = 1e-5, act: bool = False) -> torch.Tensor:
-    """x [B, R, R, R, Cin] f32, weight [3, 3, 3, Cin, Cout] (DHWIO), bias
-    [Cout], gamma/beta [Cout] shared or [B, Cout] per cloud (the AdaGN
-    fold) -> [B, R, R, R, Cout]."""
+    """x [B, R, R, R, Cin] f32 or bf16, weight [3, 3, 3, Cin, Cout] (DHWIO)
+    of x's dtype, bias [Cout], gamma/beta [Cout] shared or [B, Cout] per
+    cloud (the AdaGN fold) -> [B, R, R, R, Cout] of x's dtype."""
     if kernels.on_card(x):
         return _conv3d_gn_cuda(x.contiguous(), weight.contiguous(), bias.contiguous(),
                                gamma.contiguous(), beta.contiguous(), groups, eps, act)

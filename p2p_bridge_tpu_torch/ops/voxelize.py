@@ -1,8 +1,9 @@
 """Average voxelization (port of p2p_bridge_tpu/ops/voxelize.py, forward).
 
-Flat index x*r^2 + y*r + z, per-voxel feature sum and point count, output
-sum / max(count, 1). On a CUDA tensor :func:`avg_voxelize` launches kernel
-K2 (``csrc/voxelize.cu``); on a CPU tensor it runs the plain version.
+Flat index x*r^2 + y*r + z, per-voxel f32 feature sum and point count,
+output sum / max(count, 1) in the features' dtype (f32 or bf16). On a CUDA
+tensor :func:`avg_voxelize` launches kernel K2 (``csrc/voxelize.cu``); on
+a CPU tensor it runs the plain version.
 """
 
 from __future__ import annotations
@@ -50,14 +51,18 @@ def avg_voxelize_plain(features: torch.Tensor, vox_coords: torch.Tensor,
 def _avg_voxelize_cuda(features, vox_coords, resolution):
     B, N, C = features.shape
     r = resolution
-    dev = features.device
-    kernels.require(features, "features", torch.float32, (B, N, C), dev)
+    dev, dt = features.device, kernels.data_dtype(features)
+    kernels.require(features, "features", dt, (B, N, C), dev)
     kernels.require(vox_coords, "vox_coords", torch.int32, (B, N, 3), dev)
-    out = torch.zeros((B, r ** 3, C), dtype=torch.float32, device=dev)
+    if max(B * N, B * r ** 3) * C >= 2 ** 31:
+        raise ValueError(f"avg_voxelize: B={B}, N={N}, r={r}, C={C} overflow 32-bit indices")
+    acc = torch.zeros((B, r ** 3, C), dtype=torch.float32, device=dev)
     cnt = torch.zeros((B, r ** 3), dtype=torch.float32, device=dev)
+    out = acc if dt == torch.float32 else torch.empty((B, r ** 3, C), dtype=dt, device=dev)
     kernels.launch(
         "avg_voxelize", "p2pb_avg_voxelize", dev, features.data_ptr(),
-        vox_coords.data_ptr(), B, N, C, r, out.data_ptr(), cnt.data_ptr())
+        vox_coords.data_ptr(), B, N, C, r, int(dt == torch.bfloat16),
+        acc.data_ptr(), cnt.data_ptr(), out.data_ptr())
     return out.view(B, r, r, r, C)
 
 

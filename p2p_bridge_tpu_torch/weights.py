@@ -1,10 +1,12 @@
 """Weights into the port: JAX param trees and reference torch state_dicts.
 
-The port's module tree carries the reference torch ``state_dict`` keys, so
-the name map of p2p_bridge_tpu/utils/torch_compat.py serves both ways:
+The port's module tree carries the reference torch ``state_dict`` keys.
+The flax -> torch name map below (``_torch_key`` and its helpers) is a
+copy of the one in p2p_bridge_tpu/utils/torch_compat.py; tests hold the
+two equal on the PVDS_PUNet and TINY parameter trees.
 
 * ``load_jax_params(model, params)`` maps every flax leaf to its torch key
-  with ``_torch_key`` and inverts ``_transform`` (kernel [in, out] ->
+  with ``_torch_key`` and transposes its layout (kernel [in, out] ->
   weight [out, in]; conv kernel [3, 3, 3, in, out] -> [out, in, 3, 3, 3]).
 * ``convert_torch_state_dict(port.state_dict(), flax_template)`` (in the
   JAX package) is the other direction, with no new mapping code.
@@ -24,10 +26,107 @@ import numpy as np
 import torch
 from torch import nn
 
-from p2p_bridge_tpu.utils.torch_compat import _torch_key
-
 Path = Tuple[str, ...]
 _LEAF_TO_TORCH = {"kernel": "weight", "scale": "weight", "bias": "bias"}
+
+
+def _torch_key(flax_path, conv_counts) -> str:
+    """Map one flax param path (tuple of names, without the trailing
+    kernel/bias leaf) to the torch parameter prefix."""
+    top = flax_path[0]
+    rest = flax_path[1:]
+
+    if top == "embedf":
+        k = int(rest[0].split("_")[1])
+        return f"embedf.{0 if k == 0 else 2}"
+    if top == "embed_feats_0":
+        return "embed_feats.0"
+    if top == "embed_feats_gn":
+        return "embed_feats.1"
+    if top == "embed_feats_1":
+        return "embed_feats.3"
+    if top == "global_pnet":
+        m = int(rest[0].split("_")[1]) + 1  # MyGroupNormMLP_{0,1} -> mlp{1,2}
+        sub = rest[1]
+        k = int(sub.split("_")[1])
+        base = f"global_pnet.mlp{m}.shared_mlp_{k}.mlp"
+        if sub.startswith("Dense"):
+            return f"{base}.0"
+        return f"{base}.1.group_norm"
+    if top == "global_att":
+        return f"global_att.{rest[0]}"
+    if top == "classifier_mlp":
+        if rest[0].startswith("Dense"):
+            return "classifier.0.layers.0"
+        return "classifier.0.layers.1"
+    if top == "classifier_out":
+        return "classifier.2"
+
+    # sa{i}_conv{j} / sa{i}_module / fp{j}_module / fp{j}_conv{k}
+    if top.startswith("sa") and "_conv" in top:
+        i, j = int(top[2:].split("_conv")[0]), int(top.split("_conv")[1])
+        nconvs = conv_counts["sa"][i]
+        prefix = f"sa_layers.{i}.{j}" if nconvs + 1 > 1 else f"sa_layers.{i}"
+        return _pvconv_key(prefix, rest)
+    if top.startswith("sa") and top.endswith("_module"):
+        i = int(top[2:].split("_")[0])
+        nconvs = conv_counts["sa"][i]
+        prefix = f"sa_layers.{i}.{nconvs}" if nconvs > 0 else f"sa_layers.{i}"
+        return _shared_mlp_key(f"{prefix}.mlps.0.layers", rest[1:])
+    if top.startswith("fp") and top.endswith("_module"):
+        j = int(top[2:].split("_")[0])
+        nconvs = conv_counts["fp"][j]
+        prefix = f"fp_layers.{j}.0" if nconvs > 0 else f"fp_layers.{j}"
+        return _shared_mlp_key(f"{prefix}.mlp.layers", rest[1:])
+    if top.startswith("fp") and "_conv" in top:
+        j, k = int(top[2:].split("_conv")[0]), int(top.split("_conv")[1])
+        prefix = f"fp_layers.{j}.{k + 1}"
+        return _pvconv_key(prefix, rest)
+    raise KeyError(f"unmapped flax module: {flax_path}")
+
+
+def _pvconv_key(prefix, rest) -> str:
+    node = rest[0]
+    if node == "vconv1":
+        return f"{prefix}.voxel_layers.0"
+    if node == "vconv2":
+        return f"{prefix}.voxel_layers.4"
+    if node == "vnorm1":
+        return _norm_key(f"{prefix}.voxel_layers.1", rest[1:])
+    if node == "vnorm2":
+        return _norm_key(f"{prefix}.voxel_layers.5", rest[1:])
+    if node == "SE_0":
+        k = int(rest[1].split("_")[1])
+        return f"{prefix}.voxel_layers.6.fc.{0 if k == 0 else 2}"
+    if node == "point_features":
+        sub = rest[1]
+        if sub.startswith("Dense"):
+            return f"{prefix}.point_features.layers.0"
+        return _norm_key(f"{prefix}.point_features.layers.1", rest[2:])
+    if node == "attn":
+        return f"{prefix}.attn.{rest[1]}"
+    raise KeyError(f"unmapped PVConv node: {prefix} {rest}")
+
+
+def _norm_key(prefix, rest) -> str:
+    """AdaGN (GroupNorm_0 + Dense_0 children) or plain GroupNorm."""
+    if not rest:  # plain GroupNorm leaf module
+        return prefix
+    inner = rest[0]
+    if inner.startswith("GroupNorm"):
+        return f"{prefix}.norm"
+    if inner.startswith("Dense"):
+        return f"{prefix}.emd"
+    raise KeyError(f"unmapped norm node: {prefix} {rest}")
+
+
+def _shared_mlp_key(base, rest) -> str:
+    node = rest[0]
+    k = int(node.split("_")[1])
+    if node.startswith("Dense"):
+        return f"{base}.{3 * k}"
+    # AdaGN_k -> layers.{3k+1}
+    return _norm_key(f"{base}.{3 * k + 1}", rest[1:])
 
 
 def flatten_params(params: Mapping) -> Dict[Path, np.ndarray]:
@@ -84,7 +183,7 @@ def _conv_counts(paths) -> dict:
 
 
 def _to_torch_layout(leaf: np.ndarray, leaf_name: str) -> np.ndarray:
-    """Inverse of torch_compat._transform for the port's layouts."""
+    """A flax leaf in the port's torch layout."""
     if leaf_name != "kernel":
         return leaf
     if leaf.ndim == 2:  # Dense [in, out] -> Linear [out, in]

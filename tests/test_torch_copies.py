@@ -1,0 +1,155 @@
+"""The framework-free code the port keeps its own copy of, held against
+the JAX package's original: the bridge schedule and sampler plan, the
+flax -> torch key map, point-cloud I/O, the object normalisation and the
+CLI's YAML reader."""
+
+import copy
+import dataclasses
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+from test_torch_model import bf16_tiny, tiny
+
+from p2p_bridge_tpu.data.transforms import normalize_unit_sphere as jax_normalize
+from p2p_bridge_tpu.models import schedules as jax_schedules
+from p2p_bridge_tpu.models.unet_pvc import build_unet_from_config as jax_build
+from p2p_bridge_tpu.utils import config as jax_config
+from p2p_bridge_tpu.utils import io as jax_io
+from p2p_bridge_tpu.utils import torch_compat
+from p2p_bridge_tpu_torch import inference, weights
+from p2p_bridge_tpu_torch.config import pvds_punet
+from p2p_bridge_tpu_torch.models import schedules
+from p2p_bridge_tpu_torch.utils import config as port_config
+from p2p_bridge_tpu_torch.utils import io as port_io
+
+ROOT = Path(__file__).resolve().parent.parent
+CONFIGS = ["PVDS_PUNet", "PVDL_SNPP", "PVDL_ARKIT"]
+
+
+def assert_same_fields(a, b):
+    fa, fb = dataclasses.asdict(a), dataclasses.asdict(b)
+    assert fa.keys() == fb.keys()
+    for k in fa:
+        np.testing.assert_array_equal(np.asarray(fa[k]), np.asarray(fb[k]), err_msg=k)
+        assert np.asarray(fa[k]).dtype == np.asarray(fb[k]).dtype, k
+
+
+@pytest.mark.parametrize("kw", [
+    dict(timesteps=1000, beta_start=1e-4, beta_end=0.02, t0=1e-4, T=1.0),
+    dict(timesteps=40, beta_start=1e-4, beta_end=0.02, t0=1e-4, T=1.0,
+         objective="pred_x0", snr_clip=True),
+    dict(timesteps=30, symmetric=False),
+])
+def test_schedule_and_sampler_plan_equal_the_original(kw):
+    port = schedules.BridgeSchedule.create(**kw)
+    orig = jax_schedules.BridgeSchedule.create(**kw)
+    assert_same_fields(port, orig)
+    for steps in (1, 5, 10, kw["timesteps"] - 1):
+        assert_same_fields(port.sampler_plan(steps), orig.sampler_plan(steps))
+        assert port.sampler_plan(steps).num_steps == steps
+    for n, c in ((10, 10), (10, 3), (1000, 1), (5, 0), (7, 2)):
+        assert schedules.space_indices(n, c) == jax_schedules.space_indices(n, c)
+    with pytest.raises(ValueError):
+        schedules.BridgeSchedule.create(timesteps=31)
+
+
+def flax_tree(cfg, n):
+    fmodel = jax_build(jax_config.Config(cfg))
+    return jax.eval_shape(lambda: fmodel.init(
+        {"params": jax.random.key(0)}, jnp.zeros((1, n, 3)), jnp.zeros((1,)), None, True))
+
+
+@pytest.mark.parametrize("name", ["PVDS_PUNet", "TINY", "TINY_bf16"])
+def test_key_map_equals_the_original(name):
+    """Every leaf path of the flax tree maps to the same torch key, with
+    the same per-stage conv counts."""
+    cfg, n = {"PVDS_PUNet": (pvds_punet(), 2048), "TINY": (tiny(), 256),
+              "TINY_bf16": (bf16_tiny(), 256)}[name]
+    flat = weights.flatten_params(flax_tree(cfg, n))
+    counts = weights._conv_counts(flat)
+    keys = [weights._torch_key(path[:-1], counts) for path in flat]
+    assert keys == [torch_compat._torch_key(path[:-1], counts) for path in flat]
+    assert len(set(zip(keys, (p[-1] for p in flat)))) == len(flat)
+    for prefix, rest in (("a", ("vnorm1", "GroupNorm_0")), ("a", ("SE_0", "Dense_1")),
+                         ("a", ("point_features", "AdaGN_0", "Dense_0"))):
+        assert weights._pvconv_key(prefix, rest) == torch_compat._pvconv_key(prefix, rest)
+    assert weights._norm_key("p", ()) == torch_compat._norm_key("p", ())
+    assert weights._shared_mlp_key("b", ("AdaGN_2", "Dense_0")) == \
+        torch_compat._shared_mlp_key("b", ("AdaGN_2", "Dense_0"))
+
+
+def cloud(n=50, seed=0):
+    rng = np.random.default_rng(seed)
+    return {"points": (rng.normal(size=(n, 3)) * 3).astype(np.float32),
+            "colors": rng.random((n, 3)).astype(np.float32),
+            "normals": rng.normal(size=(n, 3)).astype(np.float32),
+            "faces": rng.integers(0, n, size=(20, 3))}
+
+
+def assert_clouds_equal(a, b):
+    assert a.keys() == b.keys()
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+        assert a[k].dtype == b[k].dtype, k
+
+
+@pytest.mark.parametrize("binary", [True, False])
+def test_ply_round_trips_like_the_original(tmp_path, binary):
+    c = cloud()
+    path = tmp_path / "c.ply"
+    jax_io.write_ply(str(path), c["points"], colors=c["colors"], normals=c["normals"],
+                     faces=c["faces"], binary=binary)
+    got = port_io.read_ply(str(path))
+    assert_clouds_equal(got, jax_io.read_ply(str(path)))
+    np.testing.assert_allclose(got["points"], c["points"], rtol=1e-6)
+    jax_io.write_ply(str(path), c["points"], binary=binary)
+    assert_clouds_equal(port_io.load_point_cloud(str(path)),
+                        jax_io.load_point_cloud(str(path)))
+
+
+@pytest.mark.parametrize("ext", [".xyz", ".npy", ".npz"])
+def test_point_files_round_trip_like_the_original(tmp_path, ext):
+    c = cloud(seed=1)
+    path = tmp_path / f"c{ext}"
+    if ext == ".xyz":
+        port_io.write_xyz(str(path), np.concatenate([c["points"], c["colors"]], 1))
+        np.testing.assert_array_equal(port_io.read_xyz(str(path)), jax_io.read_xyz(str(path)))
+        other = tmp_path / "d.xyz"
+        jax_io.write_xyz(str(other), np.concatenate([c["points"], c["colors"]], 1))
+        assert path.read_bytes() == other.read_bytes()
+    elif ext == ".npy":
+        np.save(path, c["points"].astype(np.float64))
+    else:
+        np.savez(path, points=c["points"])
+    assert_clouds_equal(port_io.load_point_cloud(str(path)),
+                        jax_io.load_point_cloud(str(path)))
+    with pytest.raises(ValueError):
+        port_io.load_point_cloud(str(tmp_path / "c.obj"))
+
+
+def test_normalize_unit_sphere_equals_the_original():
+    p = cloud(seed=2)["points"] + 5.0
+    for args in ((), (np.ones((1, 3), np.float32), None), (None, 2.5)):
+        for a, b in zip(inference.normalize_unit_sphere(p, *args), jax_normalize(p, *args)):
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("name", CONFIGS)
+def test_config_reader_equals_the_original(name):
+    path = str(ROOT / "configs" / f"{name}.yaml")
+    port = port_config.load_yaml(path)
+    orig = jax_config.Config.load(path)
+    assert port == orig.to_dict()
+    argv = ["--model.PVD.channels", "[1, 2]", "--training.amp=false", "data.npoints=512",
+            "--new.key", "x", "stray", "--diffusion.T", "0.5", "--lonely"]
+    want_left = jax_config.apply_dot_overrides(orig, list(argv))
+    got_left = port_config.apply_dot_overrides(port, list(argv))
+    assert got_left == want_left == ["stray", "--lonely"]
+    assert port == orig.to_dict()
+    assert port["training"]["amp"] is False and port["model"]["PVD"]["channels"] == [1, 2]
+    again = copy.deepcopy(port)
+    port_config.set_dotted(again, "model.PVD.channels.x", 1)  # a list parent is replaced
+    assert again["model"]["PVD"]["channels"] == {"x": 1}

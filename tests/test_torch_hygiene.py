@@ -1,6 +1,7 @@
 """What the PyTorch port may import, and the facts it copies from the JAX
 package: the PVDS_PUNet configuration, the plan builder, the width."""
 
+import ast
 import dataclasses
 import json
 import os
@@ -21,11 +22,14 @@ ROOT = Path(__file__).resolve().parent.parent
 MAIN_PATH = [
     "p2p_bridge_tpu_torch", "p2p_bridge_tpu_torch.kernels", "p2p_bridge_tpu_torch.config",
     "p2p_bridge_tpu_torch.ops", "p2p_bridge_tpu_torch.ops.conv3d_gn",
+    "p2p_bridge_tpu_torch.ops.devoxelize", "p2p_bridge_tpu_torch.ops.interpolate",
     "p2p_bridge_tpu_torch.models.modules", "p2p_bridge_tpu_torch.models.pvcnn",
-    "p2p_bridge_tpu_torch.models.unet_pvc", "p2p_bridge_tpu_torch.models.p2pb",
-    "p2p_bridge_tpu_torch.weights", "p2p_bridge_tpu_torch.inference",
-    "p2p_bridge_tpu_torch.denoise_object", "chip_smoke",
+    "p2p_bridge_tpu_torch.models.unet_pvc", "p2p_bridge_tpu_torch.models.schedules",
+    "p2p_bridge_tpu_torch.models.p2pb", "p2p_bridge_tpu_torch.weights",
+    "p2p_bridge_tpu_torch.inference", "p2p_bridge_tpu_torch.utils.io",
+    "p2p_bridge_tpu_torch.utils.config", "p2p_bridge_tpu_torch.denoise_object", "chip_smoke",
 ]
+PORT_SOURCES = sorted((ROOT / "p2p_bridge_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
 def clean_env(**extra):
@@ -35,24 +39,57 @@ def clean_env(**extra):
     return env
 
 
-def test_main_path_imports_no_jax_flax_or_yaml():
+@pytest.fixture(scope="module")
+def main_path_modules():
+    """sys.modules after MAIN_PATH is imported in a fresh interpreter."""
     code = (
         "import importlib, json, sys\n"
         f"for m in {MAIN_PATH!r}: importlib.import_module(m)\n"
-        "print(json.dumps(sorted(m for m in ('jax', 'flax', 'yaml') if m in sys.modules)))\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=clean_env(),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def test_main_path_imports_no_jax_flax_or_yaml(main_path_modules):
+    assert [m for m in ("jax", "flax", "yaml") if m in main_path_modules] == []
+
+
+def test_main_path_loads_nothing_of_the_jax_package(main_path_modules):
+    assert [m for m in main_path_modules if is_jax_package(m)] == []
+
+
+def is_jax_package(module: str) -> bool:
+    return module == "p2p_bridge_tpu" or module.startswith("p2p_bridge_tpu.")
+
+
+def imported_modules(path: Path):
+    """Every module an import statement of ``path`` names (absolute
+    imports; a relative import stays inside its own package)."""
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+            yield from (f"{node.module}.{alias.name}" for alias in node.names)
 
 
 def test_port_sources_never_import_jax():
-    for path in (ROOT / "p2p_bridge_tpu_torch").rglob("*.py"):
-        for line in path.read_text().splitlines():
-            words = line.split()
-            if words[:1] in (["import"], ["from"]) and len(words) > 1:
-                assert words[1].split(".")[0] not in ("jax", "flax"), f"{path}: {line}"
+    for path in PORT_SOURCES:
+        for module in imported_modules(path):
+            assert module.split(".")[0] not in ("jax", "flax"), f"{path}: {module}"
+
+
+def test_port_sources_never_import_the_jax_package():
+    """No import of p2p_bridge_tpu or a submodule anywhere in the port or
+    chip_smoke.py, at any depth of a function."""
+    assert imported_modules(ROOT / "tests" / "test_torch_ops.py")  # the scan sees imports
+    assert any(is_jax_package(m) for m in imported_modules(ROOT / "tests" / "test_torch_ops.py"))
+    for path in PORT_SOURCES:
+        bad = [m for m in imported_modules(path) if is_jax_package(m)]
+        assert bad == [], f"{path}: {bad}"
 
 
 def test_chip_smoke_refuses_without_a_card():
@@ -69,6 +106,7 @@ def test_pvds_punet_dict_equals_yaml():
     assert PVDS_PUNET["data"] == {"npoints": cfg["data"]["npoints"]}
     assert PVDS_PUNET["diffusion"] == cfg["diffusion"]
     assert PVDS_PUNET["model"] == cfg["model"]
+    assert PVDS_PUNET["training"] == {"amp": cfg["training"]["amp"]} == {"amp": True}
 
 
 @pytest.mark.parametrize("name", ["PVDS_PUNet", "PVDL_SNPP", "PVDL_ARKIT"])

@@ -6,7 +6,14 @@ import numpy as np
 import pytest
 import torch
 import yaml
-from test_torch_model import GLOBAL_EMBED_TOL, TOL, build_pair, tiny
+from test_torch_model import (
+    GLOBAL_EMBED_TOL,
+    TOL,
+    bf16_tiny,
+    build_pair,
+    tiny,
+    with_compute_dtype,
+)
 
 from p2p_bridge_tpu.data.transforms import normalize_unit_sphere
 from p2p_bridge_tpu.inference import (
@@ -89,6 +96,30 @@ def test_patch_based_denoise_batch_matches_jax(bridges, mode):
     assert nearest.max().item() <= 2 * tol * max(1.0, np.abs(want_flat).max())
 
 
+def test_patch_based_denoise_batch_bf16_matches_jax():
+    """The bf16 backbone inside the bucketed patch denoise, against the
+    JAX package's bf16 program on the same weights (head scaled by 0.01,
+    as above). The denoised patches move by 0.01 of the network output
+    per step, so the bf16 spread of that output (tests/test_torch_model.py
+    BF16_REL_L2) is a small share of the patch coordinates: 1e-2 x
+    max(1, max|out|)."""
+    cfg = bf16_tiny()
+    fmodel, variables, tmodel = build_pair(cfg, head_scale=0.01)
+    assert tmodel.dtype == torch.bfloat16
+    fb, tb = JaxBridge.from_config(Config(cfg), fmodel), P2PBridge.from_config(cfg, tmodel)
+    pcls = noisy_sphere(4, 512)[None]
+    N, K, S = 512, 256, 6
+    want_flat, _ = _build_object_program(fb, N, K, S, 2, False, False)(variables, pcls)
+    want_flat = np.array(want_flat)
+    with torch.no_grad():
+        got_flat, _ = _denoise_one(tb, torch.from_numpy(pcls), K, S, 2, False, False)
+    err = np.abs(got_flat.numpy() - want_flat).max()
+    assert err <= 1e-2 * max(1.0, np.abs(want_flat).max()), err
+    got, _ = patch_based_denoise_batch(tb, pcls, patch_size=K, seed_k=3, steps=2,
+                                       recombine_mode="bucketed")
+    assert got.shape == (1, N, 3) and np.isfinite(got).all()
+
+
 def test_intermediate_steps_shape(bridges):
     _, _, tb, _ = bridges
     pcls = np.stack([noisy_sphere(1, 512), noisy_sphere(2, 512)])
@@ -104,8 +135,11 @@ def test_intermediate_steps_shape(bridges):
 def test_denoise_object_cli_on_cpu(tmp_path, weights):
     """The CLI loads opt.yaml + weights (JAX .npz or a reference-named torch
     checkpoint) and writes what patch_based_denoise_batch gives for the
-    same weights and cloud."""
-    cfg = tiny(True)
+    same weights and cloud. opt.yaml sets training.amp, so the CLI
+    computes in bf16; with the .npz weights an override
+    --model.compute_dtype f32 turns that back to f32."""
+    cfg = dict(tiny(True), training={"amp": True})
+    f32 = weights == "npz"
     tmodel = build_unet_from_config(cfg).eval()
     init_parameters(tmodel, torch.Generator().manual_seed(0))
     with torch.no_grad():
@@ -113,7 +147,7 @@ def test_denoise_object_cli_on_cpu(tmp_path, weights):
     run = tmp_path / "run"
     run.mkdir()
     with open(run / "opt.yaml", "w") as f:
-        yaml.safe_dump(dict(cfg, training={"amp": True}), f)
+        yaml.safe_dump(cfg, f)
     if weights == "npz":
         fmodel = jax_build(Config(cfg))
         template = jax.eval_shape(lambda: fmodel.init(
@@ -132,16 +166,25 @@ def test_denoise_object_cli_on_cpu(tmp_path, weights):
     write_xyz(str(data), cloud)
     out = denoise_object.main([
         "--data_path", str(data), "--model_path", str(model_path), "--device", "cpu",
-        "--steps", "2", "--recombine", "bucketed", "--data.npoints", "256"])
+        "--steps", "2", "--recombine", "bucketed", "--data.npoints", "256",
+        *(["--model.compute_dtype", "f32"] if f32 else [])])
     pts = read_xyz(out)
     assert pts.shape == (600, 3) and np.isfinite(pts).all()
 
     normed, center, scale = normalize_unit_sphere(read_xyz(str(data)))
-    expected, _ = patch_based_denoise_batch(
-        P2PBridge.from_config(cfg, tmodel), normed[None], patch_size=256, steps=2,
-        recombine_mode="bucketed")
+    expected = {}
+    for name in ("bf16", "f32"):
+        model = build_unet_from_config(with_compute_dtype(cfg, name)).eval()
+        model.load_state_dict(tmodel.state_dict())
+        denoised, _ = patch_based_denoise_batch(
+            P2PBridge.from_config(cfg, model), normed[None], patch_size=256, steps=2,
+            recombine_mode="bucketed")
+        expected[name] = denoised[0] * scale + center
+    want, other = ((expected["f32"], expected["bf16"]) if f32
+                   else (expected["bf16"], expected["f32"]))
     # the .xyz files keep 6 decimals
-    np.testing.assert_allclose(pts, expected[0] * scale + center, atol=2e-6)
+    np.testing.assert_allclose(pts, want, atol=2e-6)
+    assert np.abs(pts - other).max() > 1e-5
 
 
 def test_denoise_object_cli_requires_cuda_when_asked(tmp_path, monkeypatch):

@@ -231,12 +231,90 @@ def test_load_torch_state_dict_takes_reference_shapes(pair):
         load_torch_state_dict(fresh, ref)
 
 
-def test_bf16_compute_dtype_raises():
-    cfg = tiny()
-    cfg["model"]["compute_dtype"] = "bf16"
-    with pytest.raises(NotImplementedError, match="bf16"):
-        build_unet_from_config(cfg)
-    cfg["model"].pop("compute_dtype")
+def test_compute_dtype_follows_the_config():
+    """PVDS_PUNet as shipped (training.amp, no compute_dtype) computes in
+    bf16 with f32 parameters, as the JAX package builds it;
+    model.compute_dtype wins over training.amp."""
+    cfg = pvds_punet()
+    with torch.device("meta"):
+        model = build_unet_from_config(cfg)
+    assert model.dtype == torch.bfloat16
+    assert sum(p.numel() for p in model.parameters()) == 26_441_155
+    assert {p.dtype for p in model.parameters()} == {torch.float32}
+    assert jax_build(Config(cfg)).dtype == jnp.bfloat16
+    cfg["model"]["compute_dtype"] = "f32"
+    with torch.device("meta"):
+        assert build_unet_from_config(cfg).dtype == torch.float32
+    small = tiny()
+    assert build_unet_from_config(small).dtype == torch.float32  # no training section
+    small["training"] = {"amp": True}
+    assert build_unet_from_config(small).dtype == torch.bfloat16
+
+
+def bf16_tiny():
+    """TINY at four times its widths, computing in bf16. At TINY's own
+    widths (GroupNorm groups of 1-2 channels) bf16 rounding is amplified
+    layer by layer until JAX's own bf16 and f32 outputs differ by more
+    than max|out| with the global embedding; at these widths they differ
+    by 3-6% (relative L2, measured on these inputs)."""
+    cfg = tiny(True)
+    pvd = cfg["model"]["PVD"]
+    pvd["channels"] = [32, 32, 64, 64, 128]
+    pvd["feat_embed_dim"] = 32
+    cfg["model"]["time_embed_dim"] = 32
     cfg["training"] = {"amp": True}
-    with pytest.raises(NotImplementedError):
-        build_unet_from_config(cfg)
+    return cfg
+
+
+# Relative L2 bound of the bf16 backbone against the JAX bf16 backbone.
+# Each framework's bf16 forward is 3-6% from its own f32 forward here
+# (measured), and the two round at other places (see
+# tests/test_torch_modules.py BF16_TOL), so two bf16 forwards sit that
+# far apart: 0.1. The f32 forwards of the same pair agree to 1e-4.
+BF16_REL_L2 = 0.1
+# That bound alone would pass a port that computes in f32. The precision
+# control: the port's bf16 forward must lose as much against its own f32
+# forward as JAX's bf16 forward loses against JAX's f32 forward, within a
+# factor 1.5 (measured 0.90-0.94 on three inputs; the port rounds a little
+# less often, since it adds each bias in the f32 accumulator). A port in
+# f32 gives ~0; one whose Linear computes in f32 and rounds only its
+# output gives 0.60 and passes BF16_REL_L2 all the same.
+# "Nearer to JAX bf16 than JAX f32 is" does not hold and is not asserted:
+# two bf16 forwards that round at other places are as far apart as bf16
+# is from f32 (measured 0.6-1.4 times), here and at the module level.
+BF16_LOSS_RATIO = 1.5
+
+
+def with_compute_dtype(cfg, name):
+    """cfg with model.compute_dtype set to ``name`` ("bf16" or "f32")."""
+    return dict(cfg, model=dict(cfg["model"], compute_dtype=name))
+
+
+def rel_l2(got, want):
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+@pytest.fixture(scope="module")
+def bf16_pair():
+    return build_pair(bf16_tiny())
+
+
+def test_unet_bf16_forward_matches_jax(bf16_pair):
+    fmodel, variables, tmodel = bf16_pair
+    assert tmodel.dtype == torch.bfloat16 and fmodel.dtype == jnp.bfloat16
+    x = cloud(0)
+    t = np.array([500.0, 20.0], np.float32)
+    want = jax_forward(fmodel, variables, x, t)
+    want32 = jax_forward(jax_build(Config(with_compute_dtype(bf16_tiny(), "f32"))),
+                         variables, x, t)
+    f32 = build_unet_from_config(with_compute_dtype(bf16_tiny(), "f32")).eval()
+    f32.load_state_dict(tmodel.state_dict())
+    with torch.no_grad():
+        got = tmodel(torch.from_numpy(x), torch.from_numpy(t))
+        got32 = f32(torch.from_numpy(x), torch.from_numpy(t)).numpy()
+    assert got.dtype == torch.float32  # the head stays f32
+    got = got.numpy()
+    assert rel_l2(got, want) <= BF16_REL_L2
+    assert rel_l2(got32, want32) <= 1e-3  # the f32 twins agree
+    ratio = rel_l2(got, got32) / rel_l2(want, want32)
+    assert 1 / BF16_LOSS_RATIO <= ratio <= BF16_LOSS_RATIO, ratio

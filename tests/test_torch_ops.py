@@ -12,17 +12,39 @@ import torch
 from jax.experimental import pallas as pl
 
 import p2p_bridge_tpu.ops as jops
+import p2p_bridge_tpu.ops.interpolate as jinterp
 import p2p_bridge_tpu.ops.pallas.fps_kernel as jfps_kernel
 import p2p_bridge_tpu.ops.pallas.neighborhood_kernel as jnbr_kernel
+from p2p_bridge_tpu.ops.common import pairwise_sqdist_exact as jax_sqdist_exact
 from p2p_bridge_tpu.ops.fps import _furthest_point_sample_xla
+from p2p_bridge_tpu.ops.pallas.devox_kernel import trilinear_devoxelize_pallas
+from p2p_bridge_tpu.ops.pallas.interp_kernel import three_nn_interpolate_pallas
 from p2p_bridge_tpu.ops.pallas.voxelize_kernel import avg_voxelize_scatter_pallas
 from p2p_bridge_tpu_torch import kernels, ops
 from p2p_bridge_tpu_torch.ops import ball_query as bq
 from p2p_bridge_tpu_torch.ops import voxelize as vox
+from p2p_bridge_tpu_torch.ops.interpolate import three_nn_interpolate
+
+# bf16 keeps 8 significant bits: one rounding moves a value by at most
+# 2^-9 of itself, and two roundings of nearly equal f32 values land at
+# most one bf16 ulp apart, which is 2^-7 of the value at the bottom of a
+# binade
+BF16_ULP = 2.0 ** -7
 
 
 def t(a):
     return torch.from_numpy(np.asarray(a))
+
+
+def bf16_pair(a):
+    """numpy f32 -> (torch bf16, jax bf16) holding the same values."""
+    tb = torch.from_numpy(np.asarray(a, np.float32)).bfloat16()
+    return tb, jnp.asarray(tb.float().numpy()).astype(jnp.bfloat16)
+
+
+def f32(x):
+    """torch or jax array -> numpy f32."""
+    return x.float().numpy() if isinstance(x, torch.Tensor) else np.asarray(x, np.float32)
 
 
 @pytest.fixture
@@ -168,19 +190,125 @@ def test_devoxelize_matches_jax():
     np.testing.assert_allclose(gm.numpy(), np.asarray(wm), atol=1e-6)
 
 
-@pytest.mark.parametrize("M", [1, 2, 3, 64])
-def test_three_nn_interpolate_matches_jax(M):
-    rng = np.random.default_rng(M)
-    pts = rng.random((2, 150, 3)).astype(np.float32)
+@pytest.mark.parametrize("r,C", [(8, 40), (16, 16)])
+def test_devoxelize_bf16_matches_pallas_interpret(r, C):
+    """K3's plain version on a bf16 grid against the Pallas kernel. The
+    Pallas kernel rounds the xy corner weights to bf16 (2^-9 relative
+    each; the 8 weights sum to 1, so at most 2^-9 max|grid|) and both
+    round the output to bf16 (at most one ulp apart, 2^-7 max|grid|):
+    tolerance 2^-6 max|grid|. The mean is f32 of the same bf16 values."""
+    grid, coords = devox_inputs(r=r, C=C)
+    tg, jg = bf16_pair(grid)
+    want_o, want_m = trilinear_devoxelize_pallas(jg, jnp.asarray(coords), r,
+                                                 interpret=True, with_mean=True)
+    got_o, got_m = ops.trilinear_devoxelize_with_mean(tg, t(coords), r)
+    assert got_o.dtype == torch.bfloat16 and got_m.dtype == torch.float32
+    scale = np.abs(f32(tg)).max()
+    np.testing.assert_allclose(f32(got_o), f32(want_o), atol=2 * BF16_ULP * scale)
+    np.testing.assert_allclose(got_m.numpy(), f32(want_m), atol=1e-6)
+    # the same bf16 values in f32: the algorithm, tightly
+    want32 = np.asarray(jops.trilinear_devoxelize(jnp.asarray(f32(tg)), jnp.asarray(coords), r))
+    np.testing.assert_allclose(f32(ops.trilinear_devoxelize(tg.float(), t(coords), r)),
+                               want32, atol=1e-6)
+
+
+def nn_inputs(M, N=150, C=9, seed=None):
+    rng = np.random.default_rng(M if seed is None else seed)
+    pts = rng.random((2, N, 3)).astype(np.float32)
     cen = rng.random((2, M, 3)).astype(np.float32)
-    feat = rng.normal(size=(2, M, 9)).astype(np.float32)
-    ww, wi = jops.three_nn(jnp.asarray(pts), jnp.asarray(cen))
+    feat = rng.normal(size=(2, M, C)).astype(np.float32)
+    return pts, cen, feat
+
+
+@pytest.mark.parametrize("M", [1, 2, 3, 64])
+def test_three_nn_interpolate_matches_jax(M, monkeypatch):
+    """The port ranks centres by per-coordinate squared distances (the
+    kernels' arithmetic). Against the XLA path with the same distances
+    (pairwise_sqdist_exact): indices equal, weights and output at 1e-6.
+    Against the XLA path as it ships (|a|^2 + |b|^2 - 2ab, which cancels
+    at small distances): the same indices."""
+    pts, cen, feat = nn_inputs(M)
+    _, wi = jops.three_nn(jnp.asarray(pts), jnp.asarray(cen))
     gw, gi = ops.three_nn(t(pts), t(cen))
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+    monkeypatch.setattr(jinterp, "pairwise_sqdist", jax_sqdist_exact)
+    ww, wi = jops.three_nn(jnp.asarray(pts), jnp.asarray(cen))
     np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
     np.testing.assert_allclose(gw.numpy(), np.asarray(ww), atol=1e-6)
     want = jops.nearest_neighbor_interpolate(jnp.asarray(pts), jnp.asarray(cen), jnp.asarray(feat))
     got = ops.nearest_neighbor_interpolate(t(pts), t(cen), t(feat))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
+
+
+@pytest.mark.parametrize("M,dtype", [(3, "f32"), (64, "f32"), (64, "bf16"), (200, "bf16")])
+def test_three_nn_interpolate_matches_pallas_interpret(M, dtype):
+    """K6's plain version against the Pallas kernel: indices equal to its
+    aux lanes 3:6, weights to lanes 0:3 at 1e-6. The Pallas kernel rounds
+    the weights and the features to bf16 for its MXU product (2^-9 each,
+    weights summing to 1) and the port rounds a bf16 output once more (one
+    ulp, 2^-7): output tolerance 2^-6 max|features|."""
+    pts, cen, feat = nn_inputs(M, N=300, C=40)
+    if dtype == "bf16":
+        tf, jf = bf16_pair(feat)
+    else:
+        tf, jf = t(feat), jnp.asarray(feat)
+    want, aux = three_nn_interpolate_pallas(jnp.asarray(pts), jnp.asarray(cen), jf,
+                                            interpret=True)
+    got, gw, gi = three_nn_interpolate(t(pts), t(cen), tf)
+    assert got.dtype == tf.dtype
+    aux = np.asarray(aux)
+    np.testing.assert_array_equal(gi.numpy(), aux[..., 3:6].astype(np.int32))
+    np.testing.assert_allclose(gw.numpy(), aux[..., 0:3], atol=1e-6)
+    scale = np.abs(f32(tf)).max()
+    np.testing.assert_allclose(f32(got), f32(want), atol=2 * BF16_ULP * scale)
+    # the model's form returns the same sum without weights or indices
+    alone, no_w, no_i = three_nn_interpolate(t(pts), t(cen), tf, with_weights=False)
+    assert no_w is None and no_i is None and torch.equal(alone, got)
+
+
+def test_three_nn_ties_go_to_the_lowest_index():
+    """Duplicate centres tie exactly: the lower index ranks first, as in
+    the Pallas kernel's iota-min and lax.top_k."""
+    pts, cen, feat = nn_inputs(16, N=64, C=8, seed=7)
+    cen[:, 9] = cen[:, 2]
+    cen[:, 12] = cen[:, 2]
+    cen[:, 5] = cen[:, 14]
+    pts[:, :4] = cen[:, 2:3] + 1e-3  # these points tie on their 3 nearest
+    _, gw, gi = three_nn_interpolate(t(pts), t(cen), t(feat))
+    np.testing.assert_array_equal(gi.numpy()[:, :4], [[[2, 9, 12]] * 4] * 2)
+    _, aux = three_nn_interpolate_pallas(jnp.asarray(pts), jnp.asarray(cen),
+                                         jnp.asarray(feat), interpret=True)
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(aux)[..., 3:6].astype(np.int32))
+    _, wi = jops.three_nn(jnp.asarray(pts), jnp.asarray(cen))
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+
+
+@pytest.mark.parametrize("r,C,hi", [(8, 11, 8), (4, 128, 2)])
+def test_voxelize_bf16_matches_jax(r, C, hi):
+    """bf16 features: an f32 sum, the mean rounded once to bf16, as the
+    JAX exact path does: bit-equal but for the f32 summation order (a
+    tie of that rounding at most one bf16 ulp apart)."""
+    rng = np.random.default_rng(r + C)
+    feat = rng.normal(size=(2, 300, C)).astype(np.float32)
+    voxc = rng.integers(0, hi, size=(2, 300, 3)).astype(np.int32)
+    tf, jf = bf16_pair(feat)
+    got = ops.avg_voxelize(tf, t(voxc), r)
+    want = jops.avg_voxelize(jf, jnp.asarray(voxc), r, exact=True)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(f32(got), f32(want), atol=BF16_ULP * np.abs(feat).max())
+
+
+@pytest.mark.parametrize("B,N,M,K,C,r", BQ_CASES[:3])
+def test_ball_query_group_bf16_matches_jax(B, N, M, K, C, r):
+    """bf16 rows: f32 distances from f32 coordinates, the rows copied bit
+    for bit, as the JAX path groups them."""
+    cen, pts, rows = bq_inputs(B, N, M, C)
+    tr, jr = bf16_pair(rows)
+    want_g, want_i = jops.ball_query_group(jnp.asarray(cen), jnp.asarray(pts), jr, r, K)
+    got_g, got_i = ops.ball_query_group(t(cen), t(pts), tr, r, K)
+    assert got_g.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    np.testing.assert_array_equal(f32(got_g), f32(want_g))
 
 
 def test_knn_matches_jax():
@@ -215,6 +343,12 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu():
         ops.furthest_point_sample(meta, 2)
     with pytest.raises(ValueError, match="CUDA card or the CPU"):
         ops.avg_voxelize(meta, meta.int(), 4)
+    with pytest.raises(ValueError, match="CUDA card or the CPU"):
+        ops.trilinear_devoxelize(torch.zeros(1, 2, 2, 2, 4, device="meta"), meta, 2)
+    with pytest.raises(ValueError, match="CUDA card or the CPU"):
+        ops.nearest_neighbor_interpolate(meta, meta, meta)
+    with pytest.raises(TypeError, match="bfloat16"):
+        kernels.data_dtype(torch.zeros(1, dtype=torch.float16))
 
 
 def test_library_path_follows_sources():
