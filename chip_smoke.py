@@ -23,7 +23,20 @@ Phases, in order; any failure raises and the process exits non-zero:
      counts are set to 0 just before each of the four runs and read just
      after, and every kernel must launch in each;
   6. profile one more bf16 bucketed run with torch.profiler: device time
-     by kernel group and the device's idle share.
+     by kernel group and the device's idle share;
+  7. training: hold the two training kernels, K2b (voxelize backward) in
+     bf16 and f32 and K7 (auction EMD) on the distances of a real batch,
+     against their plain versions at the training shapes (B = 32 patches
+     of 2048 points), and time them; hold the f32 gradient of the loss at
+     full width on the card against the CPU's (B = 2, dropout off, fixed
+     timesteps); train PVDS_PUNet as shipped (bf16, AdamW, clip 1.0, EMA,
+     the K7 alignment) for 31 steps through ``train`` on a synthetic PUNet
+     tree written with numpy: every loss finite, the last five below the
+     first five, the launch counts set to 0 just before step 20 and read
+     just after with all eight kernels launched, ms per step over steps
+     10-29 split into its phases, a torch.profiler profile of step 30; and
+     a checkpoint that denoise_object.load_weights reads back into a model
+     with a bit-equal forward.
 The line before the last is a JSON object with each kernel's launches,
 errors, times and bounds; the last line is {"ok": true, "device": {...}}.
 """
@@ -31,6 +44,7 @@ errors, times and bounds; the last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -42,17 +56,23 @@ import torch
 import torch.nn.functional as F
 
 from p2p_bridge_tpu_torch import kernels
+from p2p_bridge_tpu_torch import denoise_object
 from p2p_bridge_tpu_torch.config import pvds_punet
+from p2p_bridge_tpu_torch.data.batch import get_data_batch
+from p2p_bridge_tpu_torch.data.dataloader import get_dataloader
 from p2p_bridge_tpu_torch.inference import patch_based_denoise_batch
+from p2p_bridge_tpu_torch.metrics import emd_auction
+from p2p_bridge_tpu_torch.models.model_loader import save_checkpoint
 from p2p_bridge_tpu_torch.models.p2pb import P2PBridge
 from p2p_bridge_tpu_torch.models.unet_pvc import build_unet_from_config, init_parameters
+from p2p_bridge_tpu_torch.train import train
 from p2p_bridge_tpu_torch.ops import ball_query as bq_ops
 from p2p_bridge_tpu_torch.ops import conv3d_gn as conv_ops
 from p2p_bridge_tpu_torch.ops import devoxelize as devox_ops
 from p2p_bridge_tpu_torch.ops import fps as fps_ops
 from p2p_bridge_tpu_torch.ops import interpolate as interp_ops
 from p2p_bridge_tpu_torch.ops import voxelize as vox_ops
-from p2p_bridge_tpu_torch.ops.common import pairwise_sqdist_exact
+from p2p_bridge_tpu_torch.ops.common import pairwise_sqdist, pairwise_sqdist_exact
 
 PATCHES = 73  # int(3 * 50_000 / 2048)
 PATCH = 2048
@@ -95,7 +115,27 @@ KERNELS = {
                              "p2p_bridge_tpu/ops/pallas/devox_kernel.py:154"),
     "three_nn_interpolate": ("p2p_bridge_tpu_torch/csrc/interpolate.cu",
                              "p2p_bridge_tpu/ops/pallas/interp_kernel.py:99"),
+    "avg_voxelize_backward": ("p2p_bridge_tpu_torch/csrc/voxelize.cu",
+                              "p2p_bridge_tpu/ops/pallas/voxelize_kernel.py:255"),
+    "auction_emd": ("p2p_bridge_tpu_torch/csrc/auction.cu",
+                    "p2p_bridge_tpu/ops/pallas/auction_kernel.py:120"),
 }
+SERVING = ("fps", "ball_query_group", "avg_voxelize", "conv3d_gn", "trilinear_devoxelize",
+           "three_nn_interpolate")  # the kernels of the denoising path
+TRAIN_B = 32  # training.bs of PVDS_PUNet
+TRAIN_STEPS = 31  # steps 10-29 timed, 20 counted, 30 profiled
+POOL_SIZE = 96  # data.pool_size cut from 2048: the pool fills before step 0
+# The f32 loss and gradient, card vs CPU (TF32 off). The two devices sum
+# in other orders, and the GroupNorms amplify that: at r = 32 most of the
+# 32,768 voxels of a 2048-point patch are empty, so a group's spread is
+# small and the few occupied voxels normalise to large values. The loss
+# then differs by 1.7e-5 relative, the whole gradient by 2.5e-4 relative
+# L2, and single parameters whose gradient cancels by up to 4.1e-3, while
+# two card runs agree far closer (the check prints both). A wrong backward
+# moves the parameters it touches by O(1).
+LOSS_REL = 1e-4
+GRAD_REL_L2 = 1e-3  # the whole gradient
+PARAM_REL_L2 = 1e-2  # every parameter
 
 
 def log(msg: str) -> None:
@@ -530,7 +570,7 @@ def denoise_50k(model, twin, dev) -> dict:
             log(f"denoise 50,000 points, {name}, 73 patches x 2048, 5 steps, {mode} "
                 f"recombination: {ms:.1f} ms ({50_000 / ms * 1e3:.0f} points/s); "
                 f"launches {launches}")
-            idle = [k for k in KERNELS if launches.get(k, 0) == 0]
+            idle = [k for k in SERVING if launches.get(k, 0) == 0]
             if idle:
                 raise AssertionError(f"kernels not launched on the {name} {mode} path: {idle}")
             runs[name][mode] = {"ms": ms, "launches": launches}
@@ -546,6 +586,8 @@ KERNEL_FUNCTIONS = {
     "ball_query_group": ("ball_query_group_kernel",),
     "fps": ("fps_kernel",),
     "three_nn_interpolate": ("three_nn_interp_kernel",),
+    "avg_voxelize_backward": ("gather_divide_kernel",),
+    "auction_emd": ("auction_kernel",),
 }
 
 
@@ -553,6 +595,8 @@ def kernel_group(name: str) -> str:
     for group, fns in KERNEL_FUNCTIONS.items():
         if any(f"(anonymous namespace)::{fn}" in name for fn in fns):
             return group
+    if any(k in name.lower() for k in ("fprop", "dgrad", "wgrad", "cudnn", "conv")):
+        return "cuDNN convolutions (K1's backward)"
     if any(k in name for k in ("gemm", "nvjet", "cutlass", "xmma")):
         return "library GEMMs"
     return "other PyTorch kernels"
@@ -570,6 +614,12 @@ def profile_bf16(model, dev) -> dict:
         t0 = time.perf_counter()
         denoise(bridge, pcl, "bucketed", dev)
         wall_ms = (time.perf_counter() - t0) * 1e3
+    return device_time(prof, wall_ms, "bf16 bucketed")
+
+
+def device_time(prof, wall_ms: float, what: str) -> dict:
+    """Device time by kernel group of a finished torch.profiler run and the
+    idle share: 1 - union of kernel/copy/set intervals / host wall time."""
     with tempfile.TemporaryDirectory() as tmp:
         trace = str(Path(tmp) / "trace.json")
         prof.export_chrome_trace(trace)
@@ -587,12 +637,288 @@ def profile_bf16(model, dev) -> dict:
             busy += b - max(a, end)
             end = b
     busy_ms = busy / 1e3
-    log(f"profile bf16 bucketed: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, "
+    log(f"profile {what}: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, "
         f"idle share {1.0 - busy_ms / wall_ms:.4f}")
     for g, (ms, calls) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
         log(f"  {ms:9.2f} ms ({100 * ms / wall_ms:5.1f}% of wall) in {calls:5d} kernels: {g}")
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / wall_ms,
             "device_ms_by_group": {g: v[0] for g, v in groups.items()}}
+
+
+# ---------------------------------------------------------------- phase 7
+def synthetic_punet(root: Path, rng) -> None:
+    """A PUNet tree of three shapes (bumpy sphere, ellipsoid, torus) at
+    the three training resolutions, plus the 10k test split the loader
+    opens, each cloud normalised to the unit sphere."""
+    def shape(kind, n):
+        if kind == "torus":
+            u, v = rng.uniform(0, 2 * np.pi, (2, n))
+            p = np.stack([(0.7 + 0.3 * np.cos(v)) * np.cos(u),
+                          (0.7 + 0.3 * np.cos(v)) * np.sin(u), 0.3 * np.sin(v)], 1)
+        else:
+            d = rng.normal(size=(n, 3))
+            d /= np.linalg.norm(d, axis=1, keepdims=True)
+            if kind == "ellipsoid":
+                p = d * np.array([1.0, 0.7, 0.5])
+            else:
+                p = d * (1.0 + 0.15 * np.sin(3 * d[:, :1]) * np.cos(2 * d[:, 1:2]))
+        p -= p.mean(0)
+        return (p / np.linalg.norm(p, axis=1).max()).astype(np.float32)
+
+    for split, sizes in (("train", (10_000, 30_000, 50_000)), ("test", (10_000,))):
+        for n in sizes:
+            d = root / "PUNet" / "pointclouds" / split / f"{n}_poisson"
+            d.mkdir(parents=True)
+            for kind in ("bumpy_sphere", "ellipsoid", "torus"):
+                np.savetxt(d / f"{kind}.xyz", shape(kind, n), fmt="%.6f")
+
+
+def train_config(data_dir: Path, out_dir: Path) -> dict:
+    """PVDS_PUNet as shipped, on the synthetic tree, for TRAIN_STEPS steps."""
+    cfg = pvds_punet()
+    cfg["data"]["data_dir"] = str(data_dir)
+    cfg["data"]["pool_size"] = POOL_SIZE
+    cfg["training"]["steps"] = TRAIN_STEPS
+    cfg["output_dir"] = str(out_dir)
+    return cfg
+
+
+def check_voxelize_backward(rng, dev, shapes) -> dict:
+    out = {}
+    for name, dt in DTYPES.items():
+        tally = Tally(name, library=True)
+        for (n, r, c), calls in counted((n, r, cin) for n, r, cin, _ in shapes["pvconv"]):
+            pts = patches(rng, TRAIN_B, n, dev)
+            vox, _ = vox_ops.normalize_coords_to_voxels(pts, r)
+            idx = vox_ops.flat_voxel_index(vox, r).int()
+            cnt = torch.zeros(TRAIN_B, r ** 3, device=dev).scatter_add_(
+                1, idx.long(), torch.ones(TRAIN_B, n, device=dev))
+            g = torch.randn(TRAIN_B, r ** 3, c, device=dev).to(dt)
+            got = vox_ops.avg_voxelize_backward(g, idx, cnt)
+            want = vox_ops.avg_voxelize_backward_plain(g, idx, cnt)
+            torch.cuda.synchronize()
+            if not (got.dtype == dt and torch.equal(got, want)):
+                bad = (got.float() - want.float()).abs().max().item()
+                raise AssertionError(f"voxelize backward {name} r={r} C={c}: differs by {bad}")
+            ms = time_ms(lambda: vox_ops.avg_voxelize_backward(g, idx, cnt))
+            plain = time_ms(lambda: vox_ops.avg_voxelize_backward_plain(g, idx, cnt))
+            # library: torch.gather of the rows, then the divide (two calls)
+            rows_idx = idx.long()[..., None].expand(TRAIN_B, n, c)
+            den = torch.gather(cnt, 1, idx.long()).clamp_min(1.0)[..., None]
+            lib = time_ms(lambda: torch.gather(g, 1, rows_idx) / den)
+            touched = torch.unique(idx.long() + torch.arange(TRAIN_B, device=dev)[:, None] * r ** 3)
+            nbytes = (touched.numel() * (c * esize(dt) + 4) + TRAIN_B * n * 4
+                      + TRAIN_B * n * c * esize(dt))
+            bound = tally.add(calls, ms, plain, lib, nbytes, TRAIN_B * n * c, 0.0)
+            log(f"avg_voxelize_backward {name} N={n} r={r} C={c} x{calls} B={TRAIN_B}: "
+                f"bit-equal; kernel {ms:.4f} ms, plain {plain:.4f} ms, gather + divide "
+                f"(2 calls) {lib:.4f} ms, bound {bound:.4g} ms")
+        out[name] = tally
+    return out
+
+
+def aligned_batch(cfg: dict, dev) -> dict:
+    """One training batch of the synthetic tree through the port's loader."""
+    loader, _ = get_dataloader(cfg)
+    try:
+        batch = get_data_batch(next(iter(loader)), cfg)
+    finally:
+        loader.stop()
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items() if v is not None}
+
+
+def check_auction(batch: dict, dev) -> dict:
+    """K7 on the distances of a real batch (noisy onto clean), as the
+    alignment calls it (eps 0.01, 100 rounds), then with 3 and 1 rounds so
+    that points are left to the greedy fallback."""
+    d2 = pairwise_sqdist(batch["x_start"], batch["x_gt"]).contiguous()
+    B, N, M = d2.shape
+    tally = Tally("f32", library=False)
+    for iters in (100, 3, 1):
+        dist, assign, stats = emd_auction._auction_emd_cuda(d2, 0.01, iters)
+        want_d, want_a = emd_auction.auction_emd_plain(d2, 0.01, iters)
+        torch.cuda.synchronize()
+        if not (torch.equal(assign, want_a) and torch.equal(dist, want_d)):
+            raise AssertionError(f"auction {iters} rounds: {(assign != want_a).sum().item()} "
+                                 "assignments differ from the plain version")
+        rounds, rows, left = (int(v) for v in stats.sum(0).tolist())
+        log(f"auction_emd B={B} N={N} M={M} eps 0.01 {iters} rounds: assign and dist equal; "
+            f"rounds max {stats[:, 0].max().item()}, bidder rows {rows}, fallback points {left}")
+        if iters == 100:
+            ms = time_ms(lambda: emd_auction.auction_emd_assign(d2, 0.01, iters))
+            plain = time_ms(lambda: emd_auction.auction_emd_plain(d2, 0.01, iters), runs=2)
+            # d2 read once, outputs written once; per scanned element a
+            # subtract, a compare and a max
+            nbytes = B * N * M * 4 + B * N * 8
+            bound = tally.add(1, ms, plain, None, nbytes, 3.0 * (rows + left) * M, 0.0)
+            log(f"auction_emd kernel {ms:.3f} ms, plain {plain:.3f} ms, bound {bound:.4g} ms "
+                f"({B * N * M * 4 / 1e6:.0f} MB of d2; {rows + left} row scans)")
+        elif left == 0:
+            raise AssertionError(f"auction {iters} rounds left no point to the fallback")
+    return {"f32": tally}
+
+
+def check_gradient(dev) -> dict:
+    """The f32 loss and every parameter's gradient, card vs CPU."""
+    cfg = pvds_punet()
+    cfg["model"]["compute_dtype"] = "f32"
+    cfg["model"]["dropout"] = 0.0
+    rng = np.random.default_rng(2)
+    x0 = torch.from_numpy(np.stack([surface_cloud(rng, PATCH) for _ in range(2)]))
+    x1 = x0 + 0.02 * torch.from_numpy(rng.normal(size=x0.shape).astype(np.float32))
+    steps = torch.tensor([700, 300])
+    cpu = build_unet_from_config(cfg).train()
+    init_parameters(cpu, torch.Generator().manual_seed(0))
+    card = build_unet_from_config(cfg).train()
+    card.load_state_dict(cpu.state_dict())
+    card.to(dev)
+    want = P2PBridge.from_config(cfg, cpu).loss_fn(x0, x1, steps=steps)
+    want.backward()
+    runs = []
+    for _ in range(2):  # twice: how far the card is from itself
+        card.zero_grad(set_to_none=True)
+        got = P2PBridge.from_config(cfg, card).loss_fn(x0.to(dev), x1.to(dev),
+                                                       steps=steps.to(dev))
+        got.backward()
+        runs.append([p.grad.cpu() for p in card.parameters()])
+    again = (sum((a - b).norm() ** 2 for a, b in zip(*runs)) ** 0.5
+             / sum(b.norm() ** 2 for b in runs[1]) ** 0.5).item()
+    loss_err = abs(got.item() - want.item()) / abs(want.item())
+    worst, worst_name, zero, sq_diff, sq_ref = 0.0, None, 0, 0.0, 0.0
+    for (name, pc), pg in zip(cpu.named_parameters(), runs[1]):
+        ref = pc.grad.norm().item()
+        diff = (pg - pc.grad).norm().item()
+        sq_diff, sq_ref = sq_diff + diff ** 2, sq_ref + ref ** 2
+        rel = diff / ref if ref > 0 else diff
+        zero += ref == 0
+        if rel > worst:
+            worst, worst_name = rel, name
+    total = (sq_diff / sq_ref) ** 0.5
+    log(f"f32 gradient at full width, B=2, card vs CPU: loss {want.item():.6f}, relative "
+        f"{loss_err:.3g} (bound {LOSS_REL}); whole gradient relative L2 {total:.3g} (bound "
+        f"{GRAD_REL_L2}); worst parameter {worst_name}: relative L2 {worst:.3g} (bound "
+        f"{PARAM_REL_L2}); {zero} parameters with a zero gradient; two card runs: "
+        f"relative L2 {again:.3g}")
+    if not (math.isfinite(got.item()) and loss_err <= LOSS_REL and total <= GRAD_REL_L2
+            and worst <= PARAM_REL_L2):
+        raise AssertionError(f"card gradient differs from the CPU: loss {loss_err}, whole "
+                             f"{total}, {worst_name} {worst}")
+    return {"loss_rel": loss_err, "grad_rel_l2": total, "worst_param": worst_name,
+            "worst_param_rel_l2": worst, "card_vs_card_rel_l2": again}
+
+
+class TrainObserver:
+    """The ``train`` observer: CUDA events at every phase of steps 10-29,
+    the launch counts of step 20, a profile of step 30, every loss."""
+
+    PHASES = ("begin", "batch", "align", "forward_backward", "update")
+
+    def __init__(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        self.events, self.losses, self.launches = {}, [], None
+        self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        self.profile = None
+        self.t0 = 0.0
+
+    def __call__(self, step, event, metrics):
+        if event == "begin" and step == 20:
+            kernels.reset_launch_counts()
+        if event == "begin" and step == TRAIN_STEPS - 1:
+            torch.cuda.synchronize()
+            self.prof.start()
+            self.t0 = time.perf_counter()
+        if 10 <= step < 30 and event in self.PHASES:
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            self.events.setdefault(step, {})[event] = e
+        if event == "end":
+            self.losses.append(metrics["loss"])
+            if step == 20:
+                self.launches = dict(kernels.launch_counts)
+            if step == TRAIN_STEPS - 1:
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - self.t0) * 1e3
+                self.prof.stop()
+                self.profile = device_time(self.prof, wall, "one bf16 train step")
+
+
+def train_phase(cfg: dict, dev) -> tuple:
+    obs = TrainObserver()
+    t0 = time.perf_counter()
+    state = train(cfg, dev, observer=obs)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    losses = [float(v) for v in obs.losses]
+    log(f"trained {TRAIN_STEPS} steps of PVDS_PUNet (bf16, bs {TRAIN_B} x {PATCH}, AdamW, "
+        f"clip 1.0, EMA, K7 alignment) in {total_s:.1f} s, data.pool_size cut to {POOL_SIZE}; "
+        f"losses {[round(v, 5) for v in losses]}")
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    if not (len(losses) == TRAIN_STEPS and all(math.isfinite(v) for v in losses)):
+        raise AssertionError(f"training losses: {losses}")
+    if not last < first:
+        raise AssertionError(f"mean loss of the last five steps {last} >= first five {first}")
+    idle = [k for k in KERNELS if obs.launches.get(k, 0) == 0]
+    log(f"launches in step 20: {obs.launches}")
+    if idle:
+        raise AssertionError(f"kernels not launched in a training step: {idle}")
+    spans = {"data": ("begin", "batch"), "align": ("batch", "align"),
+             "forward_backward": ("align", "forward_backward"),
+             "optimizer_ema": ("forward_backward", "update"), "step": ("begin", "update")}
+    split = {name: float(np.median([ev[a].elapsed_time(ev[b]) for ev in obs.events.values()]))
+             for name, (a, b) in spans.items()}
+    log(f"ms per step, median of steps 10-29 (CUDA events): {split['step']:.2f} "
+        f"({TRAIN_B / split['step'] * 1e3:.1f} patches/s); data {split['data']:.2f}, "
+        f"alignment {split['align']:.2f}, forward + backward {split['forward_backward']:.2f}, "
+        f"optimizer + EMA {split['optimizer_ema']:.2f}")
+    return state, {"losses": losses, "first5_mean": first, "last5_mean": last,
+                   "launches": obs.launches, "ms": split,
+                   "patches_per_s": TRAIN_B / split["step"] * 1e3, "profile": obs.profile}
+
+
+def check_checkpoint(state, cfg: dict, batch: dict) -> dict:
+    """save_checkpoint -> denoise_object.load_weights into fresh models,
+    with and without --use_ema: every tensor equal to the trained one, and
+    a bit-equal forward on one cloud. The forwards run on the CPU: K2's f32
+    atomics make two card forwards of the same weights differ in the last
+    bits."""
+    x = batch["x_start"][:1].cpu()
+    t = torch.tensor([700.0])
+    trained = {True: state.ema.params, False: state.model.state_dict()}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = save_checkpoint(tmp, state)
+        for use_ema, params in trained.items():
+            ref = build_unet_from_config(cfg).eval()
+            ref.load_state_dict({k: v.cpu() for k, v in params.items()})
+            fresh = build_unet_from_config(cfg).eval()
+            denoise_object.load_weights(fresh, path, use_ema=use_ema)
+            same = all(torch.equal(a, b) for a, b in zip(fresh.state_dict().values(),
+                                                        ref.state_dict().values()))
+            with torch.no_grad():
+                got, want = fresh(x, t), ref(x, t)
+            if not (same and torch.equal(got, want)):
+                raise AssertionError(f"checkpoint round trip (use_ema={use_ema}): weights equal "
+                                     f"{same}, forward differs by {(got - want).abs().max()}")
+    log("checkpoint round trip: save_checkpoint -> denoise_object.load_weights, with and "
+        "without --use_ema: weights equal, forwards bit-equal (CPU, 1 x 2048)")
+    return {"bit_equal": True}
+
+
+def training(dev, plan) -> dict:
+    shapes = main_path_shapes(plan, PATCH)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        synthetic_punet(root / "data", np.random.default_rng(3))
+        log(f"synthetic PUNet tree written in {time.perf_counter() - t0:.1f} s")
+        cfg = train_config(root / "data", root / "run")
+        batch = aligned_batch(cfg, dev)
+        results = {"avg_voxelize_backward": check_voxelize_backward(
+            np.random.default_rng(4), dev, shapes), "auction_emd": check_auction(batch, dev)}
+        gradient = check_gradient(dev)
+        state, run = train_phase(cfg, dev)
+        checkpoint = check_checkpoint(state, cfg, batch)
+    return {"results": results, "gradient": gradient, "run": run, "checkpoint": checkpoint}
 
 
 def main() -> None:
@@ -606,25 +932,36 @@ def main() -> None:
     forward = check_forward(model, twin, dev)
     run = denoise_50k(model, twin, dev)
     profile = profile_bf16(model, dev)
+    del model, twin
+    torch.cuda.empty_cache()
+    trained = training(dev, plan)
+    results.update(trained["results"])
+    train_launches = trained["run"]["launches"]
 
     entries = []
     for name, (src, replaces) in KERNELS.items():
         per_dtype = results[name]
-        dtype = MAIN if MAIN in per_dtype else "f32"  # fps: f32 coordinates on both paths
+        dtype = MAIN if MAIN in per_dtype else "f32"  # fps, auction: f32 on both paths
+        by_path = {f"{d} {m}": r["launches"].get(name, 0)
+                   for d, modes in run.items() for m, r in modes.items()}
+        by_path["bf16 train step"] = train_launches[name]
+        serving = name in SERVING
         entry = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                 "launches": run[MAIN]["bucketed"]["launches"][name],
-                 "launches_by_path": {f"{d} {m}": r["launches"][name]
-                                      for d, modes in run.items() for m, r in modes.items()},
+                 "launches": by_path[f"{MAIN} bucketed" if serving else "bf16 train step"],
+                 "launches_by_path": by_path,
                  "max_abs_err": max(t.err for t in per_dtype.values()),
                  **per_dtype[dtype].row(), "dtype": dtype,
                  "max_abs_err_by_dtype": {d: t.err for d, t in per_dtype.items()},
                  "f32": per_dtype["f32"].row(),
-                 "timed": f"kernel calls of one PVDS_PUNet forward at B={PATCHES}"}
+                 "timed": (f"kernel calls of one PVDS_PUNet forward at B={PATCHES}" if serving
+                           else f"kernel calls of one PVDS_PUNet training step at B={TRAIN_B}")}
         entries.append(entry)
     line = {"kernels": entries, "forward": forward,
             "denoise_50k_ms": {f"{d} {m}": r["ms"] for d, modes in run.items()
                                for m, r in modes.items()},
-            "profile_bf16_bucketed": profile}
+            "profile_bf16_bucketed": profile,
+            "train": {"gradient": trained["gradient"], "checkpoint": trained["checkpoint"],
+                      **{k: v for k, v in trained["run"].items() if k != "launches"}}}
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

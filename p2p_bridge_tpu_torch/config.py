@@ -1,10 +1,10 @@
 """Configurations as plain nested dicts.
 
 The port reads no YAML on its main path (the card's machine has no
-PyYAML). ``PVDS_PUNET`` holds the ``data.npoints``, ``diffusion``,
-``model`` and ``training.amp`` values of ``configs/PVDS_PUNet.yaml``; a
-test keeps the two equal. ``training.amp`` makes the backbone compute in
-bf16, as in the JAX package. Only the CLI reads YAML files.
+PyYAML). ``PVDS_PUNET`` holds ``configs/PVDS_PUNet.yaml`` (its ``data``,
+``diffusion``, ``model``, ``training`` and ``sampling`` sections); a test
+keeps the two equal. ``training.amp`` makes the backbone compute in bf16,
+as in the JAX package. Only the CLIs read YAML files.
 """
 
 from __future__ import annotations
@@ -12,7 +12,17 @@ from __future__ import annotations
 import copy
 
 PVDS_PUNET = {
-    "data": {"npoints": 2048},
+    "data": {
+        "data_dir": "data/objects/",
+        "dataset": "PUNet",
+        "augment": True,
+        "use_rgb_features": False,
+        "workers": 4,
+        "npoints": 2048,
+        "fast_patches": True,
+        "loader": "pool",
+        "pool_size": 2048,
+    },
     "diffusion": {
         "timesteps": 1000,
         "sampling_timesteps": 10,
@@ -51,7 +61,22 @@ PVDS_PUNET = {
             "out_mlp": 128,
         },
     },
-    "training": {"amp": True},
+    "training": {
+        "optimizer": {"type": "AdamW", "lr": 3e-4, "beta1": 0.9, "beta2": 0.999,
+                      "weight_decay": 1e-5},
+        "scheduler": {"type": "constant", "lr_gamma": 0.999},
+        "grad_clip": {"enabled": True, "value": 1.0},
+        "bs": 32,
+        "overfit": False,
+        "amp": True,
+        "steps": 450_000,
+        "accumulation_steps": 1,
+        "log_interval": 10,
+        "save_interval": 10000,
+        "viz_interval": 10000,
+        "seed": 42,
+    },
+    "sampling": {"bs": 32, "num_iter": 8},
 }
 
 

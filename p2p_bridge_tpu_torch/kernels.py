@@ -28,7 +28,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("fps.cu", "ball_query_group.cu", "voxelize.cu", "conv3d_gn.cu",
-           "devoxelize.cu", "interpolate.cu")
+           "devoxelize.cu", "interpolate.cu", "auction.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -38,7 +38,8 @@ BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "p2p_bridge_tpu_
 
 # kernel name -> number of launches since the last reset
 launch_counts = {"fps": 0, "ball_query_group": 0, "avg_voxelize": 0, "conv3d_gn": 0,
-                 "trilinear_devoxelize": 0, "three_nn_interpolate": 0}
+                 "trilinear_devoxelize": 0, "three_nn_interpolate": 0,
+                 "avg_voxelize_backward": 0, "auction_emd": 0}
 
 _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _SIGNATURES = {
@@ -47,6 +48,9 @@ _SIGNATURES = {
     "p2pb_fps_scratch_bytes": (_LL, (_I, _I)),
     "p2pb_ball_query_group": (_I, (_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P, _P, _P)),
     "p2pb_avg_voxelize": (_I, (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P)),
+    "p2pb_avg_voxelize_backward": (_I, (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P)),
+    "p2pb_auction_emd": (_I, (_P, _I, _I, _I, _F, _I, _P, _P, _P, _P)),
+    "p2pb_auction_smem_bytes": (_LL, (_I, _I)),
     "p2pb_conv3d_gn": (
         _I, (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P, _P, _P)),
     "p2pb_conv3d_gn_scratch_bytes": (_LL, (_I, _I, _I, _I, _I)),

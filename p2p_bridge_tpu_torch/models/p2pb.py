@@ -1,12 +1,13 @@
 """P2PBridge, the diffusion Schroedinger-bridge runtime (port of
-p2p_bridge_tpu/models/p2pb.py, inference half; ``loss_fn`` comes with
-training).
+p2p_bridge_tpu/models/p2pb.py).
 
 The schedule and the per-step sampler coefficients are numpy
 (``schedules.BridgeSchedule`` / ``SamplerPlan``); ``sample`` is a Python
-loop over the plan with one backbone forward per step. The sampler state
-stays f32 whatever the backbone computes in. x0 is the clean cloud, x1 the
-noisy one. Tensors are [B, N, C].
+loop over the plan with one backbone forward per step; ``loss_fn`` is the
+training loss. The sampler state stays f32 whatever the backbone computes
+in. x0 is the clean cloud, x1 the noisy one. Tensors are [B, N, C].
+Random draws (timesteps, noise) come from a ``torch.Generator`` on the
+tensors' device; dropout, in train mode, from the device's global RNG.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from .loss import get_loss
 from .schedules import BridgeSchedule, space_indices
 
 
@@ -33,6 +35,9 @@ class P2PBridge:
     cond_x1: bool = False
     add_x1_noise: bool = False
     objective: str = "pred_noise"
+    weight_loss: bool = False
+    loss_multiplier: float = 1.0
+    loss_type: str = "mse"
     sampling_timesteps: int = 10
 
     @classmethod
@@ -48,6 +53,9 @@ class P2PBridge:
             model=model, schedule=schedule, ot_ode=d.get("ot_ode", True),
             cond_x1=d.get("cond_x1", False), add_x1_noise=d.get("add_x1_noise", False),
             objective=d.get("objective", "pred_noise"),
+            weight_loss=d.get("weight_loss", False),
+            loss_multiplier=d.get("loss_multiplier", 1.0),
+            loss_type=d.get("loss_type", "mse"),
             sampling_timesteps=d.get("sampling_timesteps", 10))
 
     def q_sample(self, steps: torch.Tensor, x0: torch.Tensor, x1: torch.Tensor,
@@ -67,6 +75,36 @@ class P2PBridge:
         if self.objective == "pred_noise":
             return ((xt - x0) / _coef(self.schedule.std_fwd, steps)).detach()
         return x0.detach()
+
+    def loss_fn(self, x0: torch.Tensor, x1: torch.Tensor,
+                x_cond: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None,
+                steps: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The training loss (scalar) of the clean x0 and noisy x1 [B, N, 3].
+
+        ``steps`` [B] (timestep indices) are drawn from ``generator``
+        uniformly in [0, timesteps) when not given; then the x1 noise
+        (``add_x1_noise``) and the bridge noise (unless ``ot_ode``). The
+        backbone runs as the caller set it (``model.train()`` for dropout)."""
+        B = x0.shape[0]
+        dev = x0.device
+        if steps is None:
+            steps = torch.randint(0, self.schedule.timesteps, (B,), generator=generator,
+                                  device=dev)
+        steps = steps.to(dev).long()
+        if self.add_x1_noise:
+            x1 = x1 + torch.randn(x1.shape, generator=generator, device=dev, dtype=x1.dtype)
+        xt = self.q_sample(steps, x0, x1, generator)
+        gt = self.compute_gt(steps, x0, xt)
+        cond = x_cond
+        if self.cond_x1:
+            cond = x1 if x_cond is None else torch.cat([x1, x_cond], dim=-1)
+        noise_levels = torch.as_tensor(self.schedule.noise_levels, device=dev)[steps]
+        pred = self.model(xt, noise_levels, cond)
+        loss = get_loss(self.loss_type)(pred, gt)
+        if self.weight_loss:
+            loss = loss * torch.as_tensor(self.schedule.loss_weight, device=dev)[steps]
+        return loss.mean() * self.loss_multiplier
 
     @staticmethod
     def pred_x0_from_eps(std_fwd, xt: torch.Tensor, net_out: torch.Tensor,

@@ -8,6 +8,11 @@ are gathered in their own dtype (f32 or bf16; the distances are f32 from
 f32 coordinates). On a CUDA tensor :func:`ball_query_group` launches
 kernel K4 (``csrc/ball_query_group.cu``); on a CPU tensor it runs the
 plain version.
+
+The backward is the JAX package's (fused_group.py ``_fused_tpu_bwd``, the
+CUDA grouping backward): each gathered row's gradient is added into the row
+it came from (``index_add_``, in f32, rounded once to the rows' dtype);
+centres and points get no gradient.
 """
 
 from __future__ import annotations
@@ -62,6 +67,37 @@ def _ball_query_group_cuda(centers, points, rows, radius, num_neighbors):
     return out, idx
 
 
+def ball_query_group_backward(grad: torch.Tensor, idx: torch.Tensor,
+                              num_points: int) -> torch.Tensor:
+    """grad [B, M, K, C], idx [B, M, K] -> rows' gradient [B, N, C] f32."""
+    B, C = grad.shape[0], grad.shape[-1]
+    base = (torch.arange(B, device=grad.device) * num_points)[:, None, None]
+    out = torch.zeros((B * num_points, C), dtype=torch.float32, device=grad.device)
+    out.index_add_(0, (idx.long() + base).reshape(-1), grad.float().reshape(-1, C))
+    return out.view(B, num_points, C)
+
+
+class _BallQueryGroup(torch.autograd.Function):
+    """K4 forward; the backward scatters into the rows."""
+
+    @staticmethod
+    def forward(ctx, centers, points, rows, radius, num_neighbors):
+        if kernels.on_card(centers):
+            out, idx = _ball_query_group_cuda(centers, points, rows, radius, num_neighbors)
+        else:
+            out, idx = ball_query_group_plain(centers, points, rows, radius, num_neighbors)
+        ctx.save_for_backward(idx)
+        ctx.num_points = rows.shape[1]
+        ctx.mark_non_differentiable(idx)
+        return out, idx
+
+    @staticmethod
+    def backward(ctx, grad, grad_idx=None):
+        (idx,) = ctx.saved_tensors
+        drows = ball_query_group_backward(grad, idx, ctx.num_points)
+        return None, None, drows.to(grad.dtype), None, None
+
+
 def ball_query_group(centers: torch.Tensor, points: torch.Tensor,
                      rows: torch.Tensor, radius: float, num_neighbors: int):
     """Radius query + row gather.
@@ -73,6 +109,4 @@ def ball_query_group(centers: torch.Tensor, points: torch.Tensor,
     Returns:
       (gathered [B, M, K, C] of rows' dtype, idx [B, M, K] int32)
     """
-    if kernels.on_card(centers):
-        return _ball_query_group_cuda(centers, points, rows, radius, num_neighbors)
-    return ball_query_group_plain(centers, points, rows, radius, num_neighbors)
+    return _BallQueryGroup.apply(centers, points, rows, radius, num_neighbors)

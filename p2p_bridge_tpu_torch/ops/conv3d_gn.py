@@ -9,6 +9,12 @@ that f32 accumulator and the result is stored in x's dtype, as the TPU
 kernel's epilogue does. On a CUDA tensor :func:`conv3d_gn` launches
 kernel K1 (``csrc/conv3d_gn.cu``); on a CPU tensor it runs the plain
 version.
+
+The backward is that of the JAX package (wconv3d_kernel.py ``_make_conv_gn``):
+the gradient of the composition :func:`conv3d_gn_reference`, a SAME conv in
+x's dtype followed by the f32 GroupNorm, recomputed from the saved inputs.
+Its conv transposes are PyTorch's (cuDNN on the card), as the JAX package
+leaves them to XLA outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -46,6 +52,14 @@ def conv3d_gn_plain(x, weight, bias, gamma, beta, groups=8, eps=1e-5, act=False)
     return y.to(x.dtype)
 
 
+def conv3d_gn_reference(x, weight, bias, gamma, beta, groups=8, eps=1e-5, act=False):
+    """The composition the backward differentiates: the conv in x's dtype
+    (bias cast to it, as flax promotes it), then :func:`apply_group_norm`."""
+    y = F.conv3d(x.permute(0, 4, 1, 2, 3), weight.permute(4, 3, 0, 1, 2),
+                 bias.to(x.dtype), padding=1)
+    return apply_group_norm(y.permute(0, 2, 3, 4, 1), gamma, beta, groups, eps, act)
+
+
 def _conv3d_gn_cuda(x, weight, bias, gamma, beta, groups, eps, act):
     B, R = x.shape[0], x.shape[1]
     cin, cout = weight.shape[3], weight.shape[4]
@@ -73,13 +87,33 @@ def _conv3d_gn_cuda(x, weight, bias, gamma, beta, groups, eps, act):
     return y
 
 
+class _Conv3dGN(torch.autograd.Function):
+    """K1 forward; the backward recomputes :func:`conv3d_gn_reference`."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, gamma, beta, groups, eps, act):
+        ctx.save_for_backward(x, weight, bias, gamma, beta)
+        ctx.options = (groups, eps, act)
+        if kernels.on_card(x):
+            return _conv3d_gn_cuda(x, weight, bias, gamma, beta, groups, eps, act)
+        return conv3d_gn_plain(x, weight, bias, gamma, beta, groups, eps, act)
+
+    @staticmethod
+    def backward(ctx, grad):
+        needs = ctx.needs_input_grad[:5]
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, needs)]
+            out = conv3d_gn_reference(*inputs, *ctx.options)
+            wanted = [t for t in inputs if t.requires_grad]
+            got = iter(torch.autograd.grad(out, wanted, grad) if wanted else ())
+        return (*(next(got) if n else None for n in needs), None, None, None)
+
+
 def conv3d_gn(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
               gamma: torch.Tensor, beta: torch.Tensor, groups: int = 8,
               eps: float = 1e-5, act: bool = False) -> torch.Tensor:
     """x [B, R, R, R, Cin] f32 or bf16, weight [3, 3, 3, Cin, Cout] (DHWIO)
     of x's dtype, bias [Cout], gamma/beta [Cout] shared or [B, Cout] per
     cloud (the AdaGN fold) -> [B, R, R, R, Cout] of x's dtype."""
-    if kernels.on_card(x):
-        return _conv3d_gn_cuda(x.contiguous(), weight.contiguous(), bias.contiguous(),
-                               gamma.contiguous(), beta.contiguous(), groups, eps, act)
-    return conv3d_gn_plain(x, weight, bias, gamma, beta, groups, eps, act)
+    return _Conv3dGN.apply(x.contiguous(), weight.contiguous(), bias.contiguous(),
+                           gamma.contiguous(), beta.contiguous(), groups, eps, act)

@@ -9,6 +9,13 @@ weighted sum is f32 and takes the features' dtype (f32 or bf16); the
 weights carry no gradient. On a CUDA tensor
 :func:`nearest_neighbor_interpolate` launches kernel K6
 (``csrc/interpolate.cu``); on a CPU tensor it runs the plain version.
+
+The backward is the JAX package's (interpolate.py ``_nn_interp_fused_bwd``,
+the CUDA backward): d_features = W^T g, each point's weighted gradient
+added into its three centres (``index_add_``, in f32, rounded once to the
+features' dtype); the weights are stop-gradient, so points and centres get
+no gradient. Under grad the forward asks K6 for its weights and indices;
+without grad it skips those stores.
 """
 
 from __future__ import annotations
@@ -87,8 +94,39 @@ def three_nn_interpolate(points: torch.Tensor, centers: torch.Tensor,
     return (out, w, idx) if with_weights else (out, None, None)
 
 
+def three_nn_interpolate_backward(grad: torch.Tensor, weights: torch.Tensor,
+                                  idx: torch.Tensor, num_centers: int) -> torch.Tensor:
+    """grad [B, N, C], weights and indices [B, N, 3] -> d_features
+    [B, M, C] f32 = W^T grad."""
+    B, N, C = grad.shape
+    base = (torch.arange(B, device=grad.device) * num_centers)[:, None, None]
+    src = weights.float()[..., None] * grad.float()[:, :, None, :]  # [B, N, 3, C]
+    out = torch.zeros((B * num_centers, C), dtype=torch.float32, device=grad.device)
+    out.index_add_(0, (idx.long() + base).reshape(-1), src.reshape(-1, C))
+    return out.view(B, num_centers, C)
+
+
+class _ThreeNNInterpolate(torch.autograd.Function):
+    """K6 forward with weights and indices; the backward is W^T g."""
+
+    @staticmethod
+    def forward(ctx, points, centers, features):
+        out, w, idx = three_nn_interpolate(points, centers, features, with_weights=True)
+        ctx.save_for_backward(w, idx)
+        ctx.num_centers = centers.shape[1]
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        w, idx = ctx.saved_tensors
+        dfeat = three_nn_interpolate_backward(grad, w, idx, ctx.num_centers)
+        return None, None, dfeat.to(grad.dtype)
+
+
 def nearest_neighbor_interpolate(points: torch.Tensor, centers: torch.Tensor,
                                  features: torch.Tensor) -> torch.Tensor:
     """Fine points [B, N, 3], coarse centres [B, M, 3] and features
     [B, M, C] -> [B, N, C]."""
+    if torch.is_grad_enabled() and features.requires_grad:
+        return _ThreeNNInterpolate.apply(points, centers, features)
     return three_nn_interpolate(points, centers, features, with_weights=False)[0]

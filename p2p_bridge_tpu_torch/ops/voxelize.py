@@ -1,9 +1,12 @@
-"""Average voxelization (port of p2p_bridge_tpu/ops/voxelize.py, forward).
+"""Average voxelization (port of p2p_bridge_tpu/ops/voxelize.py).
 
 Flat index x*r^2 + y*r + z, per-voxel f32 feature sum and point count,
-output sum / max(count, 1) in the features' dtype (f32 or bf16). On a CUDA
-tensor :func:`avg_voxelize` launches kernel K2 (``csrc/voxelize.cu``); on
-a CPU tensor it runs the plain version.
+output sum / max(count, 1) in the features' dtype (f32 or bf16). The
+backward (the CUDA rule the JAX package follows, ``_avp_bwd``) gives each
+point f32(grad[idx]) / max(count[idx], 1), rounded once to the features'
+dtype, with the forward's counts. On a CUDA tensor :func:`avg_voxelize`
+launches kernel K2 forward and kernel K2b backward (``csrc/voxelize.cu``);
+on a CPU tensor both run their plain versions.
 """
 
 from __future__ import annotations
@@ -35,8 +38,8 @@ def normalize_coords_to_voxels(coords: torch.Tensor, resolution: int):
     return vox, scaled
 
 
-def avg_voxelize_plain(features: torch.Tensor, vox_coords: torch.Tensor,
-                       resolution: int) -> torch.Tensor:
+def _avg_voxelize_plain(features, vox_coords, resolution):
+    """(grid [B, r^3, C] of the features' dtype, counts [B, r^3] f32)."""
     B, N, C = features.shape
     r3 = resolution ** 3
     idx = flat_voxel_index(vox_coords, resolution).long()
@@ -45,10 +48,18 @@ def avg_voxelize_plain(features: torch.Tensor, vox_coords: torch.Tensor,
     cnt = torch.zeros((B, r3), dtype=torch.float32, device=features.device)
     cnt.scatter_add_(1, idx, torch.ones_like(idx, dtype=torch.float32))
     grid = acc / cnt.clamp_min(1.0)[..., None]
-    return grid.reshape(B, resolution, resolution, resolution, C).to(features.dtype)
+    return grid.to(features.dtype), cnt
+
+
+def avg_voxelize_plain(features: torch.Tensor, vox_coords: torch.Tensor,
+                       resolution: int) -> torch.Tensor:
+    r = resolution
+    grid = _avg_voxelize_plain(features, vox_coords, r)[0]
+    return grid.reshape(features.shape[0], r, r, r, features.shape[-1])
 
 
 def _avg_voxelize_cuda(features, vox_coords, resolution):
+    """(grid [B, r^3, C], counts [B, r^3] f32) from kernel K2."""
     B, N, C = features.shape
     r = resolution
     dev, dt = features.device, kernels.data_dtype(features)
@@ -63,13 +74,67 @@ def _avg_voxelize_cuda(features, vox_coords, resolution):
         "avg_voxelize", "p2pb_avg_voxelize", dev, features.data_ptr(),
         vox_coords.data_ptr(), B, N, C, r, int(dt == torch.bfloat16),
         acc.data_ptr(), cnt.data_ptr(), out.data_ptr())
-    return out.view(B, r, r, r, C)
+    return out, cnt
+
+
+def avg_voxelize_backward_plain(grad: torch.Tensor, idx: torch.Tensor,
+                                cnt: torch.Tensor) -> torch.Tensor:
+    """grad [B, r^3, C], flat indices idx [B, N], counts [B, r^3] f32 ->
+    [B, N, C] of grad's dtype: f32(grad[idx]) / max(cnt[idx], 1)."""
+    B, N = idx.shape
+    C = grad.shape[-1]
+    idx = idx.long()
+    rows = torch.gather(grad, 1, idx[..., None].expand(B, N, C)).float()
+    den = torch.gather(cnt, 1, idx).clamp_min(1.0)
+    return (rows / den[..., None]).to(grad.dtype)
+
+
+def _avg_voxelize_backward_cuda(grad, idx, cnt):
+    B, R3, C = grad.shape
+    N = idx.shape[1]
+    dev, dt = grad.device, kernels.data_dtype(grad)
+    kernels.require(grad, "grad", dt, (B, R3, C), dev)
+    kernels.require(idx, "idx", torch.int32, (B, N), dev)
+    kernels.require(cnt, "cnt", torch.float32, (B, R3), dev)
+    out = torch.empty((B, N, C), dtype=dt, device=dev)
+    kernels.launch(
+        "avg_voxelize_backward", "p2pb_avg_voxelize_backward", dev, grad.data_ptr(),
+        idx.data_ptr(), cnt.data_ptr(), B, N, R3, C, int(dt == torch.bfloat16),
+        out.data_ptr())
+    return out
+
+
+def avg_voxelize_backward(grad: torch.Tensor, idx: torch.Tensor,
+                          cnt: torch.Tensor) -> torch.Tensor:
+    """The voxelize backward: kernel K2b on a CUDA tensor, the plain
+    version on a CPU tensor."""
+    if kernels.on_card(grad):
+        return _avg_voxelize_backward_cuda(grad.contiguous(), idx, cnt)
+    return avg_voxelize_backward_plain(grad, idx, cnt)
+
+
+class _AvgVoxelize(torch.autograd.Function):
+    """K2 forward, K2b backward; the voxel coordinates get no gradient."""
+
+    @staticmethod
+    def forward(ctx, features, vox_coords, resolution):
+        if kernels.on_card(features):
+            grid, cnt = _avg_voxelize_cuda(features, vox_coords, resolution)
+        else:
+            grid, cnt = _avg_voxelize_plain(features, vox_coords, resolution)
+        ctx.save_for_backward(flat_voxel_index(vox_coords, resolution).int(), cnt)
+        B, C, r = features.shape[0], features.shape[-1], resolution
+        return grid.view(B, r, r, r, C)
+
+    @staticmethod
+    def backward(ctx, grad):
+        idx, cnt = ctx.saved_tensors
+        B, C = grad.shape[0], grad.shape[-1]
+        return avg_voxelize_backward(grad.reshape(B, -1, C), idx, cnt), None, None
 
 
 def avg_voxelize(features: torch.Tensor, vox_coords: torch.Tensor,
                  resolution: int) -> torch.Tensor:
     """features [B, N, C], int32 voxel coords [B, N, 3] in [0, r-1] ->
     grid [B, r, r, r, C] of per-voxel means (empty voxels 0)."""
-    if kernels.on_card(features):
-        return _avg_voxelize_cuda(features, vox_coords, resolution)
-    return avg_voxelize_plain(features, vox_coords, resolution)
+    return _AvgVoxelize.apply(features.contiguous(), vox_coords, resolution)

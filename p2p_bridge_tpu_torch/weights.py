@@ -8,8 +8,11 @@ two equal on the PVDS_PUNet and TINY parameter trees.
 * ``load_jax_params(model, params)`` maps every flax leaf to its torch key
   with ``_torch_key`` and transposes its layout (kernel [in, out] ->
   weight [out, in]; conv kernel [3, 3, 3, in, out] -> [out, in, 3, 3, 3]).
-* ``convert_torch_state_dict(port.state_dict(), flax_template)`` (in the
-  JAX package) is the other direction, with no new mapping code.
+* ``tensors_to_jax_tree(tensors, template)`` is the other direction for
+  any per-parameter tensors keyed like the model's state_dict (weights,
+  gradients, Adam moments, EMA): each leaf of the flax ``template`` tree
+  gets the tensor of its torch key in flax layout, so two trainings
+  compare leaf by leaf.
 * ``load_torch_state_dict(model, sd)`` loads a reference checkpoint; its
   1x1 convolutions ([out, in, 1] or [out, in, 1, 1]) load into the port's
   Linear weights [out, in].
@@ -191,6 +194,35 @@ def _to_torch_layout(leaf: np.ndarray, leaf_name: str) -> np.ndarray:
     if leaf.ndim == 5:  # [k, k, k, in, out] -> Conv3d [out, in, k, k, k]
         return leaf.transpose(4, 3, 0, 1, 2)
     raise ValueError(f"unexpected kernel rank {leaf.ndim}")
+
+
+def _to_flax_layout(value: np.ndarray, leaf_name: str) -> np.ndarray:
+    """The inverse of :func:`_to_torch_layout`."""
+    if leaf_name != "kernel":
+        return value
+    if value.ndim == 2:
+        return value.T
+    if value.ndim == 5:  # [out, in, k, k, k] -> [k, k, k, in, out]
+        return value.transpose(2, 3, 4, 1, 0)
+    raise ValueError(f"unexpected kernel rank {value.ndim}")
+
+
+def tensors_to_jax_tree(tensors: Mapping[str, torch.Tensor], template: Mapping) -> dict:
+    """Nested dicts shaped like the flax param tree ``template`` (with or
+    without its ``{"params": ...}`` wrapper, which the result keeps), each
+    leaf the f32 numpy value of ``tensors[torch key]`` in flax layout."""
+    wrapped = set(template) == {"params"}
+    flat = flatten_params(template)
+    counts = _conv_counts(flat)
+    tree: dict = {}
+    for path in flat:
+        key = f"{_torch_key(path[:-1], counts)}.{_LEAF_TO_TORCH[path[-1]]}"
+        value = tensors[key].detach().float().cpu().numpy()
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = _to_flax_layout(value, path[-1])
+    return {"params": tree} if wrapped else tree
 
 
 def jax_params_to_state_dict(params: Mapping, model: nn.Module) -> Dict[str, torch.Tensor]:

@@ -4,6 +4,7 @@ flax -> torch key map, point-cloud I/O, the object normalisation and the
 CLI's YAML reader."""
 
 import copy
+import os
 import dataclasses
 from pathlib import Path
 
@@ -153,3 +154,152 @@ def test_config_reader_equals_the_original(name):
     again = copy.deepcopy(port)
     port_config.set_dotted(again, "model.PVD.channels.x", 1)  # a list parent is replaced
     assert again["model"]["PVD"]["channels"] == {"x": 1}
+
+
+# ---------------------------------------------------------------- training copies
+from p2p_bridge_tpu.data import batch as jax_batch  # noqa: E402
+from p2p_bridge_tpu.data import dataloader as jax_loader  # noqa: E402
+from p2p_bridge_tpu.data import punet as jax_punet  # noqa: E402
+from p2p_bridge_tpu.data import transforms as jax_transforms  # noqa: E402
+from p2p_bridge_tpu.utils import args as jax_args  # noqa: E402
+from p2p_bridge_tpu_torch.data import batch as port_batch  # noqa: E402
+from p2p_bridge_tpu_torch.data import dataloader as port_loader  # noqa: E402
+from p2p_bridge_tpu_torch.data import punet as port_punet  # noqa: E402
+from p2p_bridge_tpu_torch.data import transforms as port_transforms  # noqa: E402
+from p2p_bridge_tpu_torch.utils import args as port_args  # noqa: E402
+
+
+def assert_items_equal(a, b):
+    assert a.keys() == b.keys()
+    for k in a:
+        va, vb = a[k], b[k]
+        if isinstance(va, list):
+            assert va == vb, k
+        else:
+            np.testing.assert_array_equal(np.asarray(va), np.asarray(vb), err_msg=k)
+            assert np.asarray(va).dtype == np.asarray(vb).dtype, k
+
+
+TRANSFORMS = [
+    ("standard", lambda m: m.standard_train_transforms(0.01, 0.02)),
+    ("standard_no_rotate", lambda m: m.standard_train_transforms(0.01, 0.03, rotate=False)),
+    ("clean", lambda m: m.standard_train_transforms_clean()),
+    ("laplacian", lambda m: m.Compose([m.NormalizeUnitSphere(), m.AddLaplacianNoise(0.01, 0.02)])),
+    ("uniform_ball", lambda m: m.Compose([m.AddUniformBallNoise(0.05)])),
+    ("covariance", lambda m: m.Compose([m.AddCovNoise(np.eye(3) * 1e-4, 2.0)])),
+    ("discrete", lambda m: m.Compose([m.AddDiscreteNoise(0.02)])),
+]
+
+
+@pytest.mark.parametrize("name", [n for n, _ in TRANSFORMS])
+def test_transforms_equal_the_original(name):
+    make = dict(TRANSFORMS)[name]
+    pcl = cloud(n=300, seed=3)["points"]
+    got = make(port_transforms)({"pcl_clean": pcl.copy()}, np.random.default_rng(4))
+    want = make(jax_transforms)({"pcl_clean": pcl.copy()}, np.random.default_rng(4))
+    assert_items_equal(got, want)
+    for theta in (None, 0.3):
+        a = port_transforms.random_rotate_horizontally(pcl, theta, np.random.default_rng(5))
+        b = jax_transforms.random_rotate_horizontally(pcl, theta, np.random.default_rng(5))
+        np.testing.assert_array_equal(a[0], b[0])
+        assert a[1] == b[1]
+
+
+def punet_tree(root, n=700, clouds=2):
+    """A tiny PUNet tree: unit-sphere clouds at the three training
+    resolutions and the 10k test split."""
+    rng = np.random.default_rng(0)
+    for split, res in (("train", ("10000", "30000", "50000")), ("test", ("10000",))):
+        for r in res:
+            d = root / "PUNet" / "pointclouds" / split / f"{r}_poisson"
+            d.mkdir(parents=True)
+            for i in range(clouds):
+                p = rng.normal(size=(n + 50 * i, 3))
+                p /= np.linalg.norm(p, axis=1, keepdims=True)
+                np.savetxt(d / f"s{i}.xyz", p.astype(np.float32), fmt="%.6f")
+    return root
+
+
+@pytest.mark.parametrize("fast", [True, False], ids=["fast_patches", "full_cloud"])
+def test_punet_items_equal_the_original(tmp_path, fast):
+    root = punet_tree(tmp_path)
+    kw = dict(split="train", patch_size=128, seed=7, fast=fast)
+    port = port_punet.get_dataset(str(root), **kw)
+    orig = jax_punet.get_dataset(str(root), **kw)
+    assert type(port).__name__ == type(orig).__name__ and len(port) == len(orig)
+    for idx in (0, 5, 4321):
+        assert_items_equal(port[idx], orig[idx])
+
+
+def loader_cfg(root, loader="epoch"):
+    return {"data": {"dataset": "PUNet", "data_dir": str(root), "npoints": 128,
+                     "augment": True, "fast_patches": True, "loader": loader, "pool_size": 8},
+            "training": {"bs": 2, "seed": 3}, "sampling": {"bs": 2}}
+
+
+def test_loaders_equal_the_original(tmp_path):
+    """NumpyLoader epochs through save_iter, the PooledLoader's first pool
+    and draws (taken before its refresh thread starts), the validation
+    loader, and the dispatch for the other datasets."""
+    root = punet_tree(tmp_path)
+    port_train, port_val = port_loader.get_dataloader(loader_cfg(root))
+    jax_train, jax_val = jax_loader.get_dataloader(jax_config.Config(loader_cfg(root)))
+    assert len(port_train) == len(jax_train)
+    port_it, jax_it = port_loader.save_iter(port_train), jax_loader.save_iter(jax_train)
+    for _ in range(len(port_train) + 2):  # across an epoch boundary
+        assert_items_equal(next(port_it), next(jax_it))
+    assert_items_equal(next(iter(port_val)), next(iter(jax_val)))
+
+    port_pool, _ = port_loader.get_dataloader(loader_cfg(root, "pool"))
+    jax_pool, _ = jax_loader.get_dataloader(jax_config.Config(loader_cfg(root, "pool")))
+    for loader in (port_pool, jax_pool):
+        loader._fill_initial()
+    assert_items_equal(port_pool._pool, jax_pool._pool)
+    for _ in range(3):
+        np.testing.assert_array_equal(port_pool._rng.choice(8, 2, replace=False),
+                                      jax_pool._rng.choice(8, 2, replace=False))
+    with pytest.raises(NotImplementedError):
+        port_loader.get_dataloader(dict(loader_cfg(root), data={"dataset": "ScanNetPP"}))
+
+
+@pytest.mark.parametrize("dataset,rgb", [("PUNet", False), ("ScanNetPP", True), ("ScanNetPP", False)])
+def test_get_data_batch_equals_the_original(dataset, rgb):
+    rng = np.random.default_rng(6)
+    batch = {k: rng.normal(size=(2, 16, c)).astype(np.float64)
+             for k, c in (("clean_points", 3), ("noisy_points", 3), ("noisy_features", 4),
+                          ("noisy_colors", 3))}
+    cfg = {"data": {"dataset": dataset, "use_rgb_features": rgb}}
+    align = (lambda noisy, clean: clean[:, ::-1])
+    for fn in (None, align):
+        got = port_batch.get_data_batch(batch, cfg, fn)
+        want = jax_batch.get_data_batch(batch, jax_config.Config(cfg), fn)
+        assert got.keys() == want.keys()
+        for k in got:
+            if want[k] is None:
+                assert got[k] is None, k
+            else:
+                np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+@pytest.mark.parametrize("argv", [
+    ["--config", "CONFIG", "--save_dir", "SAVE"],
+    ["--config", "CONFIG", "--save_dir", "SAVE", "--name", "run1", "--training.bs", "4",
+     "--data.npoints=512", "--restart", "--use_ema"],
+    ["--model_path", "SAVE/PVDS_PUNet/model.pt", "--diffusion.sampling_timesteps", "5"],
+], ids=["config", "overrides", "model_path"])
+def test_train_args_equal_the_original(tmp_path, argv):
+    """The training CLI's parsed configuration, as a dict, equals the JAX
+    parser's Config; the model_path form reads the opt.yaml beside it."""
+    run = tmp_path / "save" / "PVDS_PUNet"
+    run.mkdir(parents=True)
+    # an opt.yaml as training saves it: the configuration and its name
+    (run / "opt.yaml").write_text((ROOT / "configs" / "PVDS_PUNet.yaml").read_text()
+                                  + "name: PVDS_PUNet\n")
+    argv = [a.replace("CONFIG", str(ROOT / "configs" / "PVDS_PUNet.yaml"))
+            .replace("SAVE", str(tmp_path / "save")) for a in argv]
+    got = port_args.parse_args(list(argv))
+    want = jax_args.parse_args(list(argv)).to_dict()
+    assert got == want
+    assert os.path.isdir(got["output_dir"])
+    assert port_args.setup_output_subdirs(got["output_dir"], "a", "b") == \
+        jax_args.setup_output_subdirs(got["output_dir"], "a", "b")

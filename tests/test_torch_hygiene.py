@@ -27,7 +27,14 @@ MAIN_PATH = [
     "p2p_bridge_tpu_torch.models.unet_pvc", "p2p_bridge_tpu_torch.models.schedules",
     "p2p_bridge_tpu_torch.models.p2pb", "p2p_bridge_tpu_torch.weights",
     "p2p_bridge_tpu_torch.inference", "p2p_bridge_tpu_torch.utils.io",
-    "p2p_bridge_tpu_torch.utils.config", "p2p_bridge_tpu_torch.denoise_object", "chip_smoke",
+    "p2p_bridge_tpu_torch.utils.config", "p2p_bridge_tpu_torch.denoise_object",
+    # training
+    "p2p_bridge_tpu_torch.metrics", "p2p_bridge_tpu_torch.metrics.emd_auction",
+    "p2p_bridge_tpu_torch.models.loss", "p2p_bridge_tpu_torch.models.model_loader",
+    "p2p_bridge_tpu_torch.utils.ema", "p2p_bridge_tpu_torch.utils.args",
+    "p2p_bridge_tpu_torch.parallel.train_step", "p2p_bridge_tpu_torch.data.transforms",
+    "p2p_bridge_tpu_torch.data.punet", "p2p_bridge_tpu_torch.data.dataloader",
+    "p2p_bridge_tpu_torch.data.batch", "p2p_bridge_tpu_torch.train", "chip_smoke",
 ]
 PORT_SOURCES = sorted((ROOT / "p2p_bridge_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
@@ -101,12 +108,16 @@ def test_chip_smoke_refuses_without_a_card():
 
 
 def test_pvds_punet_dict_equals_yaml():
+    """Every section, the data loader's and the training's included
+    (optimizer, scheduler, clip, batch size, steps, intervals, seed, EMA)."""
     with open(ROOT / "configs" / "PVDS_PUNet.yaml") as f:
         cfg = yaml.safe_load(f)
-    assert PVDS_PUNET["data"] == {"npoints": cfg["data"]["npoints"]}
-    assert PVDS_PUNET["diffusion"] == cfg["diffusion"]
-    assert PVDS_PUNET["model"] == cfg["model"]
-    assert PVDS_PUNET["training"] == {"amp": cfg["training"]["amp"]} == {"amp": True}
+    for section in ("data", "diffusion", "model", "training", "sampling"):
+        assert PVDS_PUNET[section] == cfg[section], section
+    assert PVDS_PUNET == cfg
+    assert PVDS_PUNET["training"]["amp"] is True
+    assert PVDS_PUNET["training"]["optimizer"]["type"] == "AdamW"
+    assert PVDS_PUNET["model"]["ema"] is True and PVDS_PUNET["data"]["pool_size"] == 2048
 
 
 @pytest.mark.parametrize("name", ["PVDS_PUNet", "PVDL_SNPP", "PVDL_ARKIT"])

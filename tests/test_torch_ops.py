@@ -358,3 +358,200 @@ def test_library_path_follows_sources():
     assert path.name == "libp2pb_kernels.so"
     assert path.parent.parent == kernels.BUILD_ROOT
     assert all((kernels.CSRC / s).exists() for s in kernels.SOURCES + kernels.HEADERS)
+
+
+# ---------------------------------------------------------------- backward
+# Each op's autograd backward (the plain branch on the CPU) against the VJP
+# of the JAX op on the same inputs and cotangent.
+import jax  # noqa: E402
+
+import p2p_bridge_tpu.ops.voxelize as jvox  # noqa: E402
+from p2p_bridge_tpu.ops.pallas.conv3d_kernel import _ref_conv_gn  # noqa: E402
+from p2p_bridge_tpu.ops.pallas.wconv3d_kernel import wconv3d_gn_pallas  # noqa: E402
+from p2p_bridge_tpu_torch.ops import conv3d_gn as conv_ops  # noqa: E402
+
+
+def vjp_port(fn, inputs, cotangent, wrt):
+    """Gradients of sum(fn(*inputs) * cotangent) for the inputs at ``wrt``."""
+    leaves = [x.clone().requires_grad_(i in wrt) for i, x in enumerate(inputs)]
+    out = fn(*leaves)
+    outs = out if isinstance(out, tuple) else (out,)
+    cts = cotangent if isinstance(cotangent, tuple) else (cotangent,)
+    loss = sum((o.float() * c.float()).sum() for o, c in zip(outs, cts) if c is not None)
+    loss.backward()
+    return [leaves[i].grad for i in wrt]
+
+
+def vox_backward_inputs(r, C, hi, seed=0):
+    """Features, voxel coords with empty voxels (indices below ``hi``) and
+    several points per voxel, a cotangent grid."""
+    rng = np.random.default_rng(seed)
+    feat = rng.normal(size=(2, 300, C)).astype(np.float32)
+    voxc = rng.integers(0, hi, size=(2, 300, 3)).astype(np.int32)
+    g = rng.normal(size=(2, r, r, r, C)).astype(np.float32)
+    return feat, voxc, g
+
+
+@pytest.mark.parametrize("r,C,hi", [(8, 11, 8), (8, 32, 3), (4, 128, 4)])
+def test_voxelize_backward_is_bit_equal_to_jax_grad(r, C, hi):
+    """K2b's plain version through autograd, f32: the gradient of the JAX
+    exact path (g / count gathered back to each point), bit for bit."""
+    feat, voxc, g = vox_backward_inputs(r, C, hi)
+    _, pull = jax.vjp(lambda f: jops.avg_voxelize(f, jnp.asarray(voxc), r, exact=True),
+                      jnp.asarray(feat))
+    want = np.asarray(pull(jnp.asarray(g))[0])
+    (got,) = vjp_port(lambda f: ops.avg_voxelize(f, t(voxc), r), [t(feat)], t(g), [0])
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("r,C,hi", [(8, 16, 8), (4, 64, 2)])
+def test_voxelize_backward_matches_gather_rows_pallas(r, C, hi, dtype):
+    """Against ``_avp_bwd``: the counts from its one-hot product, the rows
+    from ``gather_rows_pallas`` in interpret mode, one f32 divide and one
+    rounding to the features' dtype: bit-equal in f32 and in bf16."""
+    feat, voxc, g = vox_backward_inputs(r, C, hi, seed=r + C)
+    B, N = feat.shape[:2]
+    tg, jg = (t(g), jnp.asarray(g)) if dtype == "f32" else bf16_pair(g)
+    idx = jops.flat_voxel_index(jnp.asarray(voxc), r)
+    proto = jnp.zeros((0,), jg.dtype)
+    want = jvox._avp_bwd(r ** 3, (idx, proto), jg.reshape(B, r ** 3, C))[0]
+    tidx = vox.flat_voxel_index(t(voxc), r).int()
+    cnt = torch.zeros(B, r ** 3).scatter_add_(1, tidx.long(), torch.ones(B, N))
+    got = vox.avg_voxelize_backward(tg.reshape(B, r ** 3, C), tidx, cnt)
+    assert got.dtype == tg.dtype
+    np.testing.assert_array_equal(f32(got), f32(want))
+    # through autograd, the counts kept from the forward
+    tf = t(feat) if dtype == "f32" else bf16_pair(feat)[0]
+    (auto,) = vjp_port(lambda f: ops.avg_voxelize(f, t(voxc), r), [tf], tg, [0])
+    assert torch.equal(auto, got)
+
+
+def conv_backward_inputs(B, R, cin, cout, per_cloud, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(B, R, R, R, cin)).astype(np.float32)
+    w = (rng.normal(size=(3, 3, 3, cin, cout)) / np.sqrt(27 * cin)).astype(np.float32)
+    b = (0.1 * rng.normal(size=cout)).astype(np.float32)
+    shape = (B, cout) if per_cloud else (cout,)
+    gamma = (1 + 0.1 * rng.normal(size=shape)).astype(np.float32)
+    beta = (0.1 * rng.normal(size=shape)).astype(np.float32)
+    g = rng.normal(size=(B, R, R, R, cout)).astype(np.float32)
+    return [x, w, b, gamma, beta], g
+
+
+# f32 convolution transposes sum up to 27 * Cin * R^3 products in another
+# order than XLA: measured up to 2.4e-6 of each gradient's largest entry
+CONV_GRAD_TOL = 2e-5
+
+
+@pytest.mark.parametrize("per_cloud", [False, True], ids=["shared_affine", "adagn_affine"])
+@pytest.mark.parametrize("act", [True, False])
+def test_conv3d_gn_backward_matches_jax_vjp(act, per_cloud):
+    """K1's backward (the recomputed conv + GroupNorm) against jax.vjp of
+    the JAX package's fused entry point, whose custom VJP differentiates
+    the XLA composition; the per-cloud [B, C] affine is the AdaGN fold."""
+    inputs, g = conv_backward_inputs(2, 16, 64, 64, per_cloud)
+    fn = lambda *a: wconv3d_gn_pallas(*a, groups=8, eps=1e-5, act=act, interpret=True)  # noqa: E731
+    _, pull = jax.vjp(fn, *map(jnp.asarray, inputs))
+    want = pull(jnp.asarray(g))
+    got = vjp_port(lambda *a: conv_ops.conv3d_gn(*a, groups=8, eps=1e-5, act=act),
+                   [t(a) for a in inputs], t(g), range(5))
+    for name, gv, wv in zip(("x", "weight", "bias", "gamma", "beta"), got, want):
+        wv = np.asarray(wv)
+        assert gv.shape == wv.shape, name
+        np.testing.assert_allclose(gv.numpy(), wv, atol=CONV_GRAD_TOL * np.abs(wv).max(),
+                                   err_msg=name)
+
+
+def test_conv3d_gn_backward_ragged_channels_matches_jax_vjp():
+    """A ragged Cin (the first PVConv's 35 channels) and Cout = 16, against
+    jax.vjp of the composition the JAX package differentiates for them."""
+    inputs, g = conv_backward_inputs(2, 4, 35, 16, True, seed=3)
+    fn = lambda *a: _ref_conv_gn(*a, groups=8, eps=1e-5, act=True)  # noqa: E731
+    _, pull = jax.vjp(fn, *map(jnp.asarray, inputs))
+    want = pull(jnp.asarray(g))
+    got = vjp_port(lambda *a: conv_ops.conv3d_gn(*a, groups=8, eps=1e-5, act=True),
+                   [t(a) for a in inputs], t(g), range(5))
+    for name, gv, wv in zip(("x", "weight", "bias", "gamma", "beta"), got, want):
+        wv = np.asarray(wv)
+        np.testing.assert_allclose(gv.numpy(), wv, atol=CONV_GRAD_TOL * np.abs(wv).max(),
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("with_mean", [False, True])
+def test_devoxelize_backward_matches_jax_vjp(with_mean):
+    """K3's backward: the weighted 8-corner scatter (and g_mean / r^3 with
+    the mean) against jax.vjp of the JAX op; f32 sums of up to 8 * N terms
+    per voxel in another order: 1e-6 of the largest entry."""
+    r = 8
+    grid, coords = devox_inputs(r=r, C=16)
+    rng = np.random.default_rng(9)
+    g = rng.normal(size=coords.shape[:2] + (16,)).astype(np.float32)
+    gm = rng.normal(size=(2, 16)).astype(np.float32)
+    if with_mean:
+        fn, ct, tct = jops.trilinear_devoxelize_with_mean, (jnp.asarray(g), jnp.asarray(gm)), \
+            (t(g), t(gm))
+        port = ops.trilinear_devoxelize_with_mean
+    else:
+        fn, ct, tct = jops.trilinear_devoxelize, jnp.asarray(g), t(g)
+        port = ops.trilinear_devoxelize
+    _, pull = jax.vjp(lambda x: fn(x, jnp.asarray(coords), r), jnp.asarray(grid))
+    want = np.asarray(pull(ct)[0])
+    (got,) = vjp_port(lambda x: port(x, t(coords), r), [t(grid)], tct, [0])
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-6 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("B,N,M,K,C,r", BQ_CASES[:4])
+def test_ball_query_group_backward_matches_jax_vjp(B, N, M, K, C, r):
+    """K4's backward: each gathered row's gradient added into its source
+    row (repeated indices add up); no gradient to centres or points."""
+    cen, pts, rows = bq_inputs(B, N, M, C)
+    g = np.random.default_rng(C).normal(size=(B, M, K, C)).astype(np.float32)
+    _, pull = jax.vjp(lambda a: jops.ball_query_group(jnp.asarray(cen), jnp.asarray(pts),
+                                                      a, r, K)[0], jnp.asarray(rows))
+    want = np.asarray(pull(jnp.asarray(g))[0])
+    got = vjp_port(lambda c, p, a: ops.ball_query_group(c, p, a, r, K)[0],
+                   [t(cen), t(pts), t(rows)], t(g), [0, 1, 2])
+    assert got[0] is None and got[1] is None
+    np.testing.assert_allclose(got[2].numpy(), want, atol=1e-6 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("M", [2, 3, 64])
+def test_three_nn_interpolate_backward_matches_jax_vjp(M, monkeypatch):
+    """K6's backward: W^T g into the three centres of each point; the
+    weights are stop-gradient, so points and centres get none. The JAX
+    side ranks and weighs with the port's per-coordinate distances, as in
+    the forward test above."""
+    monkeypatch.setattr(jinterp, "pairwise_sqdist", jax_sqdist_exact)
+    pts, cen, feat = nn_inputs(M)
+    g = np.random.default_rng(M + 1).normal(size=(2, pts.shape[1], feat.shape[-1]))
+    g = g.astype(np.float32)
+    _, pull = jax.vjp(jops.nearest_neighbor_interpolate, *map(jnp.asarray, (pts, cen, feat)))
+    want = [np.asarray(w) for w in pull(jnp.asarray(g))]
+    got = vjp_port(ops.nearest_neighbor_interpolate, [t(pts), t(cen), t(feat)], t(g), [0, 1, 2])
+    assert got[0] is None and got[1] is None
+    assert not want[0].any() and not want[1].any()
+    np.testing.assert_allclose(got[2].numpy(), want[2], atol=1e-6 * np.abs(want[2]).max())
+
+
+def test_kernel_ops_carry_a_grad_fn_on_the_cpu():
+    """Every kernel op's output joins the autograd graph through its
+    Function, whose forward is the one that launches the kernel on a
+    CUDA tensor."""
+    feat, voxc, _ = vox_backward_inputs(4, 8, 4)
+    f = t(feat).requires_grad_()
+    names = {
+        "avg_voxelize": ops.avg_voxelize(f, t(voxc), 4),
+        "conv3d_gn": conv_ops.conv3d_gn(torch.zeros(1, 4, 4, 4, 8, requires_grad=True),
+                                        torch.zeros(3, 3, 3, 8, 8), torch.zeros(8),
+                                        torch.ones(8), torch.zeros(8)),
+        "trilinear_devoxelize": ops.trilinear_devoxelize(
+            torch.zeros(2, 4, 4, 4, 8, requires_grad=True), torch.rand(2, 300, 3) * 3, 4),
+        "trilinear_devoxelize_with_mean": ops.trilinear_devoxelize_with_mean(
+            torch.zeros(2, 4, 4, 4, 8, requires_grad=True), torch.rand(2, 300, 3) * 3, 4)[0],
+        "ball_query_group": ops.ball_query_group(t(feat[..., :3]), t(feat[..., :3]), f, 0.5, 4)[0],
+        "nearest_neighbor_interpolate": ops.nearest_neighbor_interpolate(
+            t(feat[..., :3]), t(feat[:, :10, :3]), f[:, :10]),
+    }
+    for name, out in names.items():
+        assert out.grad_fn is not None and "Backward" in type(out.grad_fn).__name__, name
