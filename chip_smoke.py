@@ -12,8 +12,10 @@ Phases, in order; any failure raises and the process exits non-zero:
      PVDS_PUNet main path (B = 73 patches of 2048 points), and time the
      kernel, the plain version and, where one PyTorch call computes the
      same function, that call (CUDA events, median of 5 runs after a
-     warm-up); the bound of each is the larger of its bytes over 3.35 TB/s
-     and its operations over the peak rate of its data type;
+     warm-up, each run up to 20 back-to-back calls); the bound of each is
+     the larger of its bytes over 3.35 TB/s and its operations over the
+     peak rate of its data type; K1 also at B = 1 and B = 3 (a cloud's
+     first and last tiles, an odd tile count);
   4. build PVDS_PUNet at full width as shipped (bf16, training.amp) and an
      f32 twin with the same weights; hold the f32 forward on the card
      against the f32 forward on the CPU, and the bf16 forward on the card
@@ -39,10 +41,16 @@ Phases, in order; any failure raises and the process exits non-zero:
      with a bit-equal forward.
 The line before the last is a JSON object with each kernel's launches,
 errors, times and bounds; the last line is {"ok": true, "device": {...}}.
+
+  python3 chip_smoke.py --only conv3d_gn [fps ...]
+
+runs phases 1-3 for the named kernels alone and stops (no result lines):
+a quick check of a kernel being worked on.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import subprocess
@@ -143,19 +151,24 @@ def log(msg: str) -> None:
 
 
 def time_ms(fn, runs: int = RUNS) -> float:
-    """Median device time of ``fn`` over ``runs`` calls after one warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
+    """Median device time of one call of ``fn`` over ``runs`` timed runs
+    after a warm-up. A run makes as many back-to-back calls as fill about
+    5 ms (at most 20), so that the host's launch work for one call overlaps
+    the device's work on the one before; a call of 5 ms or more runs alone."""
+    def run(reps: int) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
+        return start.elapsed_time(end) / reps
+
+    fn()
+    torch.cuda.synchronize()
+    reps = int(min(20, max(1, 5.0 // run(1))))
+    return float(np.median([run(reps) for _ in range(runs)]))
 
 
 def surface_cloud(rng: np.random.Generator, n: int, noise: float = 0.01) -> np.ndarray:
@@ -345,6 +358,32 @@ def check_voxelize(rng, dev, shapes) -> dict:
     return out
 
 
+def conv_inputs(gen, dev, dt, B, r, cin, cout, shared):
+    """x, w, bias, gamma, beta of one conv3d_gn call: w scaled so that the
+    conv has unit variance; per-cloud [B, C] affine, or shared [C]."""
+    x = torch.randn(B, r, r, r, cin, device=dev, generator=gen).to(dt)
+    w = (torch.randn(3, 3, 3, cin, cout, device=dev, generator=gen) / (27 * cin) ** 0.5).to(dt)
+    b = 0.1 * torch.randn(cout, device=dev, generator=gen)
+    gamma = 1 + 0.1 * torch.randn(B, cout, device=dev, generator=gen)
+    beta = 0.1 * torch.randn(B, cout, device=dev, generator=gen)
+    if shared:
+        gamma, beta = gamma[0].contiguous(), beta[0].contiguous()
+    return x, w, b, gamma, beta
+
+
+def conv_error(name, args, act, what) -> tuple:
+    """K1 against its plain version on the same inputs; raises above the
+    tolerance."""
+    got = conv_ops.conv3d_gn(*args, 8, 1e-5, act)
+    want = conv_ops.conv3d_gn_plain(*args, 8, 1e-5, act)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    tol = CONV_TOL[name] * want.float().abs().max().item()
+    if not (got.dtype == args[0].dtype and got.shape == want.shape and err <= tol):
+        raise AssertionError(f"conv3d_gn {name} {what}: max err {err} > {tol}")
+    return err, tol
+
+
 def check_conv3d_gn(rng, dev, shapes) -> dict:
     convs = []
     for _, r, cin, cout in shapes["pvconv"]:  # vconv1 (swish), vconv2
@@ -354,22 +393,9 @@ def check_conv3d_gn(rng, dev, shapes) -> dict:
     for name, dt in DTYPES.items():
         tally = Tally(name, library=True)
         for i, ((r, cin, cout, act), calls) in enumerate(counted(convs)):
-            x = torch.randn(PATCHES, r, r, r, cin, device=dev, generator=gen).to(dt)
-            w = (torch.randn(3, 3, 3, cin, cout, device=dev, generator=gen)
-                 / (27 * cin) ** 0.5).to(dt)
-            b = 0.1 * torch.randn(cout, device=dev, generator=gen)
-            gamma = 1 + 0.1 * torch.randn(PATCHES, cout, device=dev, generator=gen)
-            beta = 0.1 * torch.randn(PATCHES, cout, device=dev, generator=gen)
-            if i % 3 == 2:  # also the shared [C] affine of plain GroupNorm
-                gamma, beta = gamma[0].contiguous(), beta[0].contiguous()
-            got = conv_ops.conv3d_gn(x, w, b, gamma, beta, 8, 1e-5, act)
-            want = conv_ops.conv3d_gn_plain(x, w, b, gamma, beta, 8, 1e-5, act)
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            tol = CONV_TOL[name] * want.float().abs().max().item()
-            if not (got.dtype == dt and err <= tol):
-                raise AssertionError(f"conv3d_gn {name} r={r} {cin}->{cout}: max err {err} > {tol}")
-            del got, want
+            # i % 3 == 2: also the shared [C] affine of plain GroupNorm
+            x, w, b, gamma, beta = conv_inputs(gen, dev, dt, PATCHES, r, cin, cout, i % 3 == 2)
+            err, tol = conv_error(name, (x, w, b, gamma, beta), act, f"r={r} {cin}->{cout}")
             ms = time_ms(lambda: conv_ops.conv3d_gn(x, w, b, gamma, beta, 8, 1e-5, act))
             plain = time_ms(lambda: conv_ops.conv3d_gn_plain(x, w, b, gamma, beta, 8, 1e-5, act))
             # cuDNN conv + GroupNorm on channels-first tensors made outside the timing
@@ -389,11 +415,21 @@ def check_conv3d_gn(rng, dev, shapes) -> dict:
             nbytes = (PATCHES * r ** 3 * (cin + cout) + 27 * cin * cout) * esize(dt)
             bound = tally.add(calls, ms, plain, lib, nbytes, flop, err)
             log(f"conv3d_gn {name} r={r} {cin}->{cout} x{calls} B={PATCHES}: max err {err:.3g} "
-                f"(tol {tol:.3g}); kernel {ms:.3f} ms ({flop / ms / 1e9:.2f} TFLOP/s), "
-                f"plain {plain:.3f} ms, cuDNN {lib} ms, bound {bound:.3g} ms")
+                f"(tol {tol:.3g}); kernel {ms:.3f} ms ({flop / ms / 1e9:.2f} TFLOP/s, "
+                f"{bound / ms:.3f} of the bound {bound:.3g} ms), plain {plain:.3f} ms, "
+                f"cuDNN conv + GroupNorm {lib:.3f} ms")
             del x
             torch.cuda.empty_cache()
         out[name] = tally
+    # a cloud's first and last tiles alone (B = 1) and an odd tile count (B = 3)
+    for B in (1, 3):
+        for r, cin, cout, act in ((8, 256, 256, False), (32, 35, 32, True)):
+            for shared in (False, True):
+                args = conv_inputs(gen, dev, torch.bfloat16, B, r, cin, cout, shared)
+                err, tol = conv_error("bf16", args, act, f"B={B} r={r} {cin}->{cout}")
+                out["bf16"].err = max(out["bf16"].err, err)
+                log(f"conv3d_gn bf16 B={B} r={r} {cin}->{cout} "
+                    f"{'shared' if shared else 'per-cloud'} affine: max err {err:.3g} (tol {tol:.3g})")
     return out
 
 
@@ -467,18 +503,18 @@ def check_interpolate(rng, dev, shapes) -> dict:
     return out
 
 
-def check_kernels(dev, plan) -> dict:
+SERVING_CHECKS = {"fps": check_fps, "ball_query_group": check_ball_query,
+                  "avg_voxelize": check_voxelize, "conv3d_gn": check_conv3d_gn,
+                  "trilinear_devoxelize": check_devoxelize,
+                  "three_nn_interpolate": check_interpolate}
+
+
+def check_kernels(dev, plan, only=None) -> dict:
     rng = np.random.default_rng(0)
     shapes = main_path_shapes(plan, PATCH)
     log(f"main path shapes at B={PATCHES}: {json.dumps(shapes)}")
-    results = {
-        "fps": check_fps(rng, dev, shapes),
-        "ball_query_group": check_ball_query(rng, dev, shapes),
-        "avg_voxelize": check_voxelize(rng, dev, shapes),
-        "conv3d_gn": check_conv3d_gn(rng, dev, shapes),
-        "trilinear_devoxelize": check_devoxelize(rng, dev, shapes),
-        "three_nn_interpolate": check_interpolate(rng, dev, shapes),
-    }
+    results = {name: check(rng, dev, shapes) for name, check in SERVING_CHECKS.items()
+               if only is None or name in only}
     for name, per_dtype in results.items():
         for dtype, tally in per_dtype.items():
             row = tally.row()
@@ -580,7 +616,8 @@ def denoise_50k(model, twin, dev) -> dict:
 # ---------------------------------------------------------------- phase 6
 # device kernels of each hand-written kernel, by function name
 KERNEL_FUNCTIONS = {
-    "conv3d_gn": ("conv_tile_kernel", "conv_mma_kernel", "gn_stats_kernel", "gn_apply_kernel"),
+    "conv3d_gn": ("conv_tile_kernel", "conv_wgmma_kernel", "gn_stats_kernel", "gn_apply_kernel",
+                  "gn_apply_bf16_kernel"),
     "avg_voxelize": ("scatter_kernel", "divide_kernel"),
     "trilinear_devoxelize": ("devox_kernel", "mean_partial_kernel", "mean_final_kernel"),
     "ball_query_group": ("ball_query_group_kernel",),
@@ -922,12 +959,19 @@ def training(dev, plan) -> dict:
 
 
 def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--only", nargs="+", choices=sorted(SERVING_CHECKS),
+                        help="run phases 1-3 for these kernels alone, then stop")
+    only = parser.parse_args().only
     require_card()
     dev = torch.device("cuda", 0)
     build_kernels()
     with torch.device("meta"):
         plan = build_unet_from_config(pvds_punet()).plan
-    results = check_kernels(dev, plan)
+    results = check_kernels(dev, plan, only)
+    if only:
+        log(f"stopped after phase 3 (--only {' '.join(only)})")
+        return
     model, twin = build_models(dev)
     forward = check_forward(model, twin, dev)
     run = denoise_50k(model, twin, dev)

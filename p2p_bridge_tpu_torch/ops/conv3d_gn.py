@@ -4,11 +4,12 @@ math of p2p_bridge_tpu/ops/pallas/conv3d_kernel.py:_ref_conv and
 _apply_gn_xla.
 
 x and weight are f32 or bf16 (the compute dtype); bias, gamma and beta
-are f32. The conv accumulates in f32, the GroupNorm statistics come from
-that f32 accumulator and the result is stored in x's dtype, as the TPU
-kernel's epilogue does. On a CUDA tensor :func:`conv3d_gn` launches
-kernel K1 (``csrc/conv3d_gn.cu``); on a CPU tensor it runs the plain
-version.
+are f32. The conv accumulates in f32 and the GroupNorm statistics come
+from that f32 accumulator; the pre-norm grid is staged in x's dtype and
+normalised from there, and the result is stored in x's dtype, as the TPU
+kernel's epilogue does (wconv3d_kernel.py ``_kernel``). On a CUDA tensor
+:func:`conv3d_gn` launches kernel K1 (``csrc/conv3d_gn.cu``); on a CPU
+tensor it runs the plain version.
 
 The backward is that of the JAX package (wconv3d_kernel.py ``_make_conv_gn``):
 the gradient of the composition :func:`conv3d_gn_reference`, a SAME conv in
@@ -26,13 +27,18 @@ from .. import kernels
 
 
 def apply_group_norm(y: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-                     groups: int, eps: float, act: bool) -> torch.Tensor:
+                     groups: int, eps: float, act: bool,
+                     staged: torch.dtype | None = None) -> torch.Tensor:
     """GroupNorm over all voxels per (cloud, group), variance E[y^2] - m^2,
-    affine gamma/beta of shape [C] or [B, C], optional swish."""
+    affine gamma/beta of shape [C] or [B, C], optional swish. The statistics
+    come from y; with ``staged``, the values normalised are y rounded to
+    that dtype (a pre-norm grid stored in the compute dtype)."""
     B, C = y.shape[0], y.shape[-1]
     yg = y.float().reshape(B, -1, groups, C // groups)
     m = yg.mean(dim=(1, 3), keepdim=True)
     v = (yg * yg).mean(dim=(1, 3), keepdim=True) - m * m
+    if staged is not None:
+        yg = y.to(staged).float().reshape(yg.shape)
     yn = ((yg - m) * torch.rsqrt(v + eps)).reshape(y.shape)
     spatial = [1] * (y.dim() - 2)
     gamma = gamma.float().expand(B, C).reshape(B, *spatial, C)
@@ -44,12 +50,25 @@ def apply_group_norm(y: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
 
 
 def conv3d_gn_plain(x, weight, bias, gamma, beta, groups=8, eps=1e-5, act=False):
-    """In f32 on x's and weight's values (exact products of bf16 inputs),
-    stored in x's dtype."""
+    """In f32 on x's and weight's values (exact products of bf16 inputs);
+    statistics from the f32 conv + bias, which is staged in x's dtype before
+    it is normalised (the identity for f32), stored in x's dtype."""
     y = F.conv3d(x.float().permute(0, 4, 1, 2, 3), weight.float().permute(4, 3, 0, 1, 2),
                  bias.float(), padding=1)
-    y = apply_group_norm(y.permute(0, 2, 3, 4, 1), gamma, beta, groups, eps, act)
+    y = apply_group_norm(y.permute(0, 2, 3, 4, 1), gamma, beta, groups, eps, act,
+                         staged=x.dtype)
     return y.to(x.dtype)
+
+
+def pad_channels(x, weight):
+    """x [..., Cin] and weight [3, 3, 3, Cin, Cout] with zero channels added
+    up to a multiple of 32, as the bf16 kernel takes them (whole k-chunks;
+    TMA rows of 64 or 128 bytes). The convolution is the same: the added
+    products are 0."""
+    pad = -x.shape[-1] % 32
+    if pad == 0:
+        return x, weight
+    return F.pad(x, (0, pad)), F.pad(weight, (0, 0, 0, pad))
 
 
 def conv3d_gn_reference(x, weight, bias, gamma, beta, groups=8, eps=1e-5, act=False):
@@ -72,9 +91,22 @@ def _conv3d_gn_cuda(x, weight, bias, gamma, beta, groups, eps, act):
     kernels.require(beta, "beta", torch.float32, affine_shape, dev)
     if cout % groups:
         raise ValueError(f"Cout={cout} is not a multiple of groups={groups}")
-    if dt == torch.bfloat16 and cout % 8:
-        raise ValueError(f"bf16 conv3d_gn needs Cout % 8 == 0, got Cout={cout}")
     bf16 = int(dt == torch.bfloat16)
+    if bf16:
+        # the wgmma kernel: one N tile per Cout, 128- or 256-voxel boxes of one cloud
+        if cout not in (32, 64, 128, 256):
+            raise ValueError(f"bf16 conv3d_gn takes Cout in 32, 64, 128, 256, got {cout}")
+        if groups != 8:
+            raise ValueError(f"bf16 conv3d_gn takes groups=8, got {groups}")
+        if R < 8 or R & (R - 1):
+            raise ValueError(f"bf16 conv3d_gn takes a power-of-two R >= 8, got {R}")
+        x, weight = pad_channels(x, weight)
+        if x.data_ptr() % 16:  # TMA reads from a 16-byte aligned base
+            x = x.clone()
+        cin = x.shape[-1]
+        # [dx, dz, dy, Cout, Cin]: per (dx, dz) and k-chunk one TMA box holds
+        # the K-major weight tiles of the three dy taps
+        weight = weight.permute(0, 2, 1, 4, 3).contiguous()
     lib = kernels.library()
     y = torch.empty((B, R, R, R, cout), dtype=dt, device=dev)
     scratch = torch.empty(lib.p2pb_conv3d_gn_scratch_bytes(B, R, cout, groups, bf16),

@@ -2,7 +2,9 @@
 
 The port's CPU path (the plain version of kernel K1) is held against the
 XLA composition (_ref_conv + _apply_gn_xla) and against the windowed Pallas
-kernel wconv3d_gn_pallas in interpret mode, in f32 and in bf16.
+kernel wconv3d_gn_pallas in interpret mode, in f32 and in bf16; the bf16
+path also against kstack_conv3d_gn_pallas, and the channel padding the bf16
+kernel's wrapper applies.
 """
 
 import jax.numpy as jnp
@@ -12,8 +14,11 @@ import torch
 
 from p2p_bridge_tpu.ops.pallas import wconv3d_kernel
 from p2p_bridge_tpu.ops.pallas.conv3d_kernel import _apply_gn_xla, _ref_conv, _ref_conv_gn
+from p2p_bridge_tpu.ops.pallas.conv3d_kernel import kstack_conv3d_gn_pallas
+from p2p_bridge_tpu.ops.pallas.conv3d_kernel import supports as kstack_supports
 from p2p_bridge_tpu_torch import kernels
-from p2p_bridge_tpu_torch.ops.conv3d_gn import apply_group_norm, conv3d_gn
+from p2p_bridge_tpu_torch.ops.conv3d_gn import (apply_group_norm, conv3d_gn, conv3d_gn_plain,
+                                                pad_channels)
 
 
 def inputs(B, R, cin, cout, percloud, seed=0):
@@ -119,3 +124,68 @@ def test_conv3d_gn_bf16_matches_xla(R, cin, cout):
                                     act=True)).astype(np.float32)
     got = port_bf16(targs, True)
     assert np.abs(got - want).max() <= BF16_TOL * max(1.0, np.abs(want).max())
+
+
+# The plain version stages the pre-norm conv output in x's dtype before it
+# normalises it (statistics from the f32 sum), as the bf16 kernel and the
+# TPU kernels do. Shapes of the first PVConv conv (r = 8 stands for 32) and
+# of the widest one; no Pallas kernel of the JAX package takes Cout = 256
+# (wconv3d and kstack both need 128 % Cout == 0), and wconv3d does not take
+# Cin = 35 or R = 8 (wconv3d_kernel.supports), so the r = 8 35->32 shape is
+# held against kstack_conv3d_gn_pallas, which computes the same function.
+STAGED_SHAPES = [(8, 35, 32), (4, 256, 256)]
+
+
+def pallas_conv_gn(jargs, R, cin, cout, act):
+    """The JAX package's Pallas conv + GroupNorm in interpret mode for this
+    shape, or None where neither kernel takes it."""
+    if wconv3d_kernel.supports(cin, cout, R, R):
+        return wconv3d_kernel.wconv3d_gn_pallas(*jargs, groups=8, act=act, interpret=True)
+    if kstack_supports(cin, cout, R, R):
+        return kstack_conv3d_gn_pallas(*jargs, groups=8, act=act, interpret=True)
+    return None
+
+
+@pytest.mark.parametrize("R,cin,cout", STAGED_SHAPES)
+@pytest.mark.parametrize("percloud,act", [(False, False), (True, True)])
+def test_conv3d_gn_bf16_staged_matches_jax(R, cin, cout, percloud, act):
+    """Against the Pallas kernel, which stages the f32 accumulator in bf16
+    the same way: both sides multiply the same bf16 values exactly and sum
+    in f32 in other orders, so a staged value can round one bf16 ulp apart
+    (2^-8 of |y|, scaled by |gamma| / std when normalised) and the output
+    one more ulp (2^-8 of |out|); with |y| / std below ~3 here that stays
+    under 2^-8 * (3 * 1.3 + 1) ~ 2e-2 of max(1, max|out|). Against the XLA
+    composition (a bf16 conv, rounded before the bias, then the f32 norm)
+    the BF16_TOL reasoning above applies."""
+    targs, jargs = bf16_inputs(2, R, cin, cout, percloud, seed=R + cin)
+    got = port_bf16(targs, act)
+    jx, jk, jb, jg, jbe = jargs
+    xla = np.asarray(_apply_gn_xla(_ref_conv(jx, jk, jb), jg, jbe, groups=8, eps=1e-5,
+                                   act=act)).astype(np.float32)
+    scale = max(1.0, np.abs(xla).max())
+    assert np.abs(got - xla).max() <= BF16_TOL * scale
+    pallas = pallas_conv_gn(jargs, R, cin, cout, act)
+    if pallas is not None:
+        pallas = np.asarray(pallas).astype(np.float32)
+        assert np.abs(got - pallas).max() <= 2e-2 * max(1.0, np.abs(pallas).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cin", [35, 64, 192])
+def test_pad_channels_leaves_the_conv_unchanged(cin, dtype):
+    """The bf16 wrapper pads Cin to a multiple of 32 with zero channels and
+    zero weight rows: the plain result on the padded operands is identical.
+    Small integer inputs make every sum exact, so any summation order gives
+    the same bits."""
+    rng = np.random.default_rng(cin)
+    x = torch.from_numpy(rng.integers(-2, 3, size=(2, 8, 8, 8, cin)).astype(np.float32)).to(dtype)
+    w = torch.from_numpy(rng.integers(-2, 3, size=(3, 3, 3, cin, 32)).astype(np.float32) / 8).to(dtype)
+    b = torch.from_numpy(rng.integers(-4, 5, size=(32,)).astype(np.float32))
+    gamma, beta = torch.ones(2, 32), torch.zeros(2, 32)
+    xp, wp = pad_channels(x, w)
+    padded = -cin % 32
+    assert xp.shape[-1] == wp.shape[3] == cin + padded
+    assert not xp[..., cin:].any() and not wp[:, :, :, cin:].any()
+    want = conv3d_gn_plain(x, w, b, gamma, beta, act=True)
+    got = conv3d_gn_plain(xp, wp, b, gamma, beta, act=True)
+    assert got.dtype == dtype and torch.equal(got, want)
