@@ -12,10 +12,11 @@ Phases, in order; any failure raises and the process exits non-zero:
      PVDS_PUNet main path (B = 73 patches of 2048 points), and time the
      kernel, the plain version and, where one PyTorch call computes the
      same function, that call (CUDA events, median of 5 runs after a
-     warm-up, each run up to 20 back-to-back calls); the bound of each is
-     the larger of its bytes over 3.35 TB/s and its operations over the
-     peak rate of its data type; K1 also at B = 1 and B = 3 (a cloud's
-     first and last tiles, an odd tile count);
+     warm-up, each run up to 20 back-to-back calls; K1 also one call per
+     run); the bound of each is the larger of its bytes over 3.35 TB/s and
+     its operations over the peak rate of its data type; K1 also at B = 1
+     and B = 3 (a cloud's first and last tiles, an odd tile count) and at
+     the rooms model's Cout = 512 (two channel tiles);
   4. build PVDS_PUNet at full width as shipped (bf16, training.amp) and an
      f32 twin with the same weights; hold the f32 forward on the card
      against the f32 forward on the CPU, and the bf16 forward on the card
@@ -41,16 +42,10 @@ Phases, in order; any failure raises and the process exits non-zero:
      with a bit-equal forward.
 The line before the last is a JSON object with each kernel's launches,
 errors, times and bounds; the last line is {"ok": true, "device": {...}}.
-
-  python3 chip_smoke.py --only conv3d_gn [fps ...]
-
-runs phases 1-3 for the named kernels alone and stops (no result lines):
-a quick check of a kernel being worked on.
 """
 
 from __future__ import annotations
 
-import argparse
 import json
 import math
 import subprocess
@@ -150,11 +145,13 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def time_ms(fn, runs: int = RUNS) -> float:
+def time_ms(fn, runs: int = RUNS, back_to_back: bool = True) -> float:
     """Median device time of one call of ``fn`` over ``runs`` timed runs
     after a warm-up. A run makes as many back-to-back calls as fill about
     5 ms (at most 20), so that the host's launch work for one call overlaps
-    the device's work on the one before; a call of 5 ms or more runs alone."""
+    the device's work on the one before; a call of 5 ms or more runs alone,
+    and so does every call without ``back_to_back`` (the host's launch
+    work of a call is then inside its time)."""
     def run(reps: int) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -167,7 +164,7 @@ def time_ms(fn, runs: int = RUNS) -> float:
 
     fn()
     torch.cuda.synchronize()
-    reps = int(min(20, max(1, 5.0 // run(1))))
+    reps = int(min(20, max(1, 5.0 // run(1)))) if back_to_back else 1
     return float(np.median([run(reps) for _ in range(runs)]))
 
 
@@ -197,6 +194,7 @@ class Tally:
         self.dtype = dtype
         self.ms = self.plain_ms = self.bound_ms = self.bytes_ms = self.ops_ms = 0.0
         self.library_ms = 0.0 if library else None
+        self.single_call_ms = None  # K1: one call per timed run
         self.err = 0.0
 
     def add(self, calls, ms, plain_ms, lib_ms, nbytes, ops, err):
@@ -213,9 +211,12 @@ class Tally:
         return max(t_bytes, t_ops)
 
     def row(self) -> dict:
-        return {"ms": self.ms, "plain_ms": self.plain_ms, "bound_ms": self.bound_ms,
-                "bound_by": "bytes" if self.bytes_ms >= self.ops_ms else "operations",
-                "library_ms": self.library_ms}
+        row = {"ms": self.ms, "plain_ms": self.plain_ms, "bound_ms": self.bound_ms,
+               "bound_by": "bytes" if self.bytes_ms >= self.ops_ms else "operations",
+               "library_ms": self.library_ms}
+        if self.single_call_ms is not None:
+            row["single_call_ms"] = self.single_call_ms
+        return row
 
 
 def main_path_shapes(plan, npoints: int) -> dict:
@@ -392,11 +393,15 @@ def check_conv3d_gn(rng, dev, shapes) -> dict:
     gen = torch.Generator(device=dev).manual_seed(0)
     for name, dt in DTYPES.items():
         tally = Tally(name, library=True)
+        tally.single_call_ms = 0.0
         for i, ((r, cin, cout, act), calls) in enumerate(counted(convs)):
             # i % 3 == 2: also the shared [C] affine of plain GroupNorm
             x, w, b, gamma, beta = conv_inputs(gen, dev, dt, PATCHES, r, cin, cout, i % 3 == 2)
             err, tol = conv_error(name, (x, w, b, gamma, beta), act, f"r={r} {cin}->{cout}")
             ms = time_ms(lambda: conv_ops.conv3d_gn(x, w, b, gamma, beta, 8, 1e-5, act))
+            single = time_ms(lambda: conv_ops.conv3d_gn(x, w, b, gamma, beta, 8, 1e-5, act),
+                             back_to_back=False)
+            tally.single_call_ms += calls * single
             plain = time_ms(lambda: conv_ops.conv3d_gn_plain(x, w, b, gamma, beta, 8, 1e-5, act))
             # cuDNN conv + GroupNorm on channels-first tensors made outside the timing
             xc = x.permute(0, 4, 1, 2, 3).contiguous()
@@ -416,14 +421,15 @@ def check_conv3d_gn(rng, dev, shapes) -> dict:
             bound = tally.add(calls, ms, plain, lib, nbytes, flop, err)
             log(f"conv3d_gn {name} r={r} {cin}->{cout} x{calls} B={PATCHES}: max err {err:.3g} "
                 f"(tol {tol:.3g}); kernel {ms:.3f} ms ({flop / ms / 1e9:.2f} TFLOP/s, "
-                f"{bound / ms:.3f} of the bound {bound:.3g} ms), plain {plain:.3f} ms, "
-                f"cuDNN conv + GroupNorm {lib:.3f} ms")
+                f"{bound / ms:.3f} of the bound {bound:.3g} ms), one call alone {single:.3f} ms, "
+                f"plain {plain:.3f} ms, cuDNN conv + GroupNorm {lib:.3f} ms")
             del x
             torch.cuda.empty_cache()
         out[name] = tally
-    # a cloud's first and last tiles alone (B = 1) and an odd tile count (B = 3)
+    # a cloud's first and last tiles alone (B = 1) and an odd tile count
+    # (B = 3); Cout = 512 (PVDL_SNPP's widest conv) takes two channel tiles
     for B in (1, 3):
-        for r, cin, cout, act in ((8, 256, 256, False), (32, 35, 32, True)):
+        for r, cin, cout, act in ((8, 256, 256, False), (32, 35, 32, True), (8, 512, 512, True)):
             for shared in (False, True):
                 args = conv_inputs(gen, dev, torch.bfloat16, B, r, cin, cout, shared)
                 err, tol = conv_error("bf16", args, act, f"B={B} r={r} {cin}->{cout}")
@@ -503,18 +509,18 @@ def check_interpolate(rng, dev, shapes) -> dict:
     return out
 
 
-SERVING_CHECKS = {"fps": check_fps, "ball_query_group": check_ball_query,
-                  "avg_voxelize": check_voxelize, "conv3d_gn": check_conv3d_gn,
-                  "trilinear_devoxelize": check_devoxelize,
-                  "three_nn_interpolate": check_interpolate}
-
-
-def check_kernels(dev, plan, only=None) -> dict:
+def check_kernels(dev, plan) -> dict:
     rng = np.random.default_rng(0)
     shapes = main_path_shapes(plan, PATCH)
     log(f"main path shapes at B={PATCHES}: {json.dumps(shapes)}")
-    results = {name: check(rng, dev, shapes) for name, check in SERVING_CHECKS.items()
-               if only is None or name in only}
+    results = {
+        "fps": check_fps(rng, dev, shapes),
+        "ball_query_group": check_ball_query(rng, dev, shapes),
+        "avg_voxelize": check_voxelize(rng, dev, shapes),
+        "conv3d_gn": check_conv3d_gn(rng, dev, shapes),
+        "trilinear_devoxelize": check_devoxelize(rng, dev, shapes),
+        "three_nn_interpolate": check_interpolate(rng, dev, shapes),
+    }
     for name, per_dtype in results.items():
         for dtype, tally in per_dtype.items():
             row = tally.row()
@@ -959,19 +965,12 @@ def training(dev, plan) -> dict:
 
 
 def main() -> None:
-    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--only", nargs="+", choices=sorted(SERVING_CHECKS),
-                        help="run phases 1-3 for these kernels alone, then stop")
-    only = parser.parse_args().only
     require_card()
     dev = torch.device("cuda", 0)
     build_kernels()
     with torch.device("meta"):
         plan = build_unet_from_config(pvds_punet()).plan
-    results = check_kernels(dev, plan, only)
-    if only:
-        log(f"stopped after phase 3 (--only {' '.join(only)})")
-        return
+    results = check_kernels(dev, plan)
     model, twin = build_models(dev)
     forward = check_forward(model, twin, dev)
     run = denoise_50k(model, twin, dev)

@@ -7,8 +7,8 @@
 // (_conv_fwd, _kernel), with the math of
 // p2p_bridge_tpu/ops/pallas/conv3d_kernel.py:_ref_conv and _apply_gn_xla:
 // per (cloud, group) statistics over all voxels from the f32 accumulator,
-// variance E[y^2] - m^2. It serves every PVConv shape (Cin 35..256, Cout
-// 32..256, r 8..32).
+// variance E[y^2] - m^2. It serves every PVConv shape of the shipped
+// configs (Cin 35..512, Cout 32..512, r 8..32).
 //
 // What bounds it on the H100: operations. A PVDS_PUNet forward at 73
 // patches runs 3.2 TFLOP of these convolutions: 3.2 ms at the 989 TFLOP/s of
@@ -19,8 +19,9 @@
 // two clouds.
 //
 // bf16 (conv_wgmma_kernel), the path PVDS_PUNet runs as shipped:
-//  * a tile is 128 or 256 consecutive voxels of one cloud x all Cout
-//    channels (N = 32, 64, 128 or 256: no idle lane), a box of the 5-D
+//  * a tile is 128 or 256 consecutive voxels of one cloud x N channels,
+//    N the widest of 256, 128, 64, 32 that divides Cout (N = Cout up to
+//    256: no idle lane; Cout = 512 takes two tiles of 256), a box of the 5-D
 //    input: (1, 1, 4, 32) at r = 32, (1, 1, 8, 16) at r = 16, (1, 2, 8, 8) at
 //    r = 8 for 128 voxels. The A operand of tap (dx, dy, dz) is that box
 //    shifted by the tap. TMA loads it in tiled mode (signed coordinates,
@@ -48,9 +49,10 @@
 //    the ring runs on across tiles, so a tile's epilogue overlaps the next
 //    one's loads;
 //  * epilogue: bias added in f32; each tile's (sum, sum of squares) per
-//    group from the f32 registers (shuffles, then a fixed order over the
-//    eight warps), one deterministic partial per (cloud, group, tile), no
-//    atomics; the pre-norm grid stored in bf16 straight into the output,
+//    slot of N / 8 channels from the f32 registers (shuffles, then a fixed
+//    order over the eight warps), one deterministic partial per (cloud,
+//    slot, tile), no atomics; a GroupNorm group is one or more whole
+//    slots; the pre-norm grid stored in bf16 straight into the output,
 //    as the TPU kernel stages it in the compute dtype.
 // f32 (conv_tile_kernel): 64 x 64 tiles of 256 threads with 4 x 4 f32 FMA
 // accumulators, K steps of 16, the f32 pre-norm grid written in place.
@@ -200,31 +202,33 @@ __global__ void __launch_bounds__(NT)
 // ---- bf16: TMA + wgmma -----------------------------------------------------
 constexpr int WTHREADS = 2 * 128 + 32;  // two consumer warpgroups + a producer warp
 constexpr int MAX_STAGES = 8;
-constexpr int GN_GROUPS = 8;            // the GroupNorm of every PVConv
+constexpr int SLOTS = 8;                // GroupNorm partials a tile: N / 8 channels each
+constexpr int MAX_DEVICES = 16;         // cards whose launch state is cached
 
 template <int N, int CK, int MB>
 __global__ void __launch_bounds__(WTHREADS, N <= 64 && MB == 1 ? 2 : 1)
     conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
                       const __grid_constant__ CUtensorMap wmap,
                       const float* __restrict__ bias, int B, int R, int Cin,
-                      int zb, int yb, int stages, p2pb::bf16* __restrict__ y,
+                      int Cout, int zb, int yb, int stages, p2pb::bf16* __restrict__ y,
                       double* __restrict__ partials) {
   using namespace p2pb;
   extern __shared__ uint8_t smem_raw[];
   __shared__ uint64_t full[MAX_STAGES], empty[MAX_STAGES];
-  __shared__ float red[8][GN_GROUPS][2];
+  __shared__ float red[8][SLOTS][2];
 
   // the swizzled tiles want 1024-byte aligned stages
   uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   // a stage: the input box with a y halo, [x][y - 1 .. y + yb][z][CK], and
-  // the [Cout, CK] weight slices of the three dy taps
+  // the [N, CK] weight slices of the three dy taps
   constexpr int BM = 128 * MB;  // voxels of a tile: MB row blocks of 64 a warpgroup
   constexpr int ROW = CK * 2;   // bytes of one row of a tile
   const int a_bytes = BM / yb * (yb + 2) * ROW, b_bytes = N * ROW;
   uint8_t* As = smem;
   uint8_t* Bs = smem + stages * a_bytes;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int T = R * R * R / BM;  // tiles of a cloud
+  const int T = R * R * R / BM;  // voxel tiles of a cloud
+  const int CT = Cout / N;       // channel tiles, the fastest in the walk
   const int chunks = Cin / CK, steps = 9 * chunks;  // (dx, dz, k-chunk)
 
   if (tid == 0) {
@@ -237,14 +241,15 @@ __global__ void __launch_bounds__(WTHREADS, N <= 64 && MB == 1 ? 2 : 1)
   __syncthreads();
 
   // persistent: block i takes tiles i, i + gridDim.x, ... (cloud-major, so
-  // the blocks in flight share a cloud's input in L2); the ring runs on
-  // across tiles, so the next tile's loads overlap this one's epilogue
+  // the blocks in flight share a cloud's input in L2, and the channel tiles
+  // of one voxel tile its input box); the ring runs on across tiles, so the
+  // next tile's loads overlap this one's epilogue
   if (warp == 8) {
     // producer: one thread walks the K steps, up to `stages` ahead
     if (lane == 0) {
       int k = 0;
-      for (int tl = blockIdx.x; tl < B * T; tl += gridDim.x) {
-        const int b = tl / T, v0 = (tl - b * T) * BM;
+      for (int tl = blockIdx.x; tl < B * T * CT; tl += gridDim.x) {
+        const int b = tl / (T * CT), v0 = (tl / CT - b * T) * BM, n0 = (tl % CT) * N;
         const int x0 = v0 / (R * R), y0 = (v0 / R) % R, z0 = v0 % R;
         for (int st = 0; st < steps; ++st, ++k) {
           const int s = k % stages;
@@ -253,7 +258,7 @@ __global__ void __launch_bounds__(WTHREADS, N <= 64 && MB == 1 ? 2 : 1)
           mbar_arrive_expect_tx(&full[s], a_bytes + 3 * b_bytes);
           tma_load_5d(As + s * a_bytes, &xmap, &full[s], ci0, z0 + dxz % 3 - 1, y0 - 1,
                       x0 + dxz / 3 - 1, b);
-          tma_load_4d(Bs + s * 3 * b_bytes, &wmap, &full[s], ci0, 0, 0, dxz);
+          tma_load_4d(Bs + s * 3 * b_bytes, &wmap, &full[s], ci0, n0, 0, dxz);
         }
       }
     }
@@ -272,8 +277,8 @@ __global__ void __launch_bounds__(WTHREADS, N <= 64 && MB == 1 ? 2 : 1)
     halo[c] = m % zb + zb * ((m / zb) % yb + (yb + 2) * (m / (zb * yb)));
   }
   int k = 0;
-  for (int tl = blockIdx.x; tl < B * T; tl += gridDim.x) {
-    const int b = tl / T, tile = tl - b * T;
+  for (int tl = blockIdx.x; tl < B * T * CT; tl += gridDim.x) {
+    const int b = tl / (T * CT), tile = tl / CT - b * T, nt = tl % CT;
     float acc[MB][N / 2];
 #pragma unroll
     for (int c = 0; c < MB; ++c)
@@ -304,12 +309,13 @@ __global__ void __launch_bounds__(WTHREADS, N <= 64 && MB == 1 ? 2 : 1)
     for (int c = 0; c < MB; ++c) wgmma_fence_regs(acc[c]);
     if (lane == 0) mbar_arrive(&empty[(k - 1) % stages]);
 
-    // epilogue: y = acc + bias in f32; bf16 store; per-group sums. Lane
+    // epilogue: y = acc + bias in f32; bf16 store; per-slot sums. Lane
     // (g8, t) holds rows g8 and g8 + 8 of its warp's 16, columns 8j + 2t, +1.
-    constexpr int GS = N / GN_GROUPS;              // channels per group
-    constexpr int NSLOT = GS >= 8 ? GN_GROUPS : N / 8;  // groups a lane touches
+    constexpr int GS = N / SLOTS;                  // channels per slot
+    constexpr int NSLOT = GS >= 8 ? SLOTS : N / 8;  // slots a lane touches
     const int g8 = lane >> 2, t = lane & 3;
-    bf16* yt = y + ((size_t)b * R * R * R + (size_t)tile * BM) * N;
+    bf16* yt = y + ((size_t)b * R * R * R + (size_t)tile * BM) * Cout + nt * N;
+    const float* bt = bias + nt * N;
     float s1[NSLOT], s2[NSLOT];
 #pragma unroll
     for (int i = 0; i < NSLOT; ++i) s1[i] = s2[i] = 0.0f;
@@ -319,20 +325,20 @@ __global__ void __launch_bounds__(WTHREADS, N <= 64 && MB == 1 ? 2 : 1)
 #pragma unroll
       for (int j = 0; j < N / 8; ++j) {
         const int col = 8 * j + 2 * t;
-        const float b0 = __ldg(bias + col), b1 = __ldg(bias + col + 1);
-        const int sl = GS >= 8 ? j / (GS / 8) : j;  // GS = 4: group 2j + t / 2
+        const float b0 = __ldg(bt + col), b1 = __ldg(bt + col + 1);
+        const int sl = GS >= 8 ? j / (GS / 8) : j;  // GS = 4: slot 2j + t / 2
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const float v0 = acc[c][4 * j + 2 * h] + b0, v1 = acc[c][4 * j + 2 * h + 1] + b1;
           s1[sl] += v0 + v1;
           s2[sl] += v0 * v0 + v1 * v1;
-          *reinterpret_cast<__nv_bfloat162*>(yt + (size_t)(row + 8 * h) * N + col) =
+          *reinterpret_cast<__nv_bfloat162*>(yt + (size_t)(row + 8 * h) * Cout + col) =
               __floats2bfloat162_rn(v0, v1);
         }
       }
     }
-    // sum over the warp's rows (lane bits 2-4) and the lanes of one group
-    // (bit 0, and bit 1 unless GS = 4 splits a column block in two groups)
+    // sum over the warp's rows (lane bits 2-4) and the lanes of one slot
+    // (bit 0, and bit 1 unless GS = 4 splits a column block in two slots)
 #pragma unroll
     for (int i = 0; i < NSLOT; ++i) {
 #pragma unroll
@@ -351,13 +357,14 @@ __global__ void __launch_bounds__(WTHREADS, N <= 64 && MB == 1 ? 2 : 1)
       }
     }
     asm volatile("bar.sync 1, 256;\n" ::: "memory");  // the two consumer warpgroups
-    if (tid < GN_GROUPS) {
+    if (tid < SLOTS) {
       double s = 0.0, q = 0.0;
       for (int w = 0; w < 8; ++w) {
         s += (double)red[w][tid][0];
         q += (double)red[w][tid][1];
       }
-      double* pp = partials + (((size_t)b * GN_GROUPS + tid) * T + tile) * 2;
+      // [cloud][slot of the cloud][tile]: a group's partials are contiguous
+      double* pp = partials + (((size_t)b * SLOTS * CT + nt * SLOTS + tid) * T + tile) * 2;
       pp[0] = s;
       pp[1] = q;
     }
@@ -409,15 +416,16 @@ __global__ void gn_apply_kernel(float* y, const float* __restrict__ stats,
 __global__ void gn_apply_bf16_kernel(p2pb::bf16* y, const float* __restrict__ stats,
                                      const float* __restrict__ gamma,
                                      const float* __restrict__ beta,
-                                     int affine_stride, int VC8, int C, int act) {
+                                     int affine_stride, int VC8, int C, int groups,
+                                     int act) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= VC8) return;
   const int b = blockIdx.y;
   uint4* p = reinterpret_cast<uint4*>(y) + (size_t)b * VC8 + t;
   uint4 v = *p;
   __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
-  const int c0 = (t * 8) % C, gs = C / GN_GROUPS;
-  const float* st = stats + 2 * (size_t)b * GN_GROUPS;
+  const int c0 = (t * 8) % C, gs = C / groups;
+  const float* st = stats + 2 * (size_t)b * groups;
   const float* ga = gamma + (size_t)b * affine_stride;
   const float* be = beta + (size_t)b * affine_stride;
 #pragma unroll
@@ -432,16 +440,24 @@ __global__ void gn_apply_bf16_kernel(p2pb::bf16* y, const float* __restrict__ st
 }
 
 // ---- host ------------------------------------------------------------------
-// tiles of a cloud: the bf16 kernel's 128 or 256 voxels (the partials are
-// sized for 128), the f32 kernel's 64 x 64 blocks
-int num_tiles(int R, int Cout, int bf16) {
-  if (bf16) return R * R * R / 128;
+// the bf16 kernel's channel tile: the widest of 256, 128, 64, 32 that divides Cout
+int n_tile(int Cout) {
+  int n = 256;
+  while (n > 32 && Cout % n) n /= 2;
+  return n;
+}
+
+// partials of one (cloud, group): the bf16 kernel writes one per voxel tile
+// and slot of N / 8 channels (the most: 128-voxel tiles), the f32 kernel one
+// per 64 x 64 block
+int partials_per_group(int R, int Cout, int groups, int bf16) {
+  if (bf16) return Cout / groups / (n_tile(Cout) / SLOTS) * (R * R * R / 128);
   return ((R * R * R + BM - 1) / BM) * ((Cout + BN - 1) / BN);
 }
 
 // scratch: the partials (double), then the statistics (f32)
 long long scratch_bytes(int B, int R, int Cout, int groups, int bf16) {
-  return (long long)B * groups * num_tiles(R, Cout, bf16) * 2 * 8 +
+  return (long long)B * groups * partials_per_group(R, Cout, groups, bf16) * 2 * 8 +
          (long long)B * groups * 2 * 4;
 }
 
@@ -498,9 +514,22 @@ int stage_bytes(int R, int N, int CK, int MB) {
   return (Box(R, 128 * MB).halo_rows() + 3 * N) * CK * 2;
 }
 
+// SMs of the current card, read once per card
+int current_card(int* dev, int* sms) {
+  static int sms_of[MAX_DEVICES];
+  int err = (int)cudaGetDevice(dev);
+  if (err) return err;
+  if (*dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (!sms_of[*dev])
+    err = (int)cudaDeviceGetAttribute(&sms_of[*dev], cudaDevAttrMultiProcessorCount, *dev);
+  *sms = sms_of[*dev];
+  return err;
+}
+
 template <int N, int CK, int MB>
 int launch_wgmma(const void* x, const void* wt, const float* bias, int B, int R, int Cin,
-                 int sms, p2pb::bf16* y, double* partials, cudaStream_t s) {
+                 int Cout, int dev, int sms, p2pb::bf16* y, double* partials,
+                 cudaStream_t s) {
   const Box box(R, 128 * MB);
   const int stage = stage_bytes(R, N, CK, MB);
   int stages = smem_budget(N, MB) / stage;
@@ -513,25 +542,35 @@ int launch_wgmma(const void* x, const void* wt, const float* bias, int B, int R,
   const cuuint32_t xbox[5] = {CK, (cuuint32_t)box.zb, (cuuint32_t)box.yb + 2,
                               (cuuint32_t)box.xb, 1};
   // w [dx, dz][dy][Cout][Cin]: one box holds the three dy slices of a chunk
-  const cuuint64_t wdims[4] = {(cuuint64_t)Cin, (cuuint64_t)N, 3, 9};
-  const cuuint64_t wstrides[3] = {row, row * N, row * N * 3};
+  // for the N channels of a tile
+  const cuuint64_t wdims[4] = {(cuuint64_t)Cin, (cuuint64_t)Cout, 3, 9};
+  const cuuint64_t wstrides[3] = {row, row * Cout, row * Cout * 3};
   const cuuint32_t wbox[4] = {CK, (cuuint32_t)N, 3, 1};
   if (!tensor_map(&xmap, x, 5, xdims, xstrides, xbox) ||
       !tensor_map(&wmap, wt, 4, wdims, wstrides, wbox))
     return (int)cudaErrorInvalidValue;
   const int smem = stages * stage + 1024;
   auto kernel = conv_wgmma_kernel<N, CK, MB>;
-  int err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                      smem);
-  // one persistent block for each block slot of the card
-  int per_sm = 0;
-  if (!err)
+  // once per card: the shared-memory limit (the budget), and the blocks an
+  // SM holds at each R (R sets the stage size, so the shared memory)
+  static bool limit_set[MAX_DEVICES];
+  static int per_sm_at[MAX_DEVICES][32];
+  int err = 0;
+  if (!limit_set[dev]) {
+    err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    smem_budget(N, MB) + 1024);
+    if (err) return err;
+    limit_set[dev] = true;
+  }
+  int& per_sm = per_sm_at[dev][__builtin_ctz(R)];
+  if (!per_sm)
     err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, WTHREADS, smem);
   if (err) return err;
-  const int tiles = B * (R * R * R / (128 * MB));
+  // one persistent block for each block slot of the card
+  const int tiles = B * (R * R * R / (128 * MB)) * (Cout / N);
   const int grid = tiles < sms * per_sm ? tiles : sms * per_sm;
-  kernel<<<grid, WTHREADS, smem, s>>>(xmap, wmap, bias, B, R, Cin, box.zb, box.yb, stages,
-                                      y, partials);
+  kernel<<<grid, WTHREADS, smem, s>>>(xmap, wmap, bias, B, R, Cin, Cout, box.zb, box.yb,
+                                      stages, y, partials);
   return (int)cudaGetLastError();
 }
 
@@ -541,17 +580,16 @@ int launch_wgmma(const void* x, const void* wt, const float* bias, int B, int R,
 // block's shared memory, else 32.
 template <int N>
 int launch_n(const void* x, const void* wt, const float* bias, int B, int R, int Cin,
-             p2pb::bf16* y, double* partials, int* tiles, cudaStream_t s) {
+             int Cout, p2pb::bf16* y, double* partials, int* tiles, cudaStream_t s) {
   int dev = 0, sms = 0;
-  int err = (int)cudaGetDevice(&dev);
-  if (!err) err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int err = current_card(&dev, &sms);
   if (err) return err;
-  const int MB = N <= 128 && B * (R * R * R / 256) >= 4 * sms ? 2 : 1;
+  const int MB = N <= 128 && B * (R * R * R / 256) * (Cout / N) >= 4 * sms ? 2 : 1;
   *tiles = R * R * R / (128 * MB);
   const int CK = Cin % 64 == 0 && smem_budget(N, MB) / stage_bytes(R, N, 64, MB) >= 3 ? 64 : 32;
 #define P2PB_LAUNCH(ck, mb) \
   if (CK == ck && MB == mb) \
-    return launch_wgmma<N, ck, mb>(x, wt, bias, B, R, Cin, sms, y, partials, s);
+    return launch_wgmma<N, ck, mb>(x, wt, bias, B, R, Cin, Cout, dev, sms, y, partials, s);
   P2PB_LAUNCH(64, 1) P2PB_LAUNCH(32, 1)
   if constexpr (N <= 128) { P2PB_LAUNCH(64, 2) P2PB_LAUNCH(32, 2) }
 #undef P2PB_LAUNCH
@@ -569,28 +607,33 @@ P2PB_API long long p2pb_conv3d_gn_scratch_bytes(int B, int R, int Cout,
 // f32 (bf16 = 0): x [B, R, R, R, Cin], w [3, 3, 3, Cin, Cout] (DHWIO).
 // bf16 (bf16 = 1): x [B, R, R, R, Cin] with Cin % 32 == 0, w [3 (dx),
 // 3 (dz), 3 (dy), Cout, Cin] (the DHWIO weight with dy and dz swapped and
-// every tap transposed: K-major B tiles), Cout in {32, 64, 128, 256},
-// groups = 8, R a power of two >= 8; x and w 16-byte aligned.
+// every tap transposed: K-major B tiles), Cout % 32 == 0, a group of
+// whole slots (Cout / groups a multiple of n_tile(Cout) / 8), R a power
+// of two >= 8; x and w 16-byte aligned.
 P2PB_API int p2pb_conv3d_gn(const void* x, const void* w, const void* bias,
                             const void* gamma, const void* beta,
                             int affine_per_cloud, int B, int R, int Cin,
                             int Cout, int groups, float eps, int act, int bf16,
                             void* y, void* scratch, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  int T = num_tiles(R, Cout, bf16);  // the most; the bf16 kernel may use fewer
+  int T = partials_per_group(R, Cout, groups, bf16);  // the bf16 kernel may use fewer
   double* partials = (double*)scratch;
   float* stats = (float*)(partials + (size_t)B * groups * T * 2);
   int err;
   if (bf16) {
+    const int n = n_tile(Cout);
+    if (Cout % 32 || Cout % groups || (Cout / groups) % (n / SLOTS) || R < 8 || (R & (R - 1)))
+      return (int)cudaErrorInvalidValue;
     p2pb::bf16* yb = (p2pb::bf16*)y;
     const float* bs = (const float*)bias;
-    switch (Cout) {
-      case 32: err = launch_n<32>(x, w, bs, B, R, Cin, yb, partials, &T, s); break;
-      case 64: err = launch_n<64>(x, w, bs, B, R, Cin, yb, partials, &T, s); break;
-      case 128: err = launch_n<128>(x, w, bs, B, R, Cin, yb, partials, &T, s); break;
-      case 256: err = launch_n<256>(x, w, bs, B, R, Cin, yb, partials, &T, s); break;
-      default: return (int)cudaErrorInvalidValue;
+    int tiles = 0;  // voxel tiles of a cloud
+    switch (n) {
+      case 32: err = launch_n<32>(x, w, bs, B, R, Cin, Cout, yb, partials, &tiles, s); break;
+      case 64: err = launch_n<64>(x, w, bs, B, R, Cin, Cout, yb, partials, &tiles, s); break;
+      case 128: err = launch_n<128>(x, w, bs, B, R, Cin, Cout, yb, partials, &tiles, s); break;
+      default: err = launch_n<256>(x, w, bs, B, R, Cin, Cout, yb, partials, &tiles, s); break;
     }
+    T = Cout / groups / (n / SLOTS) * tiles;  // slots of a group x voxel tiles
   } else {
     conv_tile_kernel<<<dim3((R * R * R + BM - 1) / BM, (Cout + BN - 1) / BN, B), NT, 0, s>>>(
         (const float*)x, (const float*)w, (const float*)bias, R, Cin, Cout, groups,
@@ -609,7 +652,7 @@ P2PB_API int p2pb_conv3d_gn(const void* x, const void* w, const void* bias,
     const int VC8 = V * Cout / 8;
     gn_apply_bf16_kernel<<<dim3((VC8 + 255) / 256, B), 256, 0, s>>>(
         (p2pb::bf16*)y, stats, (const float*)gamma, (const float*)beta, stride, VC8,
-        Cout, act);
+        Cout, groups, act);
   } else {
     const int VC = V * Cout;
     gn_apply_kernel<<<dim3((VC + 255) / 256, B), 256, 0, s>>>(

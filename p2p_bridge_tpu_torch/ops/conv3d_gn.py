@@ -71,6 +71,21 @@ def pad_channels(x, weight):
     return F.pad(x, (0, pad)), F.pad(weight, (0, 0, 0, pad))
 
 
+def check_wgmma_shape(R: int, cout: int, groups: int) -> None:
+    """Raise unless the bf16 kernel takes this shape: 128-voxel boxes of one
+    cloud (R a power of two >= 8) by channel tiles of N, the widest of 256,
+    128, 64, 32 that divides Cout, whose GroupNorm partials cover N / 8
+    channels each, so a group must be whole slots of N / 8."""
+    if R < 8 or R & (R - 1):
+        raise ValueError(f"bf16 conv3d_gn takes a power-of-two R >= 8, got {R}")
+    if cout % 32:
+        raise ValueError(f"bf16 conv3d_gn takes Cout a multiple of 32, got {cout}")
+    n = next(n for n in (256, 128, 64, 32) if cout % n == 0)
+    if (cout // groups) % (n // 8):
+        raise ValueError(f"bf16 conv3d_gn: a group of Cout={cout} / groups={groups} "
+                         f"channels is not a multiple of {n // 8}")
+
+
 def conv3d_gn_reference(x, weight, bias, gamma, beta, groups=8, eps=1e-5, act=False):
     """The composition the backward differentiates: the conv in x's dtype
     (bias cast to it, as flax promotes it), then :func:`apply_group_norm`."""
@@ -93,13 +108,7 @@ def _conv3d_gn_cuda(x, weight, bias, gamma, beta, groups, eps, act):
         raise ValueError(f"Cout={cout} is not a multiple of groups={groups}")
     bf16 = int(dt == torch.bfloat16)
     if bf16:
-        # the wgmma kernel: one N tile per Cout, 128- or 256-voxel boxes of one cloud
-        if cout not in (32, 64, 128, 256):
-            raise ValueError(f"bf16 conv3d_gn takes Cout in 32, 64, 128, 256, got {cout}")
-        if groups != 8:
-            raise ValueError(f"bf16 conv3d_gn takes groups=8, got {groups}")
-        if R < 8 or R & (R - 1):
-            raise ValueError(f"bf16 conv3d_gn takes a power-of-two R >= 8, got {R}")
+        check_wgmma_shape(R, cout, groups)
         x, weight = pad_channels(x, weight)
         if x.data_ptr() % 16:  # TMA reads from a 16-byte aligned base
             x = x.clone()

@@ -3,9 +3,12 @@
 The port's CPU path (the plain version of kernel K1) is held against the
 XLA composition (_ref_conv + _apply_gn_xla) and against the windowed Pallas
 kernel wconv3d_gn_pallas in interpret mode, in f32 and in bf16; the bf16
-path also against kstack_conv3d_gn_pallas, and the channel padding the bf16
-kernel's wrapper applies.
+path also against kstack_conv3d_gn_pallas, the bf16 staging of the
+pre-norm grid exactly, the channel padding the bf16 kernel's wrapper
+applies, and the shapes the bf16 kernel takes.
 """
+
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -17,8 +20,12 @@ from p2p_bridge_tpu.ops.pallas.conv3d_kernel import _apply_gn_xla, _ref_conv, _r
 from p2p_bridge_tpu.ops.pallas.conv3d_kernel import kstack_conv3d_gn_pallas
 from p2p_bridge_tpu.ops.pallas.conv3d_kernel import supports as kstack_supports
 from p2p_bridge_tpu_torch import kernels
-from p2p_bridge_tpu_torch.ops.conv3d_gn import (apply_group_norm, conv3d_gn, conv3d_gn_plain,
-                                                pad_channels)
+from p2p_bridge_tpu_torch.models.unet_pvc import build_unet_from_config
+from p2p_bridge_tpu_torch.ops.conv3d_gn import (apply_group_norm, check_wgmma_shape, conv3d_gn,
+                                                conv3d_gn_plain, pad_channels)
+from p2p_bridge_tpu_torch.utils.config import load_yaml
+
+CONFIGS = Path(__file__).resolve().parent.parent / "configs"
 
 
 def inputs(B, R, cin, cout, percloud, seed=0):
@@ -97,11 +104,14 @@ def port_bf16(targs, act):
 
 # Tolerance of the bf16 comparisons, times max(1, max|out|): both sides
 # multiply the same bf16 values exactly and accumulate in f32, then round
-# at different places. The port rounds once, at the store (2^-9 of
-# |out|); the JAX paths also round the pre-norm conv output to bf16, an
-# error of 2^-9 |y| that the normalisation scales by |gamma| / std. With
-# these inputs |y| / std stays below ~3 (bias ~1, conv std ~1), so the
-# sum is below 2^-9 * (1 + 3) ~ 8e-3; the bound is 1e-2.
+# at different places. Each rounds the output at the store (2^-9 of
+# |out|). One side also rounds a pre-norm value to bf16 where the other
+# does not: the port stages conv + bias in bf16, as wconv3d_gn_pallas
+# does; XLA's bf16 conv rounds before the bias; kstack_conv3d_gn_pallas
+# normalises its f32 sum. That is an error of 2^-9 |y| that the
+# normalisation scales by |gamma| / std. With these inputs |y| / std stays
+# below ~3 (bias ~1, conv std ~1), so the sum is below 2^-9 * (1 + 3) ~
+# 8e-3; the bound is 1e-2.
 BF16_TOL = 1e-2
 
 
@@ -128,11 +138,12 @@ def test_conv3d_gn_bf16_matches_xla(R, cin, cout):
 
 # The plain version stages the pre-norm conv output in x's dtype before it
 # normalises it (statistics from the f32 sum), as the bf16 kernel and the
-# TPU kernels do. Shapes of the first PVConv conv (r = 8 stands for 32) and
+# TPU kernel do. Shapes of the first PVConv conv (r = 8 stands for 32) and
 # of the widest one; no Pallas kernel of the JAX package takes Cout = 256
 # (wconv3d and kstack both need 128 % Cout == 0), and wconv3d does not take
 # Cin = 35 or R = 8 (wconv3d_kernel.supports), so the r = 8 35->32 shape is
-# held against kstack_conv3d_gn_pallas, which computes the same function.
+# held against kstack_conv3d_gn_pallas, which computes the same function
+# without the staging.
 STAGED_SHAPES = [(8, 35, 32), (4, 256, 256)]
 
 
@@ -149,14 +160,11 @@ def pallas_conv_gn(jargs, R, cin, cout, act):
 @pytest.mark.parametrize("R,cin,cout", STAGED_SHAPES)
 @pytest.mark.parametrize("percloud,act", [(False, False), (True, True)])
 def test_conv3d_gn_bf16_staged_matches_jax(R, cin, cout, percloud, act):
-    """Against the Pallas kernel, which stages the f32 accumulator in bf16
-    the same way: both sides multiply the same bf16 values exactly and sum
-    in f32 in other orders, so a staged value can round one bf16 ulp apart
-    (2^-8 of |y|, scaled by |gamma| / std when normalised) and the output
-    one more ulp (2^-8 of |out|); with |y| / std below ~3 here that stays
-    under 2^-8 * (3 * 1.3 + 1) ~ 2e-2 of max(1, max|out|). Against the XLA
-    composition (a bf16 conv, rounded before the bias, then the f32 norm)
-    the BF16_TOL reasoning above applies."""
+    """Against the XLA composition and the kstack Pallas kernel, each of
+    which rounds a pre-norm value where the port does not or the other way
+    round: BF16_TOL. These inputs cannot tell a staged grid from an
+    unstaged one (the two differ by less than BF16_TOL); the two tests
+    below pin the staging."""
     targs, jargs = bf16_inputs(2, R, cin, cout, percloud, seed=R + cin)
     got = port_bf16(targs, act)
     jx, jk, jb, jg, jbe = jargs
@@ -167,7 +175,96 @@ def test_conv3d_gn_bf16_staged_matches_jax(R, cin, cout, percloud, act):
     pallas = pallas_conv_gn(jargs, R, cin, cout, act)
     if pallas is not None:
         pallas = np.asarray(pallas).astype(np.float32)
-        assert np.abs(got - pallas).max() <= 2e-2 * max(1.0, np.abs(pallas).max())
+        assert np.abs(got - pallas).max() <= BF16_TOL * max(1.0, np.abs(pallas).max())
+
+
+def normalise_ref(y, staged, gamma, beta, act, groups=8, eps=1e-5):
+    """GroupNorm in f64 with the statistics of y and the values of staged."""
+    B, C = y.shape[0], y.shape[-1]
+    yg = y.astype(np.float64).reshape(B, -1, groups, C // groups)
+    m = yg.mean(axis=(1, 3), keepdims=True)
+    v = (yg * yg).mean(axis=(1, 3), keepdims=True) - m * m
+    yn = ((staged.astype(np.float64).reshape(yg.shape) - m) / np.sqrt(v + eps)).reshape(y.shape)
+    spatial = (1,) * (y.ndim - 2)
+    yn = (yn * np.broadcast_to(gamma, (B, C)).reshape(B, *spatial, C)
+          + np.broadcast_to(beta, (B, C)).reshape(B, *spatial, C))
+    return yn / (1 + np.exp(-yn)) if act else yn
+
+
+@pytest.mark.parametrize("percloud,act", [(False, False), (True, True)])
+def test_apply_group_norm_normalises_the_staged_values(percloud, act):
+    """staged=bf16: statistics from the f32 y, the values normalised are y
+    rounded to bf16. y ~ 20 +- 1, as a grid of mostly empty voxels gives
+    (y = bias there): a bf16 ulp at 20 is 0.125, so staging moves a
+    normalised value by up to 0.0625 (measured 0.08 after the affine),
+    while the f32 statistics, whose E[y^2] - m^2 cancels ~400 to 1, put the
+    result ~1e-3 from the f64 reference (measured 9e-4); the tolerance is
+    3e-3 and the unstaged result must miss by ten times that. staged=f32
+    is the identity."""
+    rng = np.random.default_rng(11)
+    B, C = 2, 32
+    y = (20 + rng.normal(size=(B, 6, 6, 6, C))).astype(np.float32)
+    shape = (B, C) if percloud else (C,)
+    gamma = (1 + 0.1 * rng.normal(size=shape)).astype(np.float32)
+    beta = (0.1 * rng.normal(size=shape)).astype(np.float32)
+    ty, tg, tb = map(torch.from_numpy, (y, gamma, beta))
+    got = apply_group_norm(ty, tg, tb, 8, 1e-5, act, staged=torch.bfloat16).numpy()
+    want = normalise_ref(y, ty.bfloat16().float().numpy(), gamma, beta, act)
+    unstaged = normalise_ref(y, y, gamma, beta, act)
+    assert np.abs(got - want).max() <= 3e-3
+    assert np.abs(unstaged - want).max() > 3e-2  # staging shows here
+    plain = apply_group_norm(ty, tg, tb, 8, 1e-5, act)
+    assert torch.equal(apply_group_norm(ty, tg, tb, 8, 1e-5, act, staged=torch.float32), plain)
+
+
+@pytest.mark.parametrize("percloud,act", [(False, False), (True, True)])
+def test_conv3d_gn_plain_stages_the_prenorm_grid(percloud, act):
+    """conv3d_gn_plain in bf16, the version the bf16 kernel is held to on
+    the card, is the f32 conv + bias normalised by apply_group_norm with
+    staged=bf16, bit for bit. x in {-1, 0, 1}, w in {-1, 0, 1} / 8 and a
+    bias of multiples of 2^-10 near 60 make every sum exact in f32 (17
+    significant bits at most), so JAX's f32 conv gives the port's y. There
+    a bf16 ulp of y is 0.25 against a conv std of ~2.6, and the unstaged
+    result differs in most elements."""
+    rng = np.random.default_rng(12)
+    B, R, cin, cout = 2, 8, 35, 32
+    x = rng.integers(-1, 2, size=(B, R, R, R, cin)).astype(np.float32)
+    k = (rng.integers(-1, 2, size=(3, 3, 3, cin, cout)) / 8).astype(np.float32)
+    b = (60 + rng.integers(0, 1024, size=(cout,)) / 1024).astype(np.float32)
+    shape = (B, cout) if percloud else (cout,)
+    gamma = (1 + 0.1 * rng.normal(size=shape)).astype(np.float32)
+    beta = (0.1 * rng.normal(size=shape)).astype(np.float32)
+    tg, tb = map(torch.from_numpy, (gamma, beta))
+    tx, tk = (torch.from_numpy(a).bfloat16() for a in (x, k))
+    got = conv3d_gn_plain(tx, tk, torch.from_numpy(b), tg, tb, act=act)
+    y = torch.from_numpy(np.array(_ref_conv(jnp.asarray(x), jnp.asarray(k), jnp.asarray(b))))
+    want = apply_group_norm(y, tg, tb, 8, 1e-5, act, staged=torch.bfloat16).bfloat16()
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+    unstaged = apply_group_norm(y, tg, tb, 8, 1e-5, act).bfloat16()
+    assert (got != unstaged).float().mean() > 0.5
+
+
+def conv_shapes(config):
+    """(R, Cout) of every voxel conv of a config's backbone."""
+    with torch.device("meta"):
+        plan = build_unet_from_config(load_yaml(str(CONFIGS / config))).plan
+    specs = [spec for stage in (*plan.sa_stages, *plan.fp_stages) for spec in stage.convs
+             if spec.resolution]
+    return {(spec.resolution, spec.out_channels) for spec in specs}
+
+
+@pytest.mark.parametrize("config", ["PVDS_PUNet.yaml", "PVDL_SNPP.yaml", "PVDL_ARKIT.yaml"])
+def test_bf16_kernel_takes_every_config_shape(config):
+    """The bf16 kernel serves every voxel conv of the shipped configs
+    (GroupNorm of 8 groups), Cout = 512 of the rooms models included, and
+    its wrapper refuses what the kernel cannot tile."""
+    shapes = conv_shapes(config)
+    assert shapes
+    for R, cout in shapes:
+        check_wgmma_shape(R, cout, 8)
+    for R, cout, groups in ((24, 64, 8), (4, 64, 8), (8, 40, 8), (8, 64, 16), (8, 512, 32)):
+        with pytest.raises(ValueError):
+            check_wgmma_shape(R, cout, groups)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
