@@ -13,14 +13,24 @@ Phases, in order; any failure raises and the process exits non-zero:
      kernel, the plain version and, where one PyTorch call computes the
      same function, that call (CUDA events, median of 5 runs after a
      warm-up, each run up to 20 back-to-back calls; K1 also one call per
-     run); the bound of each is the larger of its bytes over 3.35 TB/s and
-     its operations over the peak rate of its data type; K1 also at B = 1
-     and B = 3 (a cloud's first and last tiles, an odd tile count) and at
-     the rooms model's Cout = 512 (two channel tiles);
+     run); beside each kernel's time, its device time per call (its own
+     device functions in a torch.profiler trace of 10 back-to-back calls)
+     and its host time per call (the host clock over up to 300 calls with
+     no synchronise); the bound of each is the larger of its bytes over
+     3.35 TB/s and its operations over the peak rate of its data type;
+     K1 also at B = 1 and B = 3 (a cloud's first and last tiles, an odd
+     tile count) and at the rooms model's Cout = 512 (two channel tiles);
+     K2 (voxelize) torch.equal, grid and counts, to its plain version run
+     on the CPU from the same inputs and to a second kernel call, also at
+     PVDL_SNPP's (4096, 32, 67) and (64, 8, 512) at B = 4; then the host
+     cost of K2b's wrapper, of its launch and of the pieces of the launch
+     path, this one's and the earlier one's;
   4. build PVDS_PUNet at full width as shipped (bf16, training.amp) and an
      f32 twin with the same weights; hold the f32 forward on the card
      against the f32 forward on the CPU, and the bf16 forward on the card
-     against the f32 forward on the card;
+     against the f32 forward on the card; two bf16 forwards at B = 73 of
+     the same weights and inputs must be bit-equal (where not, the error
+     names the first module whose output varies);
   5. denoise one 50,000-point cloud through patch_based_denoise_batch in
      f32 and bf16, each with bucketed and exact recombination; the launch
      counts are set to 0 just before each of the four runs and read just
@@ -39,15 +49,17 @@ Phases, in order; any failure raises and the process exits non-zero:
      just after with all eight kernels launched, ms per step over steps
      10-29 split into its phases, a torch.profiler profile of step 30; and
      a checkpoint that denoise_object.load_weights reads back into a model
-     with a bit-equal forward.
+     whose forward on the card is bit-equal to the trained model's.
 The line before the last is a JSON object with each kernel's launches,
-errors, times and bounds; the last line is {"ok": true, "device": {...}}.
+errors, times (back to back, device, host per call) and bounds; the last
+line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -93,7 +105,6 @@ PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
 # their last bit the rounding can land one bf16 ulp apart: 2^-7 of the
 # value at the bottom of a binade, 2^-8 at the top
 BF16_ULP = 2.0 ** -7
-VOX_TOL = {"f32": 1e-5, "bf16": BF16_ULP}     # times max|features|: f32 atomics
 CONV_TOL = {"f32": 1e-4, "bf16": BF16_ULP}    # times max|out|: another f32 order, TF32 off
 DEVOX_TOL = {"f32": 1e-6, "bf16": BF16_ULP}   # times max|grid|: same order; the mean in double
 INTERP_TOL = {"f32": 1e-6, "bf16": BF16_ULP}  # times max|features|: a 3-term f32 sum
@@ -143,6 +154,66 @@ PARAM_REL_L2 = 1e-2  # every parameter
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def host_us(fn, ms: float) -> float:
+    """Host time of one call of ``fn`` in microseconds: the host clock over
+    a few hundred calls (fewer where ``ms``, the call's device time, would
+    keep the card busy for more than 0.2 s) with no synchronise, i.e. what
+    enqueueing the call costs. The device's queue is drained before and
+    after."""
+    calls = int(min(300, max(3, 200.0 / max(ms, 1e-6))))
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
+
+
+def trace_events(prof) -> list:
+    """The device-side events (kernels, copies, sets) of a finished
+    torch.profiler run: [(name, start us, duration us)]."""
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = str(Path(tmp) / "trace.json")
+        prof.export_chrome_trace(trace)
+        with open(trace) as f:
+            events = json.load(f)["traceEvents"]
+    return [(e["name"], e["ts"], e["dur"]) for e in events
+            if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+
+
+def device_ms(fn, kernel: str, calls: int = 10, attempts: int = 3) -> float:
+    """Device time of one call of ``fn``: the summed durations of the
+    device functions of ``kernel`` (KERNEL_FUNCTIONS) in a torch.profiler
+    trace of ``calls`` back-to-back calls, over ``calls``. A trace now and
+    then comes back without any device events, so an empty one is taken
+    again, up to ``attempts`` times in all; then this raises."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(1, attempts + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        split = {}
+        for name, _, dur in trace_events(prof):
+            if kernel_group(name) == kernel:
+                fn_name = re.search(r"\(anonymous namespace\)::(\w+)", name).group(1)
+                split[fn_name] = split.get(fn_name, 0.0) + dur / 1e3 / calls
+        if split:
+            break
+        log(f"  {kernel}: trace {attempt} of {attempts} holds none of its device functions")
+    else:
+        raise AssertionError(f"{attempts} traces of {kernel} hold none of its device functions")
+    if len(split) > 1:
+        log(f"  {kernel} device ms per call by function: "
+            + ", ".join(f"{f} {ms:.4f}" for f, ms in split.items()))
+    return sum(split.values())
 
 
 def time_ms(fn, runs: int = RUNS, back_to_back: bool = True) -> float:
@@ -195,12 +266,17 @@ class Tally:
         self.ms = self.plain_ms = self.bound_ms = self.bytes_ms = self.ops_ms = 0.0
         self.library_ms = 0.0 if library else None
         self.single_call_ms = None  # K1: one call per timed run
+        self.device_ms = 0.0  # profiled device time of the kernel's functions
+        self.host_us = []  # (calls, host us per call) of each shape
         self.err = 0.0
 
-    def add(self, calls, ms, plain_ms, lib_ms, nbytes, ops, err):
+    def add(self, calls, ms, plain_ms, lib_ms, nbytes, ops, err, dev_ms=0.0, host=None):
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / PEAK_OPS_PER_S[self.dtype] * 1e3
         self.ms += calls * ms
+        self.device_ms += calls * dev_ms
+        if host is not None and calls:
+            self.host_us.append((calls, host))
         self.plain_ms += calls * plain_ms
         self.bytes_ms += calls * t_bytes
         self.ops_ms += calls * t_ops
@@ -211,9 +287,11 @@ class Tally:
         return max(t_bytes, t_ops)
 
     def row(self) -> dict:
+        calls = sum(c for c, _ in self.host_us)
         row = {"ms": self.ms, "plain_ms": self.plain_ms, "bound_ms": self.bound_ms,
                "bound_by": "bytes" if self.bytes_ms >= self.ops_ms else "operations",
-               "library_ms": self.library_ms}
+               "library_ms": self.library_ms, "device_ms": self.device_ms,
+               "host_us_per_call": sum(c * h for c, h in self.host_us) / max(calls, 1)}
         if self.single_call_ms is not None:
             row["single_call_ms"] = self.single_call_ms
         return row
@@ -266,7 +344,7 @@ def require_card() -> str:
 def build_kernels() -> None:
     t0 = time.perf_counter()
     path = kernels.build()
-    kernels.library()
+    kernels.entry_points()
     log(f"kernels built in {time.perf_counter() - t0:.1f} s: {path}")
 
 
@@ -288,11 +366,15 @@ def check_fps(rng, dev, shapes) -> dict:
             bad = (got != want).sum().item()
             raise AssertionError(f"fps {what}: {bad} indices differ from the plain version")
         ms = time_ms(lambda: fps_ops.furthest_point_sample(x, m), runs)
+        # the 1.6 s exact recombination is not traced
+        dms = device_ms(lambda: fps_ops.furthest_point_sample(x, m), "fps") if runs > 1 else None
+        hus = host_us(lambda: fps_ops.furthest_point_sample(x, m), ms)
         plain = time_ms(lambda: fps_ops.furthest_point_sample_plain(x, m), runs)
         # per iteration and point: 3 sub, 3 mul, 2 add, min, compare
         bound = tally.add(per_fwd, ms, plain, None, b * n * 12 + b * m * 4,
-                          10.0 * b * (m - 1) * n, 0.0)
-        log(f"fps {what} [{b}, {n}] -> {m}: indices equal; kernel {ms:.3f} ms, "
+                          10.0 * b * (m - 1) * n, 0.0, dms or 0.0, hus)
+        log(f"fps {what} [{b}, {n}] -> {m}: indices equal; kernel {ms:.3f} ms (device "
+            f"{'not traced' if dms is None else f'{dms:.4f} ms'}, host {hus:.1f} us a call), "
             f"plain {plain:.3f} ms, bound {bound:.3g} ms")
     return {"f32": tally}
 
@@ -314,6 +396,9 @@ def check_ball_query(rng, dev, shapes) -> dict:
             if not torch.equal(got_g, want_g):
                 raise AssertionError(f"ball query {name} {n}->{m}: gathered rows differ")
             ms = time_ms(lambda: bq_ops.ball_query_group(centers, pts, rows, radius, k))
+            dms = device_ms(lambda: bq_ops.ball_query_group(centers, pts, rows, radius, k),
+                            "ball_query_group")
+            hus = host_us(lambda: bq_ops.ball_query_group(centers, pts, rows, radius, k), ms)
             plain = time_ms(lambda: bq_ops.ball_query_group_plain(centers, pts, rows, radius, k))
             # the scan stops at the warp of the K-th hit: count what it reads
             hits = (pairwise_sqdist_exact(centers, pts) < bq_ops._radius_sq(radius)).cumsum(-1)
@@ -321,12 +406,43 @@ def check_ball_query(rng, dev, shapes) -> dict:
             scanned = torch.clamp((kth // 32 + 1) * 32, max=n).sum().item()
             nbytes = (PATCHES * (m + n) * 12 + PATCHES * n * c * esize(dt)
                       + PATCHES * m * k * (c * esize(dt) + 4))
-            bound = tally.add(1, ms, plain, None, nbytes, 8.0 * scanned, 0.0)
+            bound = tally.add(1, ms, plain, None, nbytes, 8.0 * scanned, 0.0, dms, hus)
             log(f"ball_query_group {name} {n}->{m} r={radius} C={c}: idx and rows equal; "
-                f"kernel {ms:.3f} ms, plain {plain:.3f} ms, bound {bound:.3g} ms")
+                f"kernel {ms:.3f} ms (device {dms:.4f} ms, host {hus:.1f} us a call), "
+                f"plain {plain:.3f} ms, bound {bound:.3g} ms")
             del hits
         out[name] = tally
     return out
+
+
+# PVDL_SNPP's ragged (C = 67) and widest voxelize calls, checked at B = 4
+SNPP_VOXELIZE = ((4096, 32, 67), (64, 8, 512))
+
+
+def voxelize_equal(rng, dev, dt, b, n, r, c):
+    """K2 on the card against the plain version on the CPU from the same
+    inputs, grid and counts torch.equal, and against a second kernel call;
+    the op the model calls returns the same grid. Returns the inputs."""
+    what = f"avg_voxelize {dt} B={b} N={n} r={r} C={c}"
+    pts = patches(rng, b, n, dev)
+    vox, _ = vox_ops.normalize_coords_to_voxels(pts, r)
+    feat = torch.randn(b, n, c, device=dev).to(dt)
+    got, cnt = vox_ops._avg_voxelize_cuda(feat, vox, r)
+    again, cnt_again = vox_ops._avg_voxelize_cuda(feat, vox, r)
+    model_op = vox_ops.avg_voxelize(feat, vox, r)
+    want, want_cnt = vox_ops._avg_voxelize_plain(feat.cpu(), vox.cpu(), r)
+    if not (got.dtype == dt and torch.equal(cnt.cpu(), want_cnt)):
+        raise AssertionError(f"{what}: counts differ from the CPU plain version")
+    if not torch.equal(got.cpu(), want):
+        bad = (got.cpu() != want).sum().item()
+        err = (got.cpu().float() - want.float()).abs().max().item()
+        raise AssertionError(f"{what}: {bad} grid values differ from the CPU plain "
+                             f"version, by up to {err}")
+    if not (torch.equal(got, again) and torch.equal(cnt, cnt_again)):
+        raise AssertionError(f"{what}: two kernel calls differ")
+    if not torch.equal(model_op.reshape(got.shape), got):
+        raise AssertionError(f"{what}: avg_voxelize differs from the kernel's grid")
+    return feat, vox
 
 
 def check_voxelize(rng, dev, shapes) -> dict:
@@ -334,27 +450,27 @@ def check_voxelize(rng, dev, shapes) -> dict:
     for name, dt in DTYPES.items():
         tally = Tally(name, library=True)
         for (n, r, c), calls in counted((n, r, cin) for n, r, cin, _ in shapes["pvconv"]):
-            pts = patches(rng, PATCHES, n, dev)
-            vox, _ = vox_ops.normalize_coords_to_voxels(pts, r)
-            feat = torch.randn(PATCHES, n, c, device=dev).to(dt)
-            got = vox_ops.avg_voxelize(feat, vox, r)
-            want = vox_ops.avg_voxelize_plain(feat, vox, r)
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            tol = VOX_TOL[name] * feat.float().abs().max().item()
-            if not (got.dtype == dt and err <= tol):
-                raise AssertionError(f"voxelize {name} N={n} r={r} C={c}: max err {err} > {tol}")
+            feat, vox = voxelize_equal(rng, dev, dt, PATCHES, n, r, c)
             ms = time_ms(lambda: vox_ops.avg_voxelize(feat, vox, r))
+            dms = device_ms(lambda: vox_ops.avg_voxelize(feat, vox, r), "avg_voxelize")
+            hus = host_us(lambda: vox_ops.avg_voxelize(feat, vox, r), ms)
             plain = time_ms(lambda: vox_ops.avg_voxelize_plain(feat, vox, r))
             idx = vox_ops.flat_voxel_index(vox, r).long()[..., None].expand(PATCHES, n, c)
             grid = torch.zeros(PATCHES, r ** 3, c, device=dev, dtype=dt)
             lib = time_ms(lambda: grid.scatter_reduce_(1, idx, feat, "mean", include_self=False))
-            nbytes = PATCHES * n * (c * esize(dt) + 12) + PATCHES * r ** 3 * c * esize(dt)
+            # features and coordinates read once; grid and counts written once
+            nbytes = PATCHES * n * (c * esize(dt) + 12) + PATCHES * r ** 3 * (c * esize(dt) + 4)
             bound = tally.add(calls, ms, plain, lib, nbytes,
-                              PATCHES * (n + r ** 3) * c, err)
-            log(f"avg_voxelize {name} N={n} r={r} C={c} x{calls}: max err {err:.3g} "
-                f"(tol {tol:.3g}); kernel {ms:.3f} ms, plain {plain:.3f} ms, "
-                f"scatter_reduce_ {lib} ms, bound {bound:.3g} ms")
+                              PATCHES * (n + r ** 3) * c, 0.0, dms, hus)
+            log(f"avg_voxelize {name} N={n} r={r} C={c} x{calls}: grid and counts equal to "
+                f"the CPU plain version, two calls equal; kernel {ms:.3f} ms (device {dms:.4f} "
+                f"ms, host {hus:.1f} us a call), plain {plain:.3f} ms, scatter_reduce_ "
+                f"{lib:.3f} ms, bound {bound:.3g} ms")
+            del grid, idx
+        for n, r, c in SNPP_VOXELIZE:
+            voxelize_equal(rng, dev, dt, 4, n, r, c)
+            log(f"avg_voxelize {name} PVDL_SNPP N={n} r={r} C={c} B=4: grid and counts equal "
+                "to the CPU plain version, two calls equal")
         out[name] = tally
     return out
 
@@ -399,6 +515,9 @@ def check_conv3d_gn(rng, dev, shapes) -> dict:
             x, w, b, gamma, beta = conv_inputs(gen, dev, dt, PATCHES, r, cin, cout, i % 3 == 2)
             err, tol = conv_error(name, (x, w, b, gamma, beta), act, f"r={r} {cin}->{cout}")
             ms = time_ms(lambda: conv_ops.conv3d_gn(x, w, b, gamma, beta, 8, 1e-5, act))
+            dms = device_ms(lambda: conv_ops.conv3d_gn(x, w, b, gamma, beta, 8, 1e-5, act),
+                            "conv3d_gn")
+            hus = host_us(lambda: conv_ops.conv3d_gn(x, w, b, gamma, beta, 8, 1e-5, act), ms)
             single = time_ms(lambda: conv_ops.conv3d_gn(x, w, b, gamma, beta, 8, 1e-5, act),
                              back_to_back=False)
             tally.single_call_ms += calls * single
@@ -418,9 +537,10 @@ def check_conv3d_gn(rng, dev, shapes) -> dict:
             del xc
             flop = 2.0 * PATCHES * r ** 3 * 27 * cin * cout
             nbytes = (PATCHES * r ** 3 * (cin + cout) + 27 * cin * cout) * esize(dt)
-            bound = tally.add(calls, ms, plain, lib, nbytes, flop, err)
+            bound = tally.add(calls, ms, plain, lib, nbytes, flop, err, dms, hus)
             log(f"conv3d_gn {name} r={r} {cin}->{cout} x{calls} B={PATCHES}: max err {err:.3g} "
-                f"(tol {tol:.3g}); kernel {ms:.3f} ms ({flop / ms / 1e9:.2f} TFLOP/s, "
+                f"(tol {tol:.3g}); kernel {ms:.3f} ms (device {dms:.4f} ms, host {hus:.1f} us "
+                f"a call; {flop / ms / 1e9:.2f} TFLOP/s, "
                 f"{bound / ms:.3f} of the bound {bound:.3g} ms), one call alone {single:.3f} ms, "
                 f"plain {plain:.3f} ms, cuDNN conv + GroupNorm {lib:.3f} ms")
             del x
@@ -457,6 +577,9 @@ def check_devoxelize(rng, dev, shapes) -> dict:
             if not (got.dtype == dt and got_m.dtype == torch.float32 and err <= tol):
                 raise AssertionError(f"devoxelize {name} N={n} r={r} C={c}: max err {err} > {tol}")
             ms = time_ms(lambda: devox_ops.trilinear_devoxelize_with_mean(grid, cont, r))
+            dms = device_ms(lambda: devox_ops.trilinear_devoxelize_with_mean(grid, cont, r),
+                            "trilinear_devoxelize")
+            hus = host_us(lambda: devox_ops.trilinear_devoxelize_with_mean(grid, cont, r), ms)
             plain = time_ms(lambda: (devox_ops.trilinear_devoxelize_plain(grid, cont, r),
                                      devox_ops.grid_mean_plain(grid)))
             # F.grid_sample on [B, C, D, H, W] at (x, y, z) = (k, j, i) in [-1, 1]
@@ -466,9 +589,10 @@ def check_devoxelize(rng, dev, shapes) -> dict:
             nbytes = (PATCHES * r ** 3 * c * esize(dt) + PATCHES * n * 12
                       + PATCHES * n * c * esize(dt) + PATCHES * c * 4)
             ops = PATCHES * n * (8 * 2 * c + 24) + PATCHES * r ** 3 * c
-            bound = tally.add(calls, ms, plain, lib, nbytes, ops, err)
+            bound = tally.add(calls, ms, plain, lib, nbytes, ops, err, dms, hus)
             log(f"trilinear_devoxelize {name} N={n} r={r} C={c} x{calls}: max err {err:.3g} "
-                f"(tol {tol:.3g}); kernel {ms:.3f} ms, plain {plain:.3f} ms, "
+                f"(tol {tol:.3g}); kernel {ms:.3f} ms (device {dms:.4f} ms, host {hus:.1f} us "
+                f"a call), plain {plain:.3f} ms, "
                 f"grid_sample {lib} ms, bound {bound:.3g} ms")
             del gc
         out[name] = tally
@@ -498,12 +622,16 @@ def check_interpolate(rng, dev, shapes) -> dict:
             if not torch.equal(alone, got):
                 raise AssertionError(f"three_nn {name} {n}<-{m}: the sum alone differs")
             ms = time_ms(lambda: interp_ops.nearest_neighbor_interpolate(pts, centers, feat))
+            dms = device_ms(lambda: interp_ops.nearest_neighbor_interpolate(pts, centers, feat),
+                            "three_nn_interpolate")
+            hus = host_us(lambda: interp_ops.nearest_neighbor_interpolate(pts, centers, feat), ms)
             plain = time_ms(lambda: interp_ops.three_nn_interpolate_plain(pts, centers, feat))
             nbytes = PATCHES * (n + m) * 12 + PATCHES * (m + n) * c * esize(dt)
             # per (point, centre) pair: 3 sub, 3 mul, 2 add
-            bound = tally.add(1, ms, plain, None, nbytes, 8.0 * PATCHES * n * m, err)
+            bound = tally.add(1, ms, plain, None, nbytes, 8.0 * PATCHES * n * m, err, dms, hus)
             log(f"three_nn_interpolate {name} {n}<-{m} C={c}: indices equal, weights {err_w:.3g}, "
-                f"max err {err:.3g} (tol {tol:.3g}); kernel {ms:.3f} ms, plain {plain:.3f} ms, "
+                f"max err {err:.3g} (tol {tol:.3g}); kernel {ms:.3f} ms (device {dms:.4f} ms, "
+                f"host {hus:.1f} us a call), plain {plain:.3f} ms, "
                 f"bound {bound:.3g} ms")
         out[name] = tally
     return out
@@ -528,6 +656,72 @@ def check_kernels(dev, plan) -> dict:
                 f"plain {row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms "
                 f"({row['bound_by']}), library {row['library_ms']}")
     return results
+
+
+def launch_path_costs(dev) -> dict:
+    """Host microseconds per call (host_us) of K2b's wrapper at the
+    training step's r = 32 shape, of the same call through the earlier
+    launch path (a generic check per tensor, torch.empty, a
+    torch.cuda.device context and a Stream object for the raw handle),
+    of the launch alone, and of each piece of both paths."""
+    B, N, r, C = TRAIN_B, PATCH, 32, 35
+    g = torch.randn(B, r ** 3, C, device=dev).bfloat16()
+    idx = torch.randint(0, r ** 3, (B, N), device=dev, dtype=torch.int32)
+    cnt = torch.ones(B, r ** 3, device=dev)
+    out = torch.empty(B, N, C, device=dev, dtype=torch.bfloat16)
+    index = dev.index
+    args = (g.data_ptr(), idx.data_ptr(), cnt.data_ptr(), B, N, r ** 3, C, 1, out.data_ptr())
+    entry = kernels.entry_points()["p2pb_avg_voxelize_backward"]
+    stream = kernels.current_stream(index)
+
+    def generic_check(t, dtype, shape):  # one tensor, as the earlier launch path did
+        if t.device != dev or t.dtype != dtype or t.dim() != len(shape) or any(
+                s is not None and s != d for s, d in zip(shape, t.shape)) or not t.is_contiguous():
+            raise ValueError("bad tensor")
+
+    def device_context():
+        with torch.cuda.device(dev):
+            pass
+
+    def earlier_wrapper():  # K2b's wrapper as the earlier launch path built it
+        kernels.on_card(g)
+        generic_check(g, torch.bfloat16, (B, r ** 3, C))
+        generic_check(idx, torch.int32, (B, N))
+        generic_check(cnt, torch.float32, (B, r ** 3))
+        res = torch.empty((B, N, C), dtype=torch.bfloat16, device=dev)
+        with torch.cuda.device(dev):
+            err = entry(g.data_ptr(), idx.data_ptr(), cnt.data_ptr(), B, N, r ** 3, C, 1,
+                        res.data_ptr(), index, torch.cuda.current_stream(dev).cuda_stream)
+        if err:
+            raise RuntimeError(f"K2b: CUDA error {err}")
+        return res
+
+    pieces = {
+        "K2b wrapper (avg_voxelize_backward)": lambda: vox_ops.avg_voxelize_backward(g, idx, cnt),
+        "K2b through the earlier launch path, rebuilt from its pieces": earlier_wrapper,
+        "kernels.launch": lambda: kernels.launch("avg_voxelize_backward",
+                                                 "p2pb_avg_voxelize_backward", index, *args),
+        "ctypes call of the entry (launches K2b)": lambda: entry(*args, index, stream),
+        "kernels.check of 3 tensors": lambda: kernels.check(
+            ("grad", g, kernels.DATA, (B, r ** 3, C)), ("idx", idx, torch.int32, (B, N)),
+            ("cnt", cnt, torch.float32, (B, r ** 3))),
+        "3 generic checks (earlier path)": lambda: (
+            generic_check(g, torch.bfloat16, (B, None, C)), generic_check(idx, torch.int32, (B, N)),
+            generic_check(cnt, torch.float32, (B, r ** 3))),
+        "kernels.current_stream": lambda: kernels.current_stream(index),
+        "torch.cuda.current_stream(dev).cuda_stream (earlier path)":
+            lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "with torch.cuda.device(dev) (earlier path)": device_context,
+        "torch.empty(shape, dtype=, device=)":
+            lambda: torch.empty((B, N, C), dtype=torch.bfloat16, device=dev),
+        "t.new_empty(shape)": lambda: g.new_empty((B, N, C)),
+        "t.new_empty(shape, dtype=)": lambda: g.new_empty((B, N), dtype=torch.int32),
+    }
+    costs = {}
+    for name, fn in pieces.items():
+        costs[name] = float(np.median([host_us(fn, 0.0) for _ in range(3)]))
+        log(f"launch path, host us per call: {costs[name]:.2f}  {name}")
+    return costs
 
 
 # ---------------------------------------------------------------- phase 4
@@ -572,6 +766,50 @@ def check_forward(model, twin, dev) -> dict:
             and rel <= BF16_FORWARD_REL_L2):
         raise AssertionError(f"bf16 forward: relative L2 {rel} > {BF16_FORWARD_REL_L2}")
     return {"f32_card_vs_cpu_max_abs": err, "bf16_vs_f32_rel_l2": rel}
+
+
+def output_fingerprints(model, x, t) -> list:
+    """[(module name, bit sum of its output)] of one forward, in the order
+    the modules finish: where two runs part, the first differing entry
+    names the module whose output varied first."""
+    prints, hooks = [], []
+
+    def hook(name, _mod, _inp, out):
+        for o in out if isinstance(out, (tuple, list)) else (out,):
+            if torch.is_tensor(o) and o.is_floating_point():
+                bits = o.detach().contiguous().view(torch.uint8)
+                prints.append((name, torch.sum(bits, dtype=torch.int64).item()))
+
+    for name, mod in model.named_modules():
+        hooks.append(mod.register_forward_hook(lambda *a, name=name: hook(name, *a)))
+    try:
+        with torch.no_grad():
+            model(x, t)
+    finally:
+        for h in hooks:
+            h.remove()
+    return prints
+
+
+def check_determinism(model, dev) -> dict:
+    """Two full-width bf16 forwards (B = 73 patches) of the same weights and
+    inputs must be bit-equal; where they are not, the error names the first
+    module whose output differs between two traced runs."""
+    rng = np.random.default_rng(5)
+    x = patches(rng, PATCHES, PATCH, dev)
+    t = torch.from_numpy(rng.uniform(0.0, 1000.0, PATCHES).astype(np.float32)).to(dev)
+    with torch.no_grad():
+        first = model(x, t)
+        second = model(x, t)
+    if not torch.equal(first, second):
+        a, b = output_fingerprints(model, x, t), output_fingerprints(model, x, t)
+        where = next((na for (na, fa), (_, fb) in zip(a, b) if fa != fb), "no module output")
+        raise AssertionError(f"two bf16 forwards at B={PATCHES} differ by up to "
+                             f"{(first.float() - second.float()).abs().max().item()}; first "
+                             f"differing module output: {where}")
+    log(f"two bf16 forwards of PVDS_PUNet at B={PATCHES} x {PATCH}, same weights and "
+        "inputs: bit-equal")
+    return {"bit_equal": True, "patches": PATCHES}
 
 
 # ---------------------------------------------------------------- phase 5
@@ -624,7 +862,7 @@ def denoise_50k(model, twin, dev) -> dict:
 KERNEL_FUNCTIONS = {
     "conv3d_gn": ("conv_tile_kernel", "conv_wgmma_kernel", "gn_stats_kernel", "gn_apply_kernel",
                   "gn_apply_bf16_kernel"),
-    "avg_voxelize": ("scatter_kernel", "divide_kernel"),
+    "avg_voxelize": ("bucket_kernel", "rows_kernel"),
     "trilinear_devoxelize": ("devox_kernel", "mean_partial_kernel", "mean_final_kernel"),
     "ball_query_group": ("ball_query_group_kernel",),
     "fps": ("fps_kernel",),
@@ -663,17 +901,11 @@ def profile_bf16(model, dev) -> dict:
 def device_time(prof, wall_ms: float, what: str) -> dict:
     """Device time by kernel group of a finished torch.profiler run and the
     idle share: 1 - union of kernel/copy/set intervals / host wall time."""
-    with tempfile.TemporaryDirectory() as tmp:
-        trace = str(Path(tmp) / "trace.json")
-        prof.export_chrome_trace(trace)
-        with open(trace) as f:
-            events = json.load(f)["traceEvents"]
     spans, groups = [], {}
-    for e in events:
-        if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
-            spans.append((e["ts"], e["ts"] + e["dur"]))
-            total, calls = groups.get(kernel_group(e["name"]), (0.0, 0))
-            groups[kernel_group(e["name"])] = (total + e["dur"] / 1e3, calls + 1)
+    for name, ts, dur in trace_events(prof):
+        spans.append((ts, ts + dur))
+        total, calls = groups.get(kernel_group(name), (0.0, 0))
+        groups[kernel_group(name)] = (total + dur / 1e3, calls + 1)
     busy, end = 0.0, -1.0
     for a, b in sorted(spans):
         if b > end:
@@ -744,18 +976,23 @@ def check_voxelize_backward(rng, dev, shapes) -> dict:
                 bad = (got.float() - want.float()).abs().max().item()
                 raise AssertionError(f"voxelize backward {name} r={r} C={c}: differs by {bad}")
             ms = time_ms(lambda: vox_ops.avg_voxelize_backward(g, idx, cnt))
+            dms = device_ms(lambda: vox_ops.avg_voxelize_backward(g, idx, cnt),
+                            "avg_voxelize_backward")
+            hus = host_us(lambda: vox_ops.avg_voxelize_backward(g, idx, cnt), ms)
             plain = time_ms(lambda: vox_ops.avg_voxelize_backward_plain(g, idx, cnt))
             # library: torch.gather of the rows, then the divide (two calls)
             rows_idx = idx.long()[..., None].expand(TRAIN_B, n, c)
             den = torch.gather(cnt, 1, idx.long()).clamp_min(1.0)[..., None]
             lib = time_ms(lambda: torch.gather(g, 1, rows_idx) / den)
+            lib_hus = host_us(lambda: torch.gather(g, 1, rows_idx) / den, lib)
             touched = torch.unique(idx.long() + torch.arange(TRAIN_B, device=dev)[:, None] * r ** 3)
             nbytes = (touched.numel() * (c * esize(dt) + 4) + TRAIN_B * n * 4
                       + TRAIN_B * n * c * esize(dt))
-            bound = tally.add(calls, ms, plain, lib, nbytes, TRAIN_B * n * c, 0.0)
+            bound = tally.add(calls, ms, plain, lib, nbytes, TRAIN_B * n * c, 0.0, dms, hus)
             log(f"avg_voxelize_backward {name} N={n} r={r} C={c} x{calls} B={TRAIN_B}: "
-                f"bit-equal; kernel {ms:.4f} ms, plain {plain:.4f} ms, gather + divide "
-                f"(2 calls) {lib:.4f} ms, bound {bound:.4g} ms")
+                f"bit-equal; kernel {ms:.4f} ms (device {dms:.4f} ms, host {hus:.1f} us a "
+                f"call), plain {plain:.4f} ms, gather + divide (2 calls) {lib:.4f} ms "
+                f"(host {lib_hus:.1f} us), bound {bound:.4g} ms")
         out[name] = tally
     return out
 
@@ -789,12 +1026,16 @@ def check_auction(batch: dict, dev) -> dict:
             f"rounds max {stats[:, 0].max().item()}, bidder rows {rows}, fallback points {left}")
         if iters == 100:
             ms = time_ms(lambda: emd_auction.auction_emd_assign(d2, 0.01, iters))
+            dms = device_ms(lambda: emd_auction.auction_emd_assign(d2, 0.01, iters),
+                            "auction_emd")
+            hus = host_us(lambda: emd_auction.auction_emd_assign(d2, 0.01, iters), ms)
             plain = time_ms(lambda: emd_auction.auction_emd_plain(d2, 0.01, iters), runs=2)
             # d2 read once, outputs written once; per scanned element a
             # subtract, a compare and a max
             nbytes = B * N * M * 4 + B * N * 8
-            bound = tally.add(1, ms, plain, None, nbytes, 3.0 * (rows + left) * M, 0.0)
-            log(f"auction_emd kernel {ms:.3f} ms, plain {plain:.3f} ms, bound {bound:.4g} ms "
+            bound = tally.add(1, ms, plain, None, nbytes, 3.0 * (rows + left) * M, 0.0, dms, hus)
+            log(f"auction_emd kernel {ms:.3f} ms (device {dms:.4f} ms, host {hus:.1f} us a "
+                f"call), plain {plain:.3f} ms, bound {bound:.4g} ms "
                 f"({B * N * M * 4 / 1e6:.0f} MB of d2; {rows + left} row scans)")
         elif left == 0:
             raise AssertionError(f"auction {iters} rounds left no point to the fallback")
@@ -919,14 +1160,12 @@ def train_phase(cfg: dict, dev) -> tuple:
                    "patches_per_s": TRAIN_B / split["step"] * 1e3, "profile": obs.profile}
 
 
-def check_checkpoint(state, cfg: dict, batch: dict) -> dict:
+def check_checkpoint(state, cfg: dict, batch: dict, dev) -> dict:
     """save_checkpoint -> denoise_object.load_weights into fresh models,
     with and without --use_ema: every tensor equal to the trained one, and
-    a bit-equal forward on one cloud. The forwards run on the CPU: K2's f32
-    atomics make two card forwards of the same weights differ in the last
-    bits."""
-    x = batch["x_start"][:1].cpu()
-    t = torch.tensor([700.0])
+    a bit-equal forward on one cloud, on the card."""
+    x = batch["x_start"][:1]
+    t = torch.tensor([700.0], device=dev)
     trained = {True: state.ema.params, False: state.model.state_dict()}
     with tempfile.TemporaryDirectory() as tmp:
         path = save_checkpoint(tmp, state)
@@ -937,13 +1176,15 @@ def check_checkpoint(state, cfg: dict, batch: dict) -> dict:
             denoise_object.load_weights(fresh, path, use_ema=use_ema)
             same = all(torch.equal(a, b) for a, b in zip(fresh.state_dict().values(),
                                                         ref.state_dict().values()))
+            ref.to(dev)
+            fresh.to(dev)
             with torch.no_grad():
                 got, want = fresh(x, t), ref(x, t)
             if not (same and torch.equal(got, want)):
                 raise AssertionError(f"checkpoint round trip (use_ema={use_ema}): weights equal "
                                      f"{same}, forward differs by {(got - want).abs().max()}")
     log("checkpoint round trip: save_checkpoint -> denoise_object.load_weights, with and "
-        "without --use_ema: weights equal, forwards bit-equal (CPU, 1 x 2048)")
+        "without --use_ema: weights equal, forwards bit-equal (card, 1 x 2048)")
     return {"bit_equal": True}
 
 
@@ -960,7 +1201,7 @@ def training(dev, plan) -> dict:
             np.random.default_rng(4), dev, shapes), "auction_emd": check_auction(batch, dev)}
         gradient = check_gradient(dev)
         state, run = train_phase(cfg, dev)
-        checkpoint = check_checkpoint(state, cfg, batch)
+        checkpoint = check_checkpoint(state, cfg, batch, dev)
     return {"results": results, "gradient": gradient, "run": run, "checkpoint": checkpoint}
 
 
@@ -971,8 +1212,10 @@ def main() -> None:
     with torch.device("meta"):
         plan = build_unet_from_config(pvds_punet()).plan
     results = check_kernels(dev, plan)
+    launch_costs = launch_path_costs(dev)
     model, twin = build_models(dev)
     forward = check_forward(model, twin, dev)
+    forward["determinism"] = check_determinism(model, dev)
     run = denoise_50k(model, twin, dev)
     profile = profile_bf16(model, dev)
     del model, twin
@@ -999,7 +1242,7 @@ def main() -> None:
                  "timed": (f"kernel calls of one PVDS_PUNet forward at B={PATCHES}" if serving
                            else f"kernel calls of one PVDS_PUNet training step at B={TRAIN_B}")}
         entries.append(entry)
-    line = {"kernels": entries, "forward": forward,
+    line = {"kernels": entries, "forward": forward, "launch_path_host_us": launch_costs,
             "denoise_50k_ms": {f"{d} {m}": r["ms"] for d, modes in run.items()
                                for m, r in modes.items()},
             "profile_bf16_bucketed": profile,

@@ -198,7 +198,8 @@ P2PB_API long long p2pb_auction_smem_bytes(int N, int M) {
 // stats [B, 3] int32 (rounds run, bidder rows scanned, fallback points).
 P2PB_API int p2pb_auction_emd(const void* d2, int B, int N, int M, float eps,
                               int iters, void* assign, void* dist, void* stats,
-                              void* stream) {
+                              int device, void* stream) {
+  P2PB_ON_DEVICE(device);
   const size_t smem = (size_t)p2pb_auction_smem_bytes(N, M);
   int err = (int)cudaFuncSetAttribute(
       auction_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

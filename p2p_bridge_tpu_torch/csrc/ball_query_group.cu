@@ -87,7 +87,8 @@ int ball_query_group(const void* centers, const void* points, const void* rows,
 P2PB_API int p2pb_ball_query_group(const void* centers, const void* points,
                                    const void* rows, int B, int M, int N,
                                    int C, int K, float r2, int bf16, void* out,
-                                   void* idx, void* stream) {
+                                   void* idx, int device, void* stream) {
+  P2PB_ON_DEVICE(device);
   cudaStream_t s = (cudaStream_t)stream;
   if (bf16)
     return ball_query_group<p2pb::bf16>(centers, points, rows, B, M, N, C, K,

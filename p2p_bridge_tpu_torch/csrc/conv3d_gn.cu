@@ -614,7 +614,8 @@ P2PB_API int p2pb_conv3d_gn(const void* x, const void* w, const void* bias,
                             const void* gamma, const void* beta,
                             int affine_per_cloud, int B, int R, int Cin,
                             int Cout, int groups, float eps, int act, int bf16,
-                            void* y, void* scratch, void* stream) {
+                            void* y, void* scratch, int device, void* stream) {
+  P2PB_ON_DEVICE(device);
   cudaStream_t s = (cudaStream_t)stream;
   int T = partials_per_group(R, Cout, groups, bf16);  // the bf16 kernel may use fewer
   double* partials = (double*)scratch;

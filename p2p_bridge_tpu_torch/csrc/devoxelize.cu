@@ -146,7 +146,8 @@ P2PB_API long long p2pb_devoxelize_scratch_bytes(int B, int r, int C) {
 P2PB_API int p2pb_trilinear_devoxelize(const void* grid, const void* coords,
                                        int B, int N, int r, int C, int bf16,
                                        void* out, void* mean, void* scratch,
-                                       void* stream) {
+                                       int device, void* stream) {
+  P2PB_ON_DEVICE(device);
   cudaStream_t s = (cudaStream_t)stream;
   if (bf16)
     return devoxelize<p2pb::bf16>(grid, coords, B, N, r, C, out, mean, scratch,

@@ -114,7 +114,8 @@ P2PB_API long long p2pb_fps_scratch_bytes(int B, int N) {
 }
 
 P2PB_API int p2pb_fps(const void* pts, int B, int N, int M, void* scratch,
-                      void* out, void* stream) {
+                      void* out, int device, void* stream) {
+  P2PB_ON_DEVICE(device);
   const int pts_in_smem = (long long)N * 16 <= kSmemBudget;
   const int dist_in_smem = (long long)N * 4 <= kSmemBudget;
   const size_t smem = (pts_in_smem ? (size_t)N * 16

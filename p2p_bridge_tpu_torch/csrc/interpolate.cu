@@ -152,7 +152,9 @@ int interpolate(const void* points, const void* centers, const void* features,
 P2PB_API int p2pb_three_nn_interpolate(const void* points, const void* centers,
                                        const void* features, int B, int N,
                                        int M, int C, int bf16, void* out,
-                                       void* w, void* idx, void* stream) {
+                                       void* w, void* idx, int device,
+                                       void* stream) {
+  P2PB_ON_DEVICE(device);
   cudaStream_t s = (cudaStream_t)stream;
   if (bf16)
     return interpolate<p2pb::bf16>(points, centers, features, B, N, M, C, out,

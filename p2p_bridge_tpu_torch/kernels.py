@@ -7,10 +7,14 @@ library is built at first use into ``build/p2p_bridge_tpu_torch/<hash>/``
 at the repository root, keyed by a hash of the sources and the flags, so
 an edited source rebuilds. A failed build raises.
 
-Every op module checks its tensors and then calls :func:`launch`, which
-runs the C entry point on ``torch.cuda.current_stream()``, raises on a
-non-zero ``cudaGetLastError()``, and adds one to the kernel's count in
-:data:`launch_counts`.
+Every op wrapper checks its tensors with one call of :func:`check` and
+then calls :func:`launch`, which passes the card's index and the raw handle
+of PyTorch's current stream on that card to the C entry point (the entry
+makes the card current only when it is not), raises on a non-zero
+``cudaGetLastError()``, and adds one to the kernel's count in
+:data:`launch_counts`. The entry points are looked up once
+(:func:`entry_points`); no ``torch.cuda.device`` context or ``Stream``
+object is built per call.
 """
 
 from __future__ import annotations
@@ -43,22 +47,24 @@ launch_counts = {"fps": 0, "ball_query_group": 0, "avg_voxelize": 0, "conv3d_gn"
 
 _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _SIGNATURES = {
-    # name: (restype, argtypes); every launching entry ends with the stream
-    "p2pb_fps": (_I, (_P, _I, _I, _I, _P, _P, _P)),
+    # name: (restype, argtypes); every launching entry ends with the card's
+    # index and the stream, which launch() appends
+    "p2pb_fps": (_I, (_P, _I, _I, _I, _P, _P, _I, _P)),
     "p2pb_fps_scratch_bytes": (_LL, (_I, _I)),
-    "p2pb_ball_query_group": (_I, (_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P, _P, _P)),
-    "p2pb_avg_voxelize": (_I, (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P)),
-    "p2pb_avg_voxelize_backward": (_I, (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P)),
-    "p2pb_auction_emd": (_I, (_P, _I, _I, _I, _F, _I, _P, _P, _P, _P)),
+    "p2pb_ball_query_group": (_I, (_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P, _P, _I, _P)),
+    "p2pb_avg_voxelize": (_I, (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P)),
+    "p2pb_avg_voxelize_backward": (_I, (_P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P)),
+    "p2pb_auction_emd": (_I, (_P, _I, _I, _I, _F, _I, _P, _P, _P, _I, _P)),
     "p2pb_auction_smem_bytes": (_LL, (_I, _I)),
     "p2pb_conv3d_gn": (
-        _I, (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P, _P, _P)),
+        _I, (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P, _P, _I, _P)),
     "p2pb_conv3d_gn_scratch_bytes": (_LL, (_I, _I, _I, _I, _I)),
-    "p2pb_trilinear_devoxelize": (_I, (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P)),
+    "p2pb_trilinear_devoxelize": (_I, (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P)),
     "p2pb_devoxelize_scratch_bytes": (_LL, (_I, _I, _I)),
-    "p2pb_three_nn_interpolate": (_I, (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P)),
+    "p2pb_three_nn_interpolate": (_I, (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P)),
     "p2pb_error_string": (ctypes.c_char_p, (_I,)),
 }
+DATA = (torch.float32, torch.bfloat16)  # the element types of a kernel's data
 
 
 def reset_launch_counts() -> None:
@@ -116,13 +122,22 @@ def build() -> Path:
 
 
 @functools.lru_cache(maxsize=None)
-def library() -> ctypes.CDLL:
+def entry_points() -> dict:
+    """The library's C entry points by name, each with its signature set;
+    built and looked up once per process."""
     lib = ctypes.CDLL(str(build()))
+    out = {}
     for name, (restype, argtypes) in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.restype = restype
         fn.argtypes = argtypes
-    return lib
+        out[name] = fn
+    return out
+
+
+def current_stream(device: int) -> int:
+    """The raw handle of PyTorch's current stream on card ``device``."""
+    return torch._C._cuda_getCurrentRawStream(device)
 
 
 def on_card(t: torch.Tensor) -> bool:
@@ -135,35 +150,37 @@ def on_card(t: torch.Tensor) -> bool:
     return False
 
 
-def data_dtype(t: torch.Tensor) -> torch.dtype:
-    """The element type of a kernel's data tensor: f32 or bf16."""
-    if t.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"kernels take float32 or bfloat16 data, not {t.dtype}")
-    return t.dtype
+def check(*specs) -> int:
+    """The one check of the tensors a kernel takes. Each spec is (name,
+    tensor, dtype, shape): dtype a torch.dtype or a tuple of them (DATA),
+    shape a tuple of sizes. Raises unless every tensor lies on the device of
+    the first and is a contiguous tensor of its dtype and shape; returns that
+    device's index."""
+    first = specs[0][1]
+    device = first.device
+    for name, t, dtype, shape in specs:
+        if (t.device != device or t.shape != shape or not t.is_contiguous()
+                or (t.dtype not in dtype if type(dtype) is tuple else t.dtype != dtype)):
+            _reject(name, t, dtype, shape, device)
+    return first.get_device()
 
 
-def launch(kernel: str, entry: str, device: torch.device, *args) -> None:
-    """Run C entry point ``entry`` on the current stream of ``device``."""
-    lib = library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, entry)(*args, stream)
-    if err != 0:
-        msg = lib.p2pb_error_string(err).decode()
-        raise RuntimeError(f"{kernel}: CUDA error {err} ({msg})")
-    launch_counts[kernel] += 1
-
-
-def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
-            device: torch.device) -> None:
-    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape``
-    (None matches any size) on ``device``."""
+def _reject(name, t, dtype, shape, device) -> None:
     if t.device != device:
         raise ValueError(f"{name}: expected device {device}, got {t.device}")
-    if t.dtype != dtype:
+    if t.dtype not in (dtype if type(dtype) is tuple else (dtype,)):
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
-    if t.dim() != len(shape) or any(
-            s is not None and s != d for s, d in zip(shape, t.shape)):
-        raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
+    if t.shape != shape:
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    raise ValueError(f"{name}: must be contiguous")
+
+
+def launch(kernel: str, entry: str, device: int, *args) -> None:
+    """Run C entry point ``entry`` on card ``device`` and PyTorch's current
+    stream there; raise on a CUDA error; count one launch of ``kernel``."""
+    fns = entry_points()
+    err = fns[entry](*args, device, current_stream(device))
+    if err != 0:
+        msg = fns["p2pb_error_string"](err).decode()
+        raise RuntimeError(f"{kernel}: CUDA error {err} ({msg})")
+    launch_counts[kernel] += 1

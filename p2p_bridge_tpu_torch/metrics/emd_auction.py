@@ -81,10 +81,9 @@ def _auction_emd_cuda(d2: torch.Tensor, eps: float, iters: int):
     """(dist, assign, stats [B, 3] int32: rounds run, bidder rows read,
     points left to the greedy fallback)."""
     B, N, M = d2.shape
+    device = kernels.check(("d2", d2, torch.float32, (B, N, M)))
     dev = d2.device
-    kernels.require(d2, "d2", torch.float32, (B, N, M), dev)
-    lib = kernels.library()
-    smem = lib.p2pb_auction_smem_bytes(N, M)
+    smem = kernels.entry_points()["p2pb_auction_smem_bytes"](N, M)
     if smem > 232_448:
         raise ValueError(f"auction_emd: N={N}, M={M} need {smem} bytes of shared memory")
     if N < 1 or M < 1:
@@ -92,7 +91,7 @@ def _auction_emd_cuda(d2: torch.Tensor, eps: float, iters: int):
     assign = torch.empty((B, N), dtype=torch.int32, device=dev)
     dist = torch.empty((B, N), dtype=torch.float32, device=dev)
     stats = torch.empty((B, 3), dtype=torch.int32, device=dev)
-    kernels.launch("auction_emd", "p2pb_auction_emd", dev, d2.data_ptr(), B, N, M,
+    kernels.launch("auction_emd", "p2pb_auction_emd", device, d2.data_ptr(), B, N, M,
                    float(eps), int(iters), assign.data_ptr(), dist.data_ptr(),
                    stats.data_ptr())
     return dist, assign, stats

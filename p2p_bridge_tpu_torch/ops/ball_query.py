@@ -54,14 +54,14 @@ def ball_query_group_plain(centers, points, rows, radius, num_neighbors):
 def _ball_query_group_cuda(centers, points, rows, radius, num_neighbors):
     B, M, _ = centers.shape
     N, C, K = points.shape[1], rows.shape[-1], num_neighbors
-    dev, dt = centers.device, kernels.data_dtype(rows)
-    kernels.require(centers, "centers", torch.float32, (B, M, 3), dev)
-    kernels.require(points, "points", torch.float32, (B, N, 3), dev)
-    kernels.require(rows, "rows", dt, (B, N, C), dev)
+    device = kernels.check(("centers", centers, torch.float32, (B, M, 3)),
+                           ("points", points, torch.float32, (B, N, 3)),
+                           ("rows", rows, kernels.DATA, (B, N, C)))
+    dev, dt = centers.device, rows.dtype
     out = torch.empty((B, M, K, C), dtype=dt, device=dev)
     idx = torch.empty((B, M, K), dtype=torch.int32, device=dev)
     kernels.launch(
-        "ball_query_group", "p2pb_ball_query_group", dev, centers.data_ptr(),
+        "ball_query_group", "p2pb_ball_query_group", device, centers.data_ptr(),
         points.data_ptr(), rows.data_ptr(), B, M, N, C, K,
         _radius_sq(radius), int(dt == torch.bfloat16), out.data_ptr(), idx.data_ptr())
     return out, idx

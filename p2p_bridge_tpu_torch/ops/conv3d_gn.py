@@ -97,13 +97,13 @@ def conv3d_gn_reference(x, weight, bias, gamma, beta, groups=8, eps=1e-5, act=Fa
 def _conv3d_gn_cuda(x, weight, bias, gamma, beta, groups, eps, act):
     B, R = x.shape[0], x.shape[1]
     cin, cout = weight.shape[3], weight.shape[4]
-    dev, dt = x.device, kernels.data_dtype(x)
-    kernels.require(x, "x", dt, (B, R, R, R, cin), dev)
-    kernels.require(weight, "weight", dt, (3, 3, 3, cin, cout), dev)
-    kernels.require(bias, "bias", torch.float32, (cout,), dev)
     affine_shape = (B, cout) if gamma.dim() == 2 else (cout,)
-    kernels.require(gamma, "gamma", torch.float32, affine_shape, dev)
-    kernels.require(beta, "beta", torch.float32, affine_shape, dev)
+    device = kernels.check(("x", x, kernels.DATA, (B, R, R, R, cin)),
+                           ("weight", weight, x.dtype, (3, 3, 3, cin, cout)),
+                           ("bias", bias, torch.float32, (cout,)),
+                           ("gamma", gamma, torch.float32, affine_shape),
+                           ("beta", beta, torch.float32, affine_shape))
+    dev, dt = x.device, x.dtype
     if cout % groups:
         raise ValueError(f"Cout={cout} is not a multiple of groups={groups}")
     bf16 = int(dt == torch.bfloat16)
@@ -116,12 +116,11 @@ def _conv3d_gn_cuda(x, weight, bias, gamma, beta, groups, eps, act):
         # [dx, dz, dy, Cout, Cin]: per (dx, dz) and k-chunk one TMA box holds
         # the K-major weight tiles of the three dy taps
         weight = weight.permute(0, 2, 1, 4, 3).contiguous()
-    lib = kernels.library()
     y = torch.empty((B, R, R, R, cout), dtype=dt, device=dev)
-    scratch = torch.empty(lib.p2pb_conv3d_gn_scratch_bytes(B, R, cout, groups, bf16),
-                          dtype=torch.uint8, device=dev)
+    nbytes = kernels.entry_points()["p2pb_conv3d_gn_scratch_bytes"](B, R, cout, groups, bf16)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     kernels.launch(
-        "conv3d_gn", "p2pb_conv3d_gn", dev, x.data_ptr(), weight.data_ptr(),
+        "conv3d_gn", "p2pb_conv3d_gn", device, x.data_ptr(), weight.data_ptr(),
         bias.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
         int(gamma.dim() == 2), B, R, cin, cout, groups, eps, int(act), bf16,
         y.data_ptr(), scratch.data_ptr())

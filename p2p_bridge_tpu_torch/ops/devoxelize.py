@@ -82,18 +82,17 @@ def grid_mean_plain(grid: torch.Tensor) -> torch.Tensor:
 def _devoxelize_cuda(grid, coords, resolution, with_mean):
     B, r, C = grid.shape[0], resolution, grid.shape[-1]
     N = coords.shape[1]
-    dev, dt = grid.device, kernels.data_dtype(grid)
-    kernels.require(grid, "grid", dt, (B, r, r, r, C), dev)
-    kernels.require(coords, "coords", torch.float32, (B, N, 3), dev)
+    device = kernels.check(("grid", grid, kernels.DATA, (B, r, r, r, C)),
+                           ("coords", coords, torch.float32, (B, N, 3)))
+    dev, dt = grid.device, grid.dtype
     out = torch.empty((B, N, C), dtype=dt, device=dev)
     mean = scratch = None
     if with_mean:
-        lib = kernels.library()
         mean = torch.empty((B, C), dtype=torch.float32, device=dev)
-        scratch = torch.empty(lib.p2pb_devoxelize_scratch_bytes(B, r, C),
+        scratch = torch.empty(kernels.entry_points()["p2pb_devoxelize_scratch_bytes"](B, r, C),
                               dtype=torch.uint8, device=dev)
     kernels.launch(
-        "trilinear_devoxelize", "p2pb_trilinear_devoxelize", dev, grid.data_ptr(),
+        "trilinear_devoxelize", "p2pb_trilinear_devoxelize", device, grid.data_ptr(),
         coords.data_ptr(), B, N, r, C, int(dt == torch.bfloat16), out.data_ptr(),
         None if mean is None else mean.data_ptr(),
         None if scratch is None else scratch.data_ptr())

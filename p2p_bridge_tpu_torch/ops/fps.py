@@ -35,16 +35,16 @@ def furthest_point_sample_plain(coords: torch.Tensor, num_samples: int) -> torch
 
 def _furthest_point_sample_cuda(coords: torch.Tensor, num_samples: int) -> torch.Tensor:
     B, N, _ = coords.shape
-    kernels.require(coords, "coords", torch.float32, (B, N, 3), coords.device)
+    device = kernels.check(("coords", coords, torch.float32, (B, N, 3)))
     if not 0 < num_samples <= N:
         raise ValueError(f"num_samples must be in [1, {N}], got {num_samples}")
-    lib = kernels.library()
     out = torch.empty((B, num_samples), dtype=torch.int32, device=coords.device)
-    nbytes = lib.p2pb_fps_scratch_bytes(B, N)
-    scratch = torch.empty(nbytes // 4, dtype=torch.float32, device=coords.device)
+    nbytes = kernels.entry_points()["p2pb_fps_scratch_bytes"](B, N)
+    scratch = (torch.empty(nbytes // 4, dtype=torch.float32, device=coords.device)
+               if nbytes else None)
     kernels.launch(
-        "fps", "p2pb_fps", coords.device, coords.data_ptr(), B, N,
-        num_samples, scratch.data_ptr() if nbytes else None, out.data_ptr())
+        "fps", "p2pb_fps", device, coords.data_ptr(), B, N, num_samples,
+        None if scratch is None else scratch.data_ptr(), out.data_ptr())
     return out
 
 

@@ -61,10 +61,10 @@ def three_nn_interpolate_plain(points, centers, features):
 def _three_nn_interpolate_cuda(points, centers, features, with_weights):
     B, N, _ = points.shape
     M, C = centers.shape[1], features.shape[-1]
-    dev, dt = points.device, kernels.data_dtype(features)
-    kernels.require(points, "points", torch.float32, (B, N, 3), dev)
-    kernels.require(centers, "centers", torch.float32, (B, M, 3), dev)
-    kernels.require(features, "features", dt, (B, M, C), dev)
+    device = kernels.check(("points", points, torch.float32, (B, N, 3)),
+                           ("centers", centers, torch.float32, (B, M, 3)),
+                           ("features", features, kernels.DATA, (B, M, C)))
+    dev, dt = points.device, features.dtype
     if M < 1:
         raise ValueError("three_nn_interpolate needs at least one centre")
     out = torch.empty((B, N, C), dtype=dt, device=dev)
@@ -73,7 +73,7 @@ def _three_nn_interpolate_cuda(points, centers, features, with_weights):
         w = torch.empty((B, N, 3), dtype=torch.float32, device=dev)
         idx = torch.empty((B, N, 3), dtype=torch.int32, device=dev)
     kernels.launch(
-        "three_nn_interpolate", "p2pb_three_nn_interpolate", dev, points.data_ptr(),
+        "three_nn_interpolate", "p2pb_three_nn_interpolate", device, points.data_ptr(),
         centers.data_ptr(), features.data_ptr(), B, N, M, C, int(dt == torch.bfloat16),
         out.data_ptr(), w.data_ptr() if with_weights else None,
         idx.data_ptr() if with_weights else None)

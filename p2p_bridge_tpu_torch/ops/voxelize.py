@@ -7,6 +7,11 @@ point f32(grad[idx]) / max(count[idx], 1), rounded once to the features'
 dtype, with the forward's counts. On a CUDA tensor :func:`avg_voxelize`
 launches kernel K2 forward and kernel K2b backward (``csrc/voxelize.cu``);
 on a CPU tensor both run their plain versions.
+
+Each voxel's sum runs over its points in ascending point index, in f32,
+from 0: the order of ``scatter_add_`` on the CPU, which K2 keeps (it sorts
+the points by voxel), so the card's grid and counts are bit-equal to the
+plain version's on the CPU and the same from run to run.
 """
 
 from __future__ import annotations
@@ -58,22 +63,39 @@ def avg_voxelize_plain(features: torch.Tensor, vox_coords: torch.Tensor,
     return grid.reshape(features.shape[0], r, r, r, features.shape[-1])
 
 
+MAX_POINTS = 4096  # K2's sort keys hold the point index in 12 bits
+MAX_RESOLUTION = 32  # a cloud's keys and r^3 counts fit one block's shared memory
+
+
+def check_voxelize_shape(B: int, N: int, r: int, C: int) -> None:
+    """Raise unless kernel K2 takes this shape: 1 <= N <= 4096 points a
+    cloud, 1 <= r <= 32, 1 <= B < 65536 clouds (the grid's y dimension) and
+    a cloud's grid and features below 2^31 elements (32-bit offsets). Every
+    voxelize call of the three configs qualifies (N <= 4096, r <= 32)."""
+    if not (1 <= N <= MAX_POINTS and 1 <= r <= MAX_RESOLUTION and 1 <= B < 2 ** 16
+            and C >= 1 and max(N, r ** 3) * C < 2 ** 31):
+        raise ValueError(f"avg_voxelize kernel takes 1 <= N <= {MAX_POINTS}, "
+                         f"1 <= r <= {MAX_RESOLUTION}, 1 <= B < 65536 and r^3 * C, "
+                         f"N * C below 2^31; got B={B}, N={N}, r={r}, C={C}")
+
+
 def _avg_voxelize_cuda(features, vox_coords, resolution):
     """(grid [B, r^3, C], counts [B, r^3] f32) from kernel K2."""
     B, N, C = features.shape
     r = resolution
-    dev, dt = features.device, kernels.data_dtype(features)
-    kernels.require(features, "features", dt, (B, N, C), dev)
-    kernels.require(vox_coords, "vox_coords", torch.int32, (B, N, 3), dev)
-    if max(B * N, B * r ** 3) * C >= 2 ** 31:
-        raise ValueError(f"avg_voxelize: B={B}, N={N}, r={r}, C={C} overflow 32-bit indices")
-    acc = torch.zeros((B, r ** 3, C), dtype=torch.float32, device=dev)
-    cnt = torch.zeros((B, r ** 3), dtype=torch.float32, device=dev)
-    out = acc if dt == torch.float32 else torch.empty((B, r ** 3, C), dtype=dt, device=dev)
+    check_voxelize_shape(B, N, r, C)
+    device = kernels.check(("features", features, kernels.DATA, (B, N, C)),
+                           ("vox_coords", vox_coords, torch.int32, (B, N, 3)))
+    if features.data_ptr() % 16:  # read as 16-byte vectors
+        features = features.clone()
+    out = features.new_empty((B, r ** 3, C))
+    cnt = features.new_empty((B, r ** 3), dtype=torch.float32)
+    # the kernel's sorted point order [B, N] and segment starts [B, r^3 + 1]
+    tables = features.new_empty(B * (N + r ** 3 + 1), dtype=torch.int32)
     kernels.launch(
-        "avg_voxelize", "p2pb_avg_voxelize", dev, features.data_ptr(),
-        vox_coords.data_ptr(), B, N, C, r, int(dt == torch.bfloat16),
-        acc.data_ptr(), cnt.data_ptr(), out.data_ptr())
+        "avg_voxelize", "p2pb_avg_voxelize", device, features.data_ptr(),
+        vox_coords.data_ptr(), B, N, C, r, int(features.dtype == torch.bfloat16),
+        cnt.data_ptr(), out.data_ptr(), tables.data_ptr())
     return out, cnt
 
 
@@ -91,15 +113,19 @@ def avg_voxelize_backward_plain(grad: torch.Tensor, idx: torch.Tensor,
 
 def _avg_voxelize_backward_cuda(grad, idx, cnt):
     B, R3, C = grad.shape
-    N = idx.shape[1]
-    dev, dt = grad.device, kernels.data_dtype(grad)
-    kernels.require(grad, "grad", dt, (B, R3, C), dev)
-    kernels.require(idx, "idx", torch.int32, (B, N), dev)
-    kernels.require(cnt, "cnt", torch.float32, (B, R3), dev)
-    out = torch.empty((B, N, C), dtype=dt, device=dev)
+    N = idx.shape[-1]
+    device = kernels.check(("grad", grad, kernels.DATA, (B, R3, C)),
+                           ("idx", idx, torch.int32, (B, N)),
+                           ("cnt", cnt, torch.float32, (B, R3)))
+    if B >= 2 ** 16 or max(N, R3) * C >= 2 ** 31:
+        raise ValueError(f"avg_voxelize_backward: B={B}, N={N}, R3={R3}, C={C} exceed "
+                         "the kernel's grid or 32-bit offsets")
+    if grad.data_ptr() % 16:  # read as 16-byte vectors
+        grad = grad.clone()
+    out = grad.new_empty((B, N, C))
     kernels.launch(
-        "avg_voxelize_backward", "p2pb_avg_voxelize_backward", dev, grad.data_ptr(),
-        idx.data_ptr(), cnt.data_ptr(), B, N, R3, C, int(dt == torch.bfloat16),
+        "avg_voxelize_backward", "p2pb_avg_voxelize_backward", device, grad.data_ptr(),
+        idx.data_ptr(), cnt.data_ptr(), B, N, R3, C, int(grad.dtype == torch.bfloat16),
         out.data_ptr())
     return out
 
@@ -136,5 +162,14 @@ class _AvgVoxelize(torch.autograd.Function):
 def avg_voxelize(features: torch.Tensor, vox_coords: torch.Tensor,
                  resolution: int) -> torch.Tensor:
     """features [B, N, C], int32 voxel coords [B, N, 3] in [0, r-1] ->
-    grid [B, r, r, r, C] of per-voxel means (empty voxels 0)."""
-    return _AvgVoxelize.apply(features.contiguous(), vox_coords, resolution)
+    grid [B, r, r, r, C] of per-voxel means (empty voxels 0). Without a
+    gradient to track it skips the autograd node and its saved indices."""
+    features = features.contiguous()
+    if torch.is_grad_enabled() and features.requires_grad:
+        return _AvgVoxelize.apply(features, vox_coords, resolution)
+    if kernels.on_card(features):
+        grid = _avg_voxelize_cuda(features, vox_coords, resolution)[0]
+    else:
+        grid = _avg_voxelize_plain(features, vox_coords, resolution)[0]
+    B, C, r = features.shape[0], features.shape[-1], resolution
+    return grid.view(B, r, r, r, C)

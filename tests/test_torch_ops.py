@@ -323,17 +323,25 @@ def test_knn_matches_jax():
 
 
 def test_require_rejects_bad_tensors():
+    """kernels.check, the one tensor check of every wrapper: the device
+    of the first tensor, each tensor's dtype (or one of DATA), shape and
+    layout."""
     x = torch.zeros(2, 5, 3)
-    dev = x.device
-    kernels.require(x, "x", torch.float32, (2, None, 3), dev)
+    idx = torch.zeros(2, 5, dtype=torch.int32)
+    assert kernels.check(("x", x, torch.float32, (2, 5, 3)),
+                         ("idx", idx, torch.int32, (2, 5))) == -1
+    assert kernels.check(("x", x.bfloat16(), kernels.DATA, (2, 5, 3))) == -1
     with pytest.raises(TypeError):
-        kernels.require(x.double(), "x", torch.float32, (2, 5, 3), dev)
+        kernels.check(("x", x.double(), torch.float32, (2, 5, 3)))
+    with pytest.raises(TypeError, match="bfloat16"):
+        kernels.check(("x", x.half(), kernels.DATA, (2, 5, 3)))
     with pytest.raises(ValueError, match="shape"):
-        kernels.require(x, "x", torch.float32, (2, 5, 4), dev)
+        kernels.check(("x", x, torch.float32, (2, 5, 4)))
     with pytest.raises(ValueError, match="contiguous"):
-        kernels.require(x.transpose(0, 1), "x", torch.float32, (5, 2, 3), dev)
+        kernels.check(("x", x.transpose(0, 1), torch.float32, (5, 2, 3)))
     with pytest.raises(ValueError, match="device"):
-        kernels.require(x, "x", torch.float32, (2, 5, 3), torch.device("meta"))
+        kernels.check(("x", x, torch.float32, (2, 5, 3)),
+                      ("idx", idx.to("meta"), torch.int32, (2, 5)))
 
 
 def test_wrappers_take_the_plain_version_only_on_the_cpu():
@@ -348,7 +356,7 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu():
     with pytest.raises(ValueError, match="CUDA card or the CPU"):
         ops.nearest_neighbor_interpolate(meta, meta, meta)
     with pytest.raises(TypeError, match="bfloat16"):
-        kernels.data_dtype(torch.zeros(1, dtype=torch.float16))
+        kernels.check(("x", torch.zeros(1, dtype=torch.float16), kernels.DATA, (1,)))
 
 
 def test_library_path_follows_sources():
