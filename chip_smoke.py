@@ -18,6 +18,12 @@ Phases, in order; any failure raises and the process exits non-zero:
      and its host time per call (the host clock over up to 300 calls with
      no synchronise); the bound of each is the larger of its bytes over
      3.35 TB/s and its operations over the peak rate of its data type;
+     K5 (FPS) indices torch.equal to the plain version at the SA stages
+     and the bucketed recombination (one block per cloud), and at the
+     seeding, the exact recombination [1 and 4, 149,504] -> 50,000 and a
+     ragged [1, 100,003] -> 33,000 whose every pick is a tie (one 16-CTA
+     cluster per cloud), the one-block kernel timed at the exact shape, and
+     both kernels at B = 1 for growing N (the dispatch's crossover);
      K1 also at B = 1 and B = 3 (a cloud's first and last tiles, an odd
      tile count) and at the rooms model's Cout = 512 (two channel tiles);
      K2 (voxelize) torch.equal, grid and counts, to its plain version run
@@ -34,22 +40,30 @@ Phases, in order; any failure raises and the process exits non-zero:
   5. denoise one 50,000-point cloud through patch_based_denoise_batch in
      f32 and bf16, each with bucketed and exact recombination; the launch
      counts are set to 0 just before each of the four runs and read just
-     after, and every kernel must launch in each;
-  6. profile one more bf16 bucketed run with torch.profiler: device time
-     by kernel group and the device's idle share;
-  7. training: hold the two training kernels, K2b (voxelize backward) in
-     bf16 and f32 and K7 (auction EMD) on the distances of a real batch,
-     against their plain versions at the training shapes (B = 32 patches
-     of 2048 points), and time them; hold the f32 gradient of the loss at
-     full width on the card against the CPU's (B = 2, dropout off, fixed
-     timesteps); train PVDS_PUNet as shipped (bf16, AdamW, clip 1.0, EMA,
-     the K7 alignment) for 31 steps through ``train`` on a synthetic PUNet
-     tree written with numpy: every loss finite, the last five below the
-     first five, the launch counts set to 0 just before step 20 and read
-     just after with all eight kernels launched, ms per step over steps
-     10-29 split into its phases, a torch.profiler profile of step 30; and
-     a checkpoint that denoise_object.load_weights reads back into a model
-     whose forward on the card is bit-equal to the trained model's.
+     after, and every kernel of the path must launch in each (the cluster
+     FPS in the seeding and the exact recombination);
+  6. profile one more bf16 run of each recombination with torch.profiler:
+     device time by kernel group and the device's idle share;
+  7. training: hold the training kernels, K2b (voxelize backward) and the
+     backward scatter of K3, K4 and K6 (scatter_rows) in bf16 and f32,
+     torch.equal to their plain versions (scatter_rows run on the CPU), and
+     K7 (auction EMD) on the distances of a real batch, at the training
+     shapes (B = 32 patches of 2048 points), and time them; time K1's
+     backward (cuDNN) with and without cuDNN's deterministic algorithms;
+     hold the f32 gradient of the loss at full width on the card against
+     the CPU's (B = 2, dropout off, fixed timesteps) and two card runs of
+     it bit-equal; two bf16 forward + backward passes at the training
+     shape (bs 32, dropout, the K7 alignment, generators reseeded) bit-equal
+     in every parameter's gradient; log what one training step under
+     torch.use_deterministic_algorithms(True, warn_only=True) warns; train
+     PVDS_PUNet as shipped (bf16, AdamW, clip 1.0, EMA, the K7 alignment)
+     for 31 steps through ``train`` on a synthetic PUNet tree written with
+     numpy: every loss finite, the last five below the first five, the
+     launch counts set to 0 just before step 20 and read just after with
+     every training kernel launched, ms per step over steps 10-29 split
+     into its phases, a torch.profiler profile of step 30; and a checkpoint
+     that denoise_object.load_weights reads back into a model whose
+     forward on the card is bit-equal to the trained model's.
 The line before the last is a JSON object with each kernel's launches,
 errors, times (back to back, device, host per call) and bounds; the last
 line is {"ok": true, "device": {...}}.
@@ -77,9 +91,11 @@ from p2p_bridge_tpu_torch.data.batch import get_data_batch
 from p2p_bridge_tpu_torch.data.dataloader import get_dataloader
 from p2p_bridge_tpu_torch.inference import patch_based_denoise_batch
 from p2p_bridge_tpu_torch.metrics import emd_auction
+from p2p_bridge_tpu_torch.metrics.emd_auction import align_clean_to_noisy
 from p2p_bridge_tpu_torch.models.model_loader import save_checkpoint
 from p2p_bridge_tpu_torch.models.p2pb import P2PBridge
 from p2p_bridge_tpu_torch.models.unet_pvc import build_unet_from_config, init_parameters
+from p2p_bridge_tpu_torch.parallel.train_step import init_train_state, train_step
 from p2p_bridge_tpu_torch.train import train
 from p2p_bridge_tpu_torch.ops import ball_query as bq_ops
 from p2p_bridge_tpu_torch.ops import conv3d_gn as conv_ops
@@ -119,6 +135,8 @@ BF16_FORWARD_REL_L2 = 0.1
 KERNELS = {
     "fps": ("p2p_bridge_tpu_torch/csrc/fps.cu",
             "p2p_bridge_tpu/ops/pallas/fps_kernel.py:155"),
+    "fps_cluster": ("p2p_bridge_tpu_torch/csrc/fps.cu",
+                    "p2p_bridge_tpu/ops/pallas/fps_kernel.py:39"),
     "ball_query_group": ("p2p_bridge_tpu_torch/csrc/ball_query_group.cu",
                          "p2p_bridge_tpu/ops/pallas/neighborhood_kernel.py:131"),
     "avg_voxelize": ("p2p_bridge_tpu_torch/csrc/voxelize.cu",
@@ -133,9 +151,15 @@ KERNELS = {
                               "p2p_bridge_tpu/ops/pallas/voxelize_kernel.py:255"),
     "auction_emd": ("p2p_bridge_tpu_torch/csrc/auction.cu",
                     "p2p_bridge_tpu/ops/pallas/auction_kernel.py:120"),
+    # no Pallas kernel: the JAX package's backwards are XLA
+    "scatter_rows": ("p2p_bridge_tpu_torch/csrc/scatter_rows.cu",
+                     "p2p_bridge_tpu/ops/devoxelize.py:179 _devox_bwd and :274 "
+                     "_devox_mean_bwd, ops/fused_group.py:47 _fused_tpu_bwd, "
+                     "ops/interpolate.py:108 _nn_interp_fused_bwd (XLA, no Pallas kernel)"),
 }
 SERVING = ("fps", "ball_query_group", "avg_voxelize", "conv3d_gn", "trilinear_devoxelize",
-           "three_nn_interpolate")  # the kernels of the denoising path
+           "three_nn_interpolate")  # the kernels of every denoising path's backbone
+TRAINING = tuple(k for k in KERNELS if k != "fps_cluster")  # a training step's
 TRAIN_B = 32  # training.bs of PVDS_PUNet
 TRAIN_STEPS = 31  # steps 10-29 timed, 20 counted, 30 profiled
 POOL_SIZE = 96  # data.pool_size cut from 2048: the pool fills before step 0
@@ -269,6 +293,7 @@ class Tally:
         self.device_ms = 0.0  # profiled device time of the kernel's functions
         self.host_us = []  # (calls, host us per call) of each shape
         self.err = 0.0
+        self.extra = {}  # further measurements for the kernels line
 
     def add(self, calls, ms, plain_ms, lib_ms, nbytes, ops, err, dev_ms=0.0, host=None):
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -294,6 +319,7 @@ class Tally:
                "host_us_per_call": sum(c * h for c, h in self.host_us) / max(calls, 1)}
         if self.single_call_ms is not None:
             row["single_call_ms"] = self.single_call_ms
+        row.update(self.extra)
         return row
 
 
@@ -349,34 +375,111 @@ def build_kernels() -> None:
 
 
 # ---------------------------------------------------------------- phase 3
+def fps_equal(x, m, what, kernel=None) -> torch.Tensor:
+    """The dispatched FPS (or ``kernel``, "fps" or "fps_cluster") on the
+    card, torch.equal to the plain version on the card; returns its indices."""
+    got = (fps_ops.furthest_point_sample(x, m) if kernel is None
+           else fps_ops._fps_launch(kernel, x, m))
+    want = fps_ops.furthest_point_sample_plain(x, m)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        bad = (got != want).nonzero()
+        raise AssertionError(f"fps {what}: {bad.shape[0]} indices differ from the plain "
+                             f"version, the first at [cloud, sample] {bad[0].tolist()}")
+    return got
+
+
+def tied_cloud(rng, n: int, chunk: int) -> np.ndarray:
+    """n points in which every point appears twice, each copy at a random
+    place (so every pick ties two indices), on a 1/64 grid (so distinct
+    points tie too), and the last point of each cluster CTA's range
+    repeated as the first of the next (ties across CTA boundaries)."""
+    half = np.round(surface_cloud(rng, (n + 1) // 2) * 64) / 64
+    x = np.concatenate([half, half])[rng.permutation(2 * len(half))][:n]
+    for c in range(1, -(-n // chunk)):
+        x[c * chunk] = x[c * chunk - 1]
+    return x.astype(np.float32)
+
+
+def fps_crossover(rng, dev) -> dict:
+    """Both K5 kernels for growing N, 511 iterations each, at B = 1 and at
+    B = 73 (the one-block kernel runs a block per cloud on 132 SMs, the
+    cluster kernel a cluster per cloud, a few at a time): us per iteration
+    of the whole batch, indices equal to each other and to the plain
+    version. The crossover is the smallest N from which the cluster kernel
+    is the faster at B = 1."""
+    m, rows = 512, {}
+    for b, sizes in ((1, (2048, 4096, 8192, 12288, 16384, 32768, 65536)),
+                     (PATCHES, (4096, 16384, 32768))):
+        for n in sizes:
+            x = patches(rng, b, n, dev)
+            t = {}
+            for kernel in ("fps", "fps_cluster"):
+                fps_equal(x, m, f"crossover {kernel} B={b} N={n}", kernel)
+                t[kernel] = time_ms(lambda: fps_ops._fps_launch(kernel, x, m)) / (m - 1) * 1e3
+            rows[f"B={b} N={n}"] = t
+            log(f"fps crossover B={b} N={n} -> {m}: one block {t['fps']:.3f} us an iteration, "
+                f"cluster {t['fps_cluster']:.3f} us")
+    single = {int(k.split("N=")[1]): t for k, t in rows.items() if k.startswith("B=1 ")}
+    crossover = next((n for n in sorted(single) if all(
+        single[k]["fps_cluster"] < single[k]["fps"] for k in single if k >= n)), None)
+    log(f"fps crossover: at B=1 the cluster kernel is the faster from N={crossover}; the "
+        f"dispatch switches at N={fps_ops.CLUSTER_MIN_POINTS}")
+    return {"us_per_iteration": rows, "crossover_n_b1": crossover,
+            "dispatch_n": fps_ops.CLUSTER_MIN_POINTS}
+
+
 def check_fps(rng, dev, shapes) -> dict:
-    # (what, clouds, points, samples, calls per backbone forward, timed runs)
+    """K5 at the backbone's shapes (one block per cloud, "fps") and at the
+    exact recombination's and the seeding's (one cluster per cloud,
+    "fps_cluster"); indices torch.equal to the plain version everywhere."""
+    exact_n = PATCHES * PATCH
+    # (what, clouds, points, samples, calls on the path, timed runs)
     cases = [(f"sa{i} centres", PATCHES, n, m, 1, RUNS)
              for i, (n, m, _, _, _) in enumerate(shapes["sa"])]
-    cases += [("seeding", 1, 50_000, PATCHES, 0, RUNS),
-              ("bucketed recombination", PATCHES, PATCH, 685, 0, RUNS),
-              ("exact recombination", 1, PATCHES * PATCH, 50_000, 0, 1)]
-    tally = Tally("f32", library=False)
-    for what, b, n, m, per_fwd, runs in cases:
+    cases += [("bucketed recombination", PATCHES, PATCH, 685, 0, RUNS),
+              ("seeding", 1, 50_000, PATCHES, 1, RUNS),
+              ("exact recombination", 1, exact_n, 50_000, 1, RUNS)]
+    tallies = {"fps": Tally("f32", library=False), "fps_cluster": Tally("f32", library=False)}
+    extra = {}
+    for what, b, n, m, calls, runs in cases:
+        kernel = "fps_cluster" if n >= fps_ops.CLUSTER_MIN_POINTS else "fps"
         x = patches(rng, b, n, dev)
-        got = fps_ops.furthest_point_sample(x, m)
-        want = fps_ops.furthest_point_sample_plain(x, m)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            bad = (got != want).sum().item()
-            raise AssertionError(f"fps {what}: {bad} indices differ from the plain version")
+        fps_equal(x, m, what)
         ms = time_ms(lambda: fps_ops.furthest_point_sample(x, m), runs)
-        # the 1.6 s exact recombination is not traced
-        dms = device_ms(lambda: fps_ops.furthest_point_sample(x, m), "fps") if runs > 1 else None
+        dms = device_ms(lambda: fps_ops.furthest_point_sample(x, m), kernel)
         hus = host_us(lambda: fps_ops.furthest_point_sample(x, m), ms)
-        plain = time_ms(lambda: fps_ops.furthest_point_sample_plain(x, m), runs)
+        plain = time_ms(lambda: fps_ops.furthest_point_sample_plain(x, m), 1)
         # per iteration and point: 3 sub, 3 mul, 2 add, min, compare
-        bound = tally.add(per_fwd, ms, plain, None, b * n * 12 + b * m * 4,
-                          10.0 * b * (m - 1) * n, 0.0, dms or 0.0, hus)
-        log(f"fps {what} [{b}, {n}] -> {m}: indices equal; kernel {ms:.3f} ms (device "
-            f"{'not traced' if dms is None else f'{dms:.4f} ms'}, host {hus:.1f} us a call), "
-            f"plain {plain:.3f} ms, bound {bound:.3g} ms")
-    return {"f32": tally}
+        bound = tallies[kernel].add(calls, ms, plain, None, b * n * 12 + b * m * 4,
+                                    10.0 * b * (m - 1) * n, 0.0, dms, hus)
+        log(f"{kernel} {what} [{b}, {n}] -> {m}: indices equal; kernel {ms:.3f} ms (device "
+            f"{dms:.4f} ms, {dms / max(m - 1, 1) * 1e3:.3f} us an iteration; host {hus:.1f} us "
+            f"a call), plain {plain:.3f} ms, bound {bound:.3g} ms")
+        if what == "exact recombination":
+            # the one-block kernel at the same shape, as before the cluster kernel
+            one = time_ms(lambda: fps_ops._fps_launch("fps", x, m), 1)
+            extra = {"exact_recombination_ms": ms, "exact_recombination_device_ms": dms,
+                     "exact_us_per_iteration": dms / (m - 1) * 1e3, "one_block_kernel_ms": one}
+            log(f"fps exact recombination on the one-block kernel: {one:.1f} ms; the cluster "
+                f"kernel {ms:.2f} ms ({one / ms:.1f}x)")
+    # the bench's four objects, and a ragged cloud whose every pick is a tie
+    x = patches(rng, 4, exact_n, dev)
+    fps_equal(x, 50_000, f"[4, {exact_n}]")
+    ms4 = time_ms(lambda: fps_ops.furthest_point_sample(x, 50_000), 2)
+    log(f"fps_cluster [4, {exact_n}] -> 50000: indices equal; kernel {ms4:.2f} ms")
+    n = 100_003
+    x = torch.from_numpy(tied_cloud(rng, n, -(-n // 16))).to(dev)[None]
+    fps_equal(x, 33_000, f"ragged tied [1, {n}]")
+    log(f"fps_cluster ragged [1, {n}] -> 33000, every pick a tie, ties across the 16 CTAs' "
+        "ranges: indices equal")
+    # past the registers (N above 163,840): distances in a global scratch row
+    x = patches(rng, 1, 200_000, dev)
+    fps_equal(x, 3000, "[1, 200000], points past the registers")
+    log("fps_cluster [1, 200000] -> 3000 (2,260 points a CTA past the registers): indices equal")
+    extra.update(four_clouds_ms=ms4, crossover=fps_crossover(rng, dev))
+    tallies["fps_cluster"].extra = extra
+    return {name: {"f32": t} for name, t in tallies.items()}
 
 
 def check_ball_query(rng, dev, shapes) -> dict:
@@ -642,7 +745,7 @@ def check_kernels(dev, plan) -> dict:
     shapes = main_path_shapes(plan, PATCH)
     log(f"main path shapes at B={PATCHES}: {json.dumps(shapes)}")
     results = {
-        "fps": check_fps(rng, dev, shapes),
+        **check_fps(rng, dev, shapes),
         "ball_query_group": check_ball_query(rng, dev, shapes),
         "avg_voxelize": check_voxelize(rng, dev, shapes),
         "conv3d_gn": check_conv3d_gn(rng, dev, shapes),
@@ -850,7 +953,11 @@ def denoise_50k(model, twin, dev) -> dict:
             log(f"denoise 50,000 points, {name}, 73 patches x 2048, 5 steps, {mode} "
                 f"recombination: {ms:.1f} ms ({50_000 / ms * 1e3:.0f} points/s); "
                 f"launches {launches}")
-            idle = [k for k in SERVING if launches.get(k, 0) == 0]
+            # the seeding (50,000 points) and the exact recombination (149,504)
+            # take the cluster kernel from CLUSTER_MIN_POINTS points a cloud
+            need = SERVING + (("fps_cluster",) if mode == "exact"
+                              or 50_000 >= fps_ops.CLUSTER_MIN_POINTS else ())
+            idle = [k for k in need if launches.get(k, 0) == 0]
             if idle:
                 raise AssertionError(f"kernels not launched on the {name} {mode} path: {idle}")
             runs[name][mode] = {"ms": ms, "launches": launches}
@@ -866,9 +973,11 @@ KERNEL_FUNCTIONS = {
     "trilinear_devoxelize": ("devox_kernel", "mean_partial_kernel", "mean_final_kernel"),
     "ball_query_group": ("ball_query_group_kernel",),
     "fps": ("fps_kernel",),
+    "fps_cluster": ("fps_cluster_kernel",),
     "three_nn_interpolate": ("three_nn_interp_kernel",),
     "avg_voxelize_backward": ("gather_divide_kernel",),
     "auction_emd": ("auction_kernel",),
+    "scatter_rows": ("scatter_sort_kernel", "scatter_rows_kernel"),
 }
 
 
@@ -883,19 +992,19 @@ def kernel_group(name: str) -> str:
     return "other PyTorch kernels"
 
 
-def profile_bf16(model, dev) -> dict:
-    """torch.profiler over one bf16 bucketed 50k run: device time by
-    kernel group and the idle share (1 - union of kernel/copy/set
-    intervals / host wall time of the traced call)."""
+def profile_bf16(model, dev, mode: str) -> dict:
+    """torch.profiler over one bf16 50k run with ``mode`` recombination:
+    device time by kernel group and the idle share (1 - union of
+    kernel/copy/set intervals / host wall time of the traced call)."""
     from torch.profiler import ProfilerActivity, profile
 
     bridge = P2PBridge.from_config(pvds_punet(), model)
     pcl = cloud_50k()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        denoise(bridge, pcl, "bucketed", dev)
+        denoise(bridge, pcl, mode, dev)
         wall_ms = (time.perf_counter() - t0) * 1e3
-    return device_time(prof, wall_ms, "bf16 bucketed")
+    return device_time(prof, wall_ms, f"bf16 {mode}")
 
 
 def device_time(prof, wall_ms: float, what: str) -> dict:
@@ -997,6 +1106,127 @@ def check_voxelize_backward(rng, dev, shapes) -> dict:
     return out
 
 
+def scatter_cases(rng, dev, dt, shapes):
+    """The backward scatters of one training step at B = TRAIN_B, from the
+    forwards' own indices and weights: [(what, calls, kernel wrapper, plain
+    version, their arguments, rows a cloud, (flat destination rows, f32
+    terms) of the one index_add_ that computes the same, bytes,
+    operations)]."""
+    B, cases = TRAIN_B, []
+    for (n, r, c), calls in counted((n, r, cout) for n, r, _, cout in shapes["pvconv"]):
+        _, cont = vox_ops.normalize_coords_to_voxels(patches(rng, B, n, dev), r)
+        g = torch.randn(B, n, c, device=dev).to(dt)
+        base = (torch.arange(B, device=dev) * r ** 3)[:, None]
+        parts = [((idx + base).reshape(-1), ((wx * wy)[..., None] * (wz[..., None] * g.float()))
+                  .reshape(-1, c)) for idx, wx, wy, wz in devox_ops._corners(cont, r)]
+        cases.append((f"K3 devoxelize N={n} r={r} C={c}", calls,
+                      devox_ops._devoxelize_backward_cuda,
+                      lambda g, cont, r: devox_ops.trilinear_devoxelize_backward(
+                          g, cont, r).to(g.dtype), (g, cont, r), r ** 3,
+                      (torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])),
+                      B * n * (c * esize(dt) + 12) + B * r ** 3 * c * esize(dt),
+                      B * 8 * n * (4 * c + 12)))
+    for n, m, radius, k, c in shapes["sa"]:
+        pts = patches(rng, B, n, dev)
+        rows = torch.randn(B, n, c, device=dev).to(dt)
+        _, idx = bq_ops.ball_query_group(pts[:, :m].contiguous(), pts, rows, radius, k)
+        g = torch.randn(B, m, k, c, device=dev).to(dt)
+        base = (torch.arange(B, device=dev) * n)[:, None, None]
+        cases.append((f"K4 ball_query_group {n}->{m} K={k} C={c}", 1,
+                      bq_ops._ball_query_group_backward_cuda,
+                      lambda g, idx, n: bq_ops.ball_query_group_backward(g, idx, n).to(g.dtype),
+                      (g, idx, n), n, ((idx.long() + base).reshape(-1), g.float().reshape(-1, c)),
+                      B * m * k * (c * esize(dt) + 4) + B * n * c * esize(dt), B * m * k * c))
+    for n, m, c in shapes["fp"]:
+        pts = patches(rng, B, n, dev)
+        _, w, idx = interp_ops.three_nn_interpolate(
+            pts, pts[:, :m].contiguous(), torch.randn(B, m, c, device=dev).to(dt))
+        g = torch.randn(B, n, c, device=dev).to(dt)
+        base = (torch.arange(B, device=dev) * m)[:, None, None]
+        cases.append((f"K6 three_nn_interpolate {n}<-{m} C={c}", 1,
+                      interp_ops._three_nn_interpolate_backward_cuda,
+                      lambda g, w, idx, m: interp_ops.three_nn_interpolate_backward(
+                          g, w, idx, m).to(g.dtype), (g, w, idx, m), m,
+                      ((idx.long() + base).reshape(-1),
+                       (w[..., None] * g.float()[:, :, None, :]).reshape(-1, c)),
+                      B * n * (c * esize(dt) + 24) + B * m * c * esize(dt), B * 3 * n * 2 * c))
+    return cases
+
+
+def check_scatter(rng, dev, shapes) -> dict:
+    """Kernel scatter_rows at every backward scatter of the training step
+    (B = 32), bf16 and f32: torch.equal to the plain version run on the CPU
+    from the same inputs and to a second call; timed beside the plain
+    version on the card (index_add_) and one index_add_ of the precomputed
+    terms."""
+    out = {}
+    for name, dt in DTYPES.items():
+        tally = Tally(name, library=True)
+        for what, calls, kernel, plain_fn, args, rows, (flat, src), nbytes, ops in scatter_cases(
+                rng, dev, dt, shapes):
+            got, again = kernel(*args), kernel(*args)
+            want = plain_fn(*(a.cpu() if torch.is_tensor(a) else a for a in args))
+            torch.cuda.synchronize()
+            if not (got.dtype == dt and torch.equal(got.cpu(), want)):
+                bad = (got.cpu() != want).sum().item()
+                err = (got.cpu().float() - want.float()).abs().max().item()
+                raise AssertionError(f"scatter_rows {name} {what}: {bad} values differ from the "
+                                     f"CPU plain version, by up to {err}")
+            if not torch.equal(got, again):
+                raise AssertionError(f"scatter_rows {name} {what}: two kernel calls differ")
+            ms = time_ms(lambda: kernel(*args))
+            dms = device_ms(lambda: kernel(*args), "scatter_rows")
+            hus = host_us(lambda: kernel(*args), ms)
+            plain = time_ms(lambda: plain_fn(*args))
+            acc = torch.zeros(TRAIN_B * rows, src.shape[-1], device=dev)
+            lib = time_ms(lambda: acc.index_add_(0, flat, src))
+            bound = tally.add(calls, ms, plain, lib, nbytes, ops, 0.0, dms, hus)
+            log(f"scatter_rows {name} {what} x{calls} B={TRAIN_B}: bit-equal to the CPU plain "
+                f"version, two calls equal; kernel {ms:.4f} ms (device {dms:.4f} ms, host "
+                f"{hus:.1f} us a call), plain (index_add_) {plain:.4f} ms, one index_add_ of "
+                f"the terms {lib:.4f} ms, bound {bound:.4g} ms")
+            del flat, src, acc
+        out[name] = tally
+    return out
+
+
+def cudnn_backward_cost(dev, shapes) -> dict:
+    """K1's backward (the recomputed conv + GroupNorm and its gradient
+    through cuDNN) at the training step's 16 convs (B = 32, bf16), with
+    cuDNN's deterministic algorithms as the port runs it and without them,
+    TF32 off in both: ms per step, and the deterministic gradient's bits
+    equal over two calls."""
+    convs = []
+    for _, r, cin, cout in shapes["pvconv"]:
+        convs += [(r, cin, cout, True), (r, cout, cout, False)]
+    gen = torch.Generator(device=dev).manual_seed(7)
+    total = {True: 0.0, False: 0.0}
+    for (r, cin, cout, act), calls in counted(convs):
+        x, w, b, gamma, beta = conv_inputs(gen, dev, torch.bfloat16, TRAIN_B, r, cin, cout, False)
+        inputs = [t.requires_grad_() for t in (x, w, b, gamma, beta)]
+        g = torch.randn(TRAIN_B, r, r, r, cout, device=dev, generator=gen).bfloat16()
+
+        def backward(det, inputs=inputs, g=g, act=act):
+            with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=det,
+                                            allow_tf32=False):
+                y = conv_ops.conv3d_gn_reference(*inputs, 8, 1e-5, act)
+                return torch.autograd.grad(y, inputs, g)
+
+        first, second = backward(True), backward(True)
+        if not all(torch.equal(a, c) for a, c in zip(first, second)):
+            raise AssertionError(f"K1 backward r={r} {cin}->{cout}: two deterministic calls differ")
+        ms = {det: time_ms(lambda det=det: backward(det)) for det in (True, False)}
+        for det in ms:
+            total[det] += calls * ms[det]
+        log(f"K1 backward (cuDNN) bf16 r={r} {cin}->{cout} x{calls} B={TRAIN_B}: deterministic "
+            f"{ms[True]:.3f} ms (two calls bit-equal), default algorithms {ms[False]:.3f} ms")
+        del x, inputs, g
+        torch.cuda.empty_cache()
+    log(f"K1 backward per training step: deterministic {total[True]:.2f} ms, default "
+        f"{total[False]:.2f} ms")
+    return {"deterministic_ms": total[True], "default_ms": total[False]}
+
+
 def aligned_batch(cfg: dict, dev) -> dict:
     """One training batch of the synthetic tree through the port's loader."""
     loader, _ = get_dataloader(cfg)
@@ -1059,7 +1289,7 @@ def check_gradient(dev) -> dict:
     want = P2PBridge.from_config(cfg, cpu).loss_fn(x0, x1, steps=steps)
     want.backward()
     runs = []
-    for _ in range(2):  # twice: how far the card is from itself
+    for _ in range(2):  # twice: the card must give the same bits
         card.zero_grad(set_to_none=True)
         got = P2PBridge.from_config(cfg, card).loss_fn(x0.to(dev), x1.to(dev),
                                                        steps=steps.to(dev))
@@ -1067,6 +1297,7 @@ def check_gradient(dev) -> dict:
         runs.append([p.grad.cpu() for p in card.parameters()])
     again = (sum((a - b).norm() ** 2 for a, b in zip(*runs)) ** 0.5
              / sum(b.norm() ** 2 for b in runs[1]) ** 0.5).item()
+    differ = first_differing(card, *runs)
     loss_err = abs(got.item() - want.item()) / abs(want.item())
     worst, worst_name, zero, sq_diff, sq_ref = 0.0, None, 0, 0.0, 0.0
     for (name, pc), pg in zip(cpu.named_parameters(), runs[1]):
@@ -1082,13 +1313,89 @@ def check_gradient(dev) -> dict:
         f"{loss_err:.3g} (bound {LOSS_REL}); whole gradient relative L2 {total:.3g} (bound "
         f"{GRAD_REL_L2}); worst parameter {worst_name}: relative L2 {worst:.3g} (bound "
         f"{PARAM_REL_L2}); {zero} parameters with a zero gradient; two card runs: "
-        f"relative L2 {again:.3g}")
+        f"{'bit-equal' if differ is None else f'differ first in {differ}'}, relative L2 "
+        f"{again:.3g}")
     if not (math.isfinite(got.item()) and loss_err <= LOSS_REL and total <= GRAD_REL_L2
             and worst <= PARAM_REL_L2):
         raise AssertionError(f"card gradient differs from the CPU: loss {loss_err}, whole "
                              f"{total}, {worst_name} {worst}")
+    if differ is not None:
+        raise AssertionError(f"two card runs of the f32 gradient (B=2) differ, first in "
+                             f"{differ}; whole gradient relative L2 {again}")
     return {"loss_rel": loss_err, "grad_rel_l2": total, "worst_param": worst_name,
-            "worst_param_rel_l2": worst, "card_vs_card_rel_l2": again}
+            "worst_param_rel_l2": worst, "card_vs_card_rel_l2": again, "card_runs_bit_equal": True}
+
+
+def first_differing(model, first: list, second: list):
+    """The name of the first parameter whose gradients in two runs are not
+    torch.equal, or None."""
+    return next((name for (name, _), a, b in zip(model.named_parameters(), first, second)
+                 if not torch.equal(a, b)), None)
+
+
+def train_gradient(model, bridge, batch: dict) -> torch.Tensor:
+    """One forward + backward of a training step as train_step runs it:
+    the K7 alignment, then the loss with its timesteps and noise from a
+    generator seeded here and dropout from the CUDA RNG, seeded here too."""
+    generator = torch.Generator(batch["x_start"].device).manual_seed(11)
+    torch.cuda.manual_seed(12)
+    x_gt = align_clean_to_noisy(batch["x_start"], batch["x_gt"], eps=0.01, iters=100)
+    loss = bridge.loss_fn(x_gt, batch["x_start"], generator=generator)
+    loss.backward()
+    return loss
+
+
+def check_train_gradient_bits(cfg: dict, batch: dict, dev) -> dict:
+    """PVDS_PUNet as shipped (bf16, bs 32 x 2048, dropout, the K7
+    alignment): one forward + backward twice from the same weights and
+    batch, every generator reseeded before each; every parameter's gradient
+    must be torch.equal, and the error names the first that differs."""
+    model = build_unet_from_config(cfg).train()
+    init_parameters(model, torch.Generator().manual_seed(0))
+    model.to(dev)
+    bridge = P2PBridge.from_config(cfg, model)
+    runs, losses = [], []
+    for _ in range(2):
+        model.zero_grad(set_to_none=True)
+        losses.append(train_gradient(model, bridge, batch).item())
+        runs.append([p.grad.clone() for p in model.parameters()])
+    differ = first_differing(model, *runs)
+    log(f"bf16 forward + backward at the training shape (bs {TRAIN_B} x {PATCH}, dropout "
+        f"{cfg['model']['dropout']}, K7 alignment), twice from the same weights and batch: "
+        f"losses {losses}; gradients "
+        f"{'bit-equal in every parameter' if differ is None else f'differ first in {differ}'}")
+    if differ is not None or losses[0] != losses[1]:
+        raise AssertionError(f"two bf16 training-shape gradients differ, first in {differ}; "
+                             f"losses {losses}")
+    return {"bit_equal": True, "loss": losses[0], "batch": TRAIN_B}
+
+
+def determinism_audit(cfg: dict, batch: dict, dev) -> list:
+    """One training step (alignment, forward + backward, clip, AdamW, EMA)
+    under torch.use_deterministic_algorithms(True, warn_only=True): every
+    distinct warning it gives, logged. A diagnostic only: the port's path
+    sets no such flag."""
+    import warnings
+
+    model = build_unet_from_config(cfg).train()
+    init_parameters(model, torch.Generator().manual_seed(0))
+    model.to(dev)
+    state = init_train_state(model, cfg)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            train_step(P2PBridge.from_config(cfg, model), state, batch,
+                       torch.Generator(dev).manual_seed(0), grad_clip=1.0,
+                       align_cfg={"eps": 0.01, "iters": 100})
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    messages = sorted({f"{w.category.__name__}: {w.message}" for w in caught})
+    for m in messages:
+        log(f"determinism audit: {m}")
+    log(f"determinism audit: {len(messages)} distinct warnings in one training step")
+    return messages
 
 
 class TrainObserver:
@@ -1142,7 +1449,7 @@ def train_phase(cfg: dict, dev) -> tuple:
         raise AssertionError(f"training losses: {losses}")
     if not last < first:
         raise AssertionError(f"mean loss of the last five steps {last} >= first five {first}")
-    idle = [k for k in KERNELS if obs.launches.get(k, 0) == 0]
+    idle = [k for k in TRAINING if obs.launches.get(k, 0) == 0]
     log(f"launches in step 20: {obs.launches}")
     if idle:
         raise AssertionError(f"kernels not launched in a training step: {idle}")
@@ -1198,11 +1505,17 @@ def training(dev, plan) -> dict:
         cfg = train_config(root / "data", root / "run")
         batch = aligned_batch(cfg, dev)
         results = {"avg_voxelize_backward": check_voxelize_backward(
-            np.random.default_rng(4), dev, shapes), "auction_emd": check_auction(batch, dev)}
+            np.random.default_rng(4), dev, shapes), "auction_emd": check_auction(batch, dev),
+            "scatter_rows": check_scatter(np.random.default_rng(6), dev, shapes)}
+        cudnn = cudnn_backward_cost(dev, shapes)
         gradient = check_gradient(dev)
+        gradient["train_shape"] = check_train_gradient_bits(cfg, batch, dev)
+        audit = determinism_audit(cfg, batch, dev)
+        torch.cuda.empty_cache()
         state, run = train_phase(cfg, dev)
         checkpoint = check_checkpoint(state, cfg, batch, dev)
-    return {"results": results, "gradient": gradient, "run": run, "checkpoint": checkpoint}
+    return {"results": results, "gradient": gradient, "run": run, "checkpoint": checkpoint,
+            "k1_backward_cudnn": cudnn, "determinism_audit": audit}
 
 
 def main() -> None:
@@ -1217,7 +1530,7 @@ def main() -> None:
     forward = check_forward(model, twin, dev)
     forward["determinism"] = check_determinism(model, dev)
     run = denoise_50k(model, twin, dev)
-    profile = profile_bf16(model, dev)
+    profile = {mode: profile_bf16(model, dev, mode) for mode in ("bucketed", "exact")}
     del model, twin
     torch.cuda.empty_cache()
     trained = training(dev, plan)
@@ -1231,22 +1544,26 @@ def main() -> None:
         by_path = {f"{d} {m}": r["launches"].get(name, 0)
                    for d, modes in run.items() for m, r in modes.items()}
         by_path["bf16 train step"] = train_launches[name]
-        serving = name in SERVING
+        path, timed = {
+            "fps_cluster": (f"{MAIN} exact", "kernel calls of one 50k denoise with exact "
+                            "recombination: the seeding and the recombination"),
+        }.get(name, (f"{MAIN} bucketed", f"kernel calls of one PVDS_PUNet forward at B={PATCHES}")
+              if name in SERVING else
+              ("bf16 train step", f"kernel calls of one PVDS_PUNet training step at B={TRAIN_B}"))
         entry = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                 "launches": by_path[f"{MAIN} bucketed" if serving else "bf16 train step"],
-                 "launches_by_path": by_path,
+                 "launches": by_path[path], "launches_by_path": by_path,
                  "max_abs_err": max(t.err for t in per_dtype.values()),
                  **per_dtype[dtype].row(), "dtype": dtype,
                  "max_abs_err_by_dtype": {d: t.err for d, t in per_dtype.items()},
-                 "f32": per_dtype["f32"].row(),
-                 "timed": (f"kernel calls of one PVDS_PUNet forward at B={PATCHES}" if serving
-                           else f"kernel calls of one PVDS_PUNet training step at B={TRAIN_B}")}
+                 "f32": per_dtype["f32"].row(), "timed": timed}
         entries.append(entry)
     line = {"kernels": entries, "forward": forward, "launch_path_host_us": launch_costs,
             "denoise_50k_ms": {f"{d} {m}": r["ms"] for d, modes in run.items()
                                for m, r in modes.items()},
-            "profile_bf16_bucketed": profile,
+            "profile_bf16": profile,
             "train": {"gradient": trained["gradient"], "checkpoint": trained["checkpoint"],
+                      "k1_backward_cudnn": trained["k1_backward_cudnn"],
+                      "determinism_audit": trained["determinism_audit"],
                       **{k: v for k, v in trained["run"].items() if k != "launches"}}}
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

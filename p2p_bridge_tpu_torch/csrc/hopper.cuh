@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks for the hand-written kernels: mbarriers,
-// TMA tile loads and warpgroup MMAs (wgmma), as inline PTX.
+// TMA tile loads, cluster barriers and distributed shared memory, and
+// warpgroup MMAs (wgmma), as inline PTX.
 //
 // Shared-memory operands of wgmma are K-major tiles written by TMA with the
 // swizzle that matches their row width (64 or 128 bytes): rows of one
@@ -74,6 +75,53 @@ __device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map,
       "l"((uint64_t)map), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
       "r"(c4)
       : "memory");
+}
+
+// ---- thread block clusters and distributed shared memory -------------------
+// This CTA's rank in its cluster.
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every CTA of the cluster arrives (its earlier memory
+// operations released) and then waits for all the others (their memory
+// operations acquired): one cluster-wide barrier.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The shared::cluster address, in the shared memory of the cluster's CTA
+// `rank`, of the variable at `p` in this CTA's shared memory.
+__device__ __forceinline__ uint32_t cluster_map(const void* p, uint32_t rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(a) : "r"(smem_addr(p)), "r"(rank));
+  return a;
+}
+
+// Make this CTA's freshly initialised mbarriers visible to the cluster's
+// other CTAs (before their first remote arrive on them).
+__device__ __forceinline__ void fence_mbar_init_cluster() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// Store to shared::cluster address `a` (another CTA's shared memory) and
+// count the bytes on that CTA's mbarrier at shared::cluster address `bar`,
+// whose phase completes when they have all landed.
+__device__ __forceinline__ void st_async_f4(uint32_t a, float4 v, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, "
+      "[%5];\n" ::"r"(a),
+      "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void st_async_u32(uint32_t a, uint32_t v, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];\n" ::"r"(a),
+               "r"(v), "r"(bar)
+               : "memory");
 }
 
 // ---- wgmma -----------------------------------------------------------------

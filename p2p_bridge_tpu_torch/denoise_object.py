@@ -6,8 +6,10 @@
 The flags are those of the root denoise_object.py, plus ``--device``.
 ``--model_path`` names a torch state_dict in the reference's naming
 (``.pt``/``.pth``, or a checkpoint dict holding one under ``model`` /
-``ema``) or an ``.npz`` of JAX params with flattened ``a/b/c`` keys; the
-``opt.yaml`` saved beside it gives the configuration. Free ``--a.b value``
+``ema``), an ``.npz`` of JAX params with flattened ``a/b/c`` keys, or a run
+directory that ``python -m p2p_bridge_tpu_torch.train`` wrote (its
+``model.pt``); the ``opt.yaml`` in that directory, or beside the weights,
+gives the configuration. Free ``--a.b value``
 arguments override configuration entries. The backbone computes in the
 configuration's dtype: bf16 where ``training.amp`` is set and
 ``model.compute_dtype`` is not (the shipped PVDS_PUNet), f32 with
@@ -24,6 +26,7 @@ import numpy as np
 import torch
 
 from .inference import normalize_unit_sphere, patch_based_denoise
+from .models.model_loader import CHECKPOINT
 from .models.p2pb import P2PBridge
 from .models.unet_pvc import build_unet_from_config, compute_dtype
 from .utils.config import apply_dot_overrides, load_yaml
@@ -38,7 +41,7 @@ def parse_args(argv=None):
     parser.add_argument("--data_path", type=str, required=True, help="Path to the object point cloud.")
     parser.add_argument("--output_path", type=str, default=None, help="Output file (.xyz). Defaults next to input.")
     parser.add_argument("--model_path", type=str, required=True,
-                        help="Weights: reference torch state_dict (.pt/.pth) or JAX params (.npz).")
+                        help="Weights: reference torch state_dict (.pt/.pth), JAX params (.npz) or a run directory.")
     parser.add_argument("--seed", type=int, default=42)
     parser.add_argument("--k", type=int, default=3, help="Patch oversampling factor.")
     parser.add_argument("--use_ema", action="store_true", help="Use EMA weights of a checkpoint dict.")
@@ -52,9 +55,11 @@ def parse_args(argv=None):
 
 
 def load_config(model_path: str, overrides) -> dict:
-    """opt.yaml beside the weights (or in their directory's parent), with
-    ``--a.b value`` overrides applied."""
-    base = os.path.dirname(os.path.abspath(model_path))
+    """opt.yaml in ``model_path`` when it is a directory, else beside the
+    weights, else in their directory's parent, with ``--a.b value``
+    overrides applied."""
+    path = os.path.abspath(model_path)
+    base = path if os.path.isdir(path) else os.path.dirname(path)
     for cand in (base, os.path.dirname(base)):
         path = os.path.join(cand, "opt.yaml")
         if os.path.exists(path):
@@ -65,6 +70,9 @@ def load_config(model_path: str, overrides) -> dict:
 
 
 def load_weights(model: torch.nn.Module, path: str, use_ema: bool) -> None:
+    """The weights of ``path``: a file, or a run directory's model.pt."""
+    if os.path.isdir(path):
+        path = os.path.join(path, CHECKPOINT)
     if path.endswith(".npz"):
         load_jax_params(model, load_npz(path))
         return

@@ -32,7 +32,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("fps.cu", "ball_query_group.cu", "voxelize.cu", "conv3d_gn.cu",
-           "devoxelize.cu", "interpolate.cu", "auction.cu")
+           "devoxelize.cu", "interpolate.cu", "auction.cu", "scatter_rows.cu")
 HEADERS = ("common.cuh", "hopper.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -41,9 +41,9 @@ NVCC_FLAGS = (
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "p2p_bridge_tpu_torch"
 
 # kernel name -> number of launches since the last reset
-launch_counts = {"fps": 0, "ball_query_group": 0, "avg_voxelize": 0, "conv3d_gn": 0,
-                 "trilinear_devoxelize": 0, "three_nn_interpolate": 0,
-                 "avg_voxelize_backward": 0, "auction_emd": 0}
+launch_counts = {"fps": 0, "fps_cluster": 0, "ball_query_group": 0, "avg_voxelize": 0,
+                 "conv3d_gn": 0, "trilinear_devoxelize": 0, "three_nn_interpolate": 0,
+                 "avg_voxelize_backward": 0, "auction_emd": 0, "scatter_rows": 0}
 
 _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _SIGNATURES = {
@@ -51,6 +51,8 @@ _SIGNATURES = {
     # index and the stream, which launch() appends
     "p2pb_fps": (_I, (_P, _I, _I, _I, _P, _P, _I, _P)),
     "p2pb_fps_scratch_bytes": (_LL, (_I, _I)),
+    "p2pb_fps_cluster": (_I, (_P, _I, _I, _I, _P, _P, _I, _P)),
+    "p2pb_fps_cluster_scratch_bytes": (_LL, (_I, _I)),
     "p2pb_ball_query_group": (_I, (_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P, _P, _I, _P)),
     "p2pb_avg_voxelize": (_I, (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P)),
     "p2pb_avg_voxelize_backward": (_I, (_P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P)),
@@ -62,6 +64,7 @@ _SIGNATURES = {
     "p2pb_trilinear_devoxelize": (_I, (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P)),
     "p2pb_devoxelize_scratch_bytes": (_LL, (_I, _I, _I)),
     "p2pb_three_nn_interpolate": (_I, (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P)),
+    "p2pb_scatter_rows": (_I, (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P)),
     "p2pb_error_string": (ctypes.c_char_p, (_I,)),
 }
 DATA = (torch.float32, torch.bfloat16)  # the element types of a kernel's data

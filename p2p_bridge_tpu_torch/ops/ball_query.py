@@ -11,8 +11,10 @@ plain version.
 
 The backward is the JAX package's (fused_group.py ``_fused_tpu_bwd``, the
 CUDA grouping backward): each gathered row's gradient is added into the row
-it came from (``index_add_``, in f32, rounded once to the rows' dtype);
-centres and points get no gradient.
+it came from (in f32, rounded once to the rows' dtype); centres and points
+get no gradient. On a CUDA tensor it is kernel ``scatter_rows``
+(``ops/scatter.py``), bit-equal to the plain version (``index_add_``) run
+on the CPU.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import torch
 
 from .. import kernels
 from .common import batched_take, pairwise_sqdist_exact
+from .scatter import GATHER, scatter_rows_cuda
 
 
 def _radius_sq(radius: float) -> float:
@@ -69,12 +72,21 @@ def _ball_query_group_cuda(centers, points, rows, radius, num_neighbors):
 
 def ball_query_group_backward(grad: torch.Tensor, idx: torch.Tensor,
                               num_points: int) -> torch.Tensor:
-    """grad [B, M, K, C], idx [B, M, K] -> rows' gradient [B, N, C] f32."""
+    """The plain scatter: grad [B, M, K, C], idx [B, M, K] -> rows' gradient
+    [B, N, C] f32, added with index_add_ in (m, k) order."""
     B, C = grad.shape[0], grad.shape[-1]
     base = (torch.arange(B, device=grad.device) * num_points)[:, None, None]
     out = torch.zeros((B * num_points, C), dtype=torch.float32, device=grad.device)
     out.index_add_(0, (idx.long() + base).reshape(-1), grad.float().reshape(-1, C))
     return out.view(B, num_points, C)
+
+
+def _ball_query_group_backward_cuda(grad, idx, num_points):
+    """The scatter on the card: kernel scatter_rows -> [B, N, C] of grad's
+    dtype."""
+    B, M, K, C = grad.shape
+    return scatter_rows_cuda(GATHER, grad.reshape(B, M * K, C).contiguous(), num_points,
+                             idx=idx.view(B, -1))
 
 
 class _BallQueryGroup(torch.autograd.Function):
@@ -94,8 +106,11 @@ class _BallQueryGroup(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad, grad_idx=None):
         (idx,) = ctx.saved_tensors
-        drows = ball_query_group_backward(grad, idx, ctx.num_points)
-        return None, None, drows.to(grad.dtype), None, None
+        if kernels.on_card(grad):
+            drows = _ball_query_group_backward_cuda(grad, idx, ctx.num_points)
+        else:
+            drows = ball_query_group_backward(grad, idx, ctx.num_points).to(grad.dtype)
+        return None, None, drows, None, None
 
 
 def ball_query_group(centers: torch.Tensor, points: torch.Tensor,

@@ -14,8 +14,9 @@ tensor it runs the plain version.
 The backward is that of the JAX package (wconv3d_kernel.py ``_make_conv_gn``):
 the gradient of the composition :func:`conv3d_gn_reference`, a SAME conv in
 x's dtype followed by the f32 GroupNorm, recomputed from the saved inputs.
-Its conv transposes are PyTorch's (cuDNN on the card), as the JAX package
-leaves them to XLA outside any Pallas kernel.
+Its conv transposes are PyTorch's (cuDNN on the card, pinned to its
+deterministic algorithms), as the JAX package leaves them to XLA outside
+any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -128,7 +129,10 @@ def _conv3d_gn_cuda(x, weight, bias, gamma, beta, groups, eps, act):
 
 
 class _Conv3dGN(torch.autograd.Function):
-    """K1 forward; the backward recomputes :func:`conv3d_gn_reference`."""
+    """K1 forward; the backward recomputes :func:`conv3d_gn_reference` and
+    differentiates it with cuDNN pinned, for this backward only, to its
+    deterministic algorithms (no benchmark search, no TF32), so that two
+    runs give the same bits."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, gamma, beta, groups, eps, act):
@@ -141,7 +145,8 @@ class _Conv3dGN(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         needs = ctx.needs_input_grad[:5]
-        with torch.enable_grad():
+        with torch.enable_grad(), torch.backends.cudnn.flags(
+                enabled=True, benchmark=False, deterministic=True, allow_tf32=False):
             inputs = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, needs)]
             out = conv3d_gn_reference(*inputs, *ctx.options)
             wanted = [t for t in inputs if t.requires_grad]

@@ -10,8 +10,10 @@ The backward is the JAX package's (devoxelize.py ``_devox_bwd`` and
 ``_devox_mean_bwd``): each point's gradient row, weighted by (wx * wy) *
 (wz * g), is added into its corner voxels in f32 and the grid gradient is
 rounded once to the grid's dtype; the mean's gradient adds g_mean / r^3 to
-every voxel. The coordinates get no gradient. It is plain PyTorch
-(``index_add_``) on both devices: the JAX package has no Pallas kernel here.
+every voxel. The coordinates get no gradient. On a CUDA tensor the scatter
+is kernel ``scatter_rows`` (``ops/scatter.py``), bit-equal to the plain
+version (``index_add_``, corner by corner) run on the CPU; the JAX package
+has no Pallas kernel here.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
+from .scatter import DEVOX, scatter_rows_cuda
 
 
 def _corners(coords: torch.Tensor, r: int):
@@ -61,8 +64,9 @@ def trilinear_devoxelize_plain(grid: torch.Tensor, coords: torch.Tensor,
 
 def trilinear_devoxelize_backward(grad: torch.Tensor, coords: torch.Tensor,
                                   resolution: int) -> torch.Tensor:
-    """grad [B, N, C] -> grid gradient [B, r^3, C] f32: each corner gets
-    (wx * wy) * (wz * grad) of each point, summed with index_add_."""
+    """The plain scatter: grad [B, N, C] -> grid gradient [B, r^3, C] f32;
+    each corner gets (wx * wy) * (wz * grad) of each point, added with
+    index_add_ corner by corner."""
     r = resolution
     B, N, C = grad.shape
     g = grad.float()
@@ -99,6 +103,13 @@ def _devoxelize_cuda(grid, coords, resolution, with_mean):
     return out, mean
 
 
+def _devoxelize_backward_cuda(grad, coords, resolution):
+    """The corner scatter on the card: kernel scatter_rows -> [B, r^3, C] of
+    grad's dtype."""
+    return scatter_rows_cuda(DEVOX, grad.contiguous(), resolution ** 3, coords=coords,
+                             resolution=resolution)
+
+
 class _Devoxelize(torch.autograd.Function):
     """K3 forward (with or without the mean); the backward scatters."""
 
@@ -118,7 +129,10 @@ class _Devoxelize(torch.autograd.Function):
         (coords,) = ctx.saved_tensors
         r = ctx.resolution
         B, C = grad.shape[0], grad.shape[-1]
-        dgrid = trilinear_devoxelize_backward(grad, coords, r).to(grad.dtype)
+        if kernels.on_card(grad):
+            dgrid = _devoxelize_backward_cuda(grad, coords, r)
+        else:
+            dgrid = trilinear_devoxelize_backward(grad, coords, r).to(grad.dtype)
         if ctx.with_mean and grad_mean is not None:
             # rounded to the grid's dtype first, then added: _devox_mean_bwd
             dgrid = dgrid + (grad_mean.float() / float(r ** 3)).to(dgrid.dtype)[:, None, :]

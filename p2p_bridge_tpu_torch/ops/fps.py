@@ -3,7 +3,11 @@
 The first index is 0; every iteration updates the running point-to-set
 squared distance against the last pick and takes the argmax, ties to the
 lowest index. On a CUDA tensor :func:`furthest_point_sample` launches
-kernel K5 (``csrc/fps.cu``); on a CPU tensor it runs the plain version.
+kernel K5 (``csrc/fps.cu``): ``fps_kernel``, one block per cloud, below
+:data:`CLUSTER_MIN_POINTS` points a cloud (the SA stages, the bucketed
+recombination), and ``fps_cluster_kernel``, one cluster of 16 blocks per
+cloud, from there on (the exact recombination, the seeding). Both give the
+plain version's indices. On a CPU tensor it runs the plain version.
 """
 
 from __future__ import annotations
@@ -33,19 +37,39 @@ def furthest_point_sample_plain(coords: torch.Tensor, num_samples: int) -> torch
     return out
 
 
-def _furthest_point_sample_cuda(coords: torch.Tensor, num_samples: int) -> torch.Tensor:
+# From this many points a cloud the cluster kernel runs. A lone cloud
+# gains from 4,096 points on (chip_smoke.py's fps crossover, NVIDIA H100),
+# but a batch gains less: the one-block kernel runs up to 132 clouds at
+# once, the cluster kernel a few 16-SM clusters (the crossover also times
+# 73 clouds). 16,384 takes the exact recombination (3 x a cloud's points)
+# and the seeding of clouds from 16,384 points, and leaves every backbone
+# FPS (at most 4,096 points in the three configs) to the one-block kernel.
+CLUSTER_MIN_POINTS = 16384
+
+
+def _fps_launch(kernel: str, coords: torch.Tensor, num_samples: int) -> torch.Tensor:
+    """Kernel ``fps`` (one block per cloud) or ``fps_cluster`` (one
+    16-block cluster per cloud) on coords [B, N, 3] f32 -> [B, M] int32."""
     B, N, _ = coords.shape
     device = kernels.check(("coords", coords, torch.float32, (B, N, 3)))
     if not 0 < num_samples <= N:
         raise ValueError(f"num_samples must be in [1, {N}], got {num_samples}")
+    entry = f"p2pb_{kernel}"
     out = torch.empty((B, num_samples), dtype=torch.int32, device=coords.device)
-    nbytes = kernels.entry_points()["p2pb_fps_scratch_bytes"](B, N)
+    nbytes = kernels.entry_points()[entry + "_scratch_bytes"](B, N)
     scratch = (torch.empty(nbytes // 4, dtype=torch.float32, device=coords.device)
                if nbytes else None)
     kernels.launch(
-        "fps", "p2pb_fps", device, coords.data_ptr(), B, N, num_samples,
+        kernel, entry, device, coords.data_ptr(), B, N, num_samples,
         None if scratch is None else scratch.data_ptr(), out.data_ptr())
     return out
+
+
+def _furthest_point_sample_cuda(coords: torch.Tensor, num_samples: int) -> torch.Tensor:
+    """The kernel for the shape: the cluster kernel from CLUSTER_MIN_POINTS
+    points a cloud. A cluster that cannot be resident raises."""
+    kernel = "fps_cluster" if coords.shape[1] >= CLUSTER_MIN_POINTS else "fps"
+    return _fps_launch(kernel, coords, num_samples)
 
 
 def furthest_point_sample(coords: torch.Tensor, num_samples: int) -> torch.Tensor:

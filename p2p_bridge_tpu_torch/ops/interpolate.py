@@ -12,9 +12,11 @@ weights carry no gradient. On a CUDA tensor
 
 The backward is the JAX package's (interpolate.py ``_nn_interp_fused_bwd``,
 the CUDA backward): d_features = W^T g, each point's weighted gradient
-added into its three centres (``index_add_``, in f32, rounded once to the
-features' dtype); the weights are stop-gradient, so points and centres get
-no gradient. Under grad the forward asks K6 for its weights and indices;
+added into its three centres (in f32, rounded once to the features'
+dtype); the weights are stop-gradient, so points and centres get no
+gradient. On a CUDA tensor it is kernel ``scatter_rows``
+(``ops/scatter.py``), bit-equal to the plain version (``index_add_``) run
+on the CPU. Under grad the forward asks K6 for its weights and indices;
 without grad it skips those stores.
 """
 
@@ -25,6 +27,7 @@ import torch.nn.functional as F
 
 from .. import kernels
 from .common import batched_take, pairwise_sqdist_exact
+from .scatter import INTERP, scatter_rows_cuda
 
 
 def three_nn(points: torch.Tensor, centers: torch.Tensor):
@@ -96,14 +99,23 @@ def three_nn_interpolate(points: torch.Tensor, centers: torch.Tensor,
 
 def three_nn_interpolate_backward(grad: torch.Tensor, weights: torch.Tensor,
                                   idx: torch.Tensor, num_centers: int) -> torch.Tensor:
-    """grad [B, N, C], weights and indices [B, N, 3] -> d_features
-    [B, M, C] f32 = W^T grad."""
+    """The plain scatter: grad [B, N, C], weights and indices [B, N, 3] ->
+    d_features [B, M, C] f32 = W^T grad, added with index_add_ in (n, j)
+    order."""
     B, N, C = grad.shape
     base = (torch.arange(B, device=grad.device) * num_centers)[:, None, None]
     src = weights.float()[..., None] * grad.float()[:, :, None, :]  # [B, N, 3, C]
     out = torch.zeros((B * num_centers, C), dtype=torch.float32, device=grad.device)
     out.index_add_(0, (idx.long() + base).reshape(-1), src.reshape(-1, C))
     return out.view(B, num_centers, C)
+
+
+def _three_nn_interpolate_backward_cuda(grad, weights, idx, num_centers):
+    """W^T grad on the card: kernel scatter_rows -> [B, M, C] of grad's
+    dtype."""
+    B = grad.shape[0]
+    return scatter_rows_cuda(INTERP, grad.contiguous(), num_centers, idx=idx.view(B, -1),
+                             weights=weights.view(B, -1))
 
 
 class _ThreeNNInterpolate(torch.autograd.Function):
@@ -119,8 +131,11 @@ class _ThreeNNInterpolate(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         w, idx = ctx.saved_tensors
-        dfeat = three_nn_interpolate_backward(grad, w, idx, ctx.num_centers)
-        return None, None, dfeat.to(grad.dtype)
+        if kernels.on_card(grad):
+            dfeat = _three_nn_interpolate_backward_cuda(grad, w, idx, ctx.num_centers)
+        else:
+            dfeat = three_nn_interpolate_backward(grad, w, idx, ctx.num_centers).to(grad.dtype)
+        return None, None, dfeat
 
 
 def nearest_neighbor_interpolate(points: torch.Tensor, centers: torch.Tensor,

@@ -187,6 +187,48 @@ def test_denoise_object_cli_on_cpu(tmp_path, weights):
     assert np.abs(pts - other).max() > 1e-5
 
 
+@pytest.fixture(scope="module")
+def trained_run(tmp_path_factory):
+    """The run directory that the port's training CLI writes (opt.yaml and
+    model.pt): one step of PVDS_PUNet at TINY widths on the CPU."""
+    from test_torch_train import ROOT, TINY_OVERRIDES, synthetic_tree
+
+    from p2p_bridge_tpu_torch import train
+
+    root = tmp_path_factory.mktemp("train")
+    synthetic_tree(root / "data")
+    train.main(["--config", str(ROOT / "configs" / "PVDS_PUNet.yaml"), "--save_dir",
+                str(root / "runs"), "--device", "cpu", "--data.data_dir", str(root / "data"),
+                "--training.steps", "1", *TINY_OVERRIDES])
+    return root / "runs" / "PVDS_PUNet"
+
+
+@pytest.mark.parametrize("form", ["run_dir", "model_pt"])
+def test_denoise_object_cli_takes_the_run_directory(trained_run, tmp_path, form):
+    """--model_path names the run directory that train wrote (opt.yaml and
+    model.pt inside it) or its model.pt; either way the CLI denoises with
+    the run's configuration and weights, as patch_based_denoise_batch does
+    with them."""
+    model_path = trained_run if form == "run_dir" else trained_run / "model.pt"
+    data = tmp_path / "cloud.xyz"
+    write_xyz(str(data), noisy_sphere(4, 500))
+    out = denoise_object.main(["--data_path", str(data), "--model_path", str(model_path),
+                               "--device", "cpu", "--steps", "1", "--recombine", "bucketed"])
+    pts = read_xyz(out)
+    assert pts.shape == (500, 3) and np.isfinite(pts).all()
+
+    with open(trained_run / "opt.yaml") as f:
+        cfg = yaml.safe_load(f)
+    model = build_unet_from_config(cfg).eval()
+    denoise_object.load_weights(model, str(trained_run / "model.pt"), use_ema=False)
+    normed, center, scale = normalize_unit_sphere(read_xyz(str(data)))
+    denoised, _ = patch_based_denoise_batch(
+        P2PBridge.from_config(cfg, model), normed[None], patch_size=cfg["data"]["npoints"],
+        steps=1, recombine_mode="bucketed")
+    # the .xyz files keep 6 decimals
+    np.testing.assert_allclose(pts, denoised[0] * scale + center, atol=2e-6)
+
+
 def test_denoise_object_cli_requires_cuda_when_asked(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):

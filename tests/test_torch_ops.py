@@ -82,9 +82,21 @@ def test_pairwise_and_take_match_jax():
                                   np.asarray(jops.batched_take(jnp.asarray(b), jnp.asarray(idx))))
 
 
-@pytest.mark.parametrize("B,N,M", [(2, 200, 48), (1, 131, 131), (9, 300, 96), (1, 2048, 64)])
+# clouds of integer points on a 7^3 lattice, each point repeated: exact ties
+# (equal distances, duplicated points, all-zero distances once every lattice
+# point is taken), at N not a multiple of 16, one above the card's cluster
+# threshold
+FPS_TIES = {(2, 1003, 400), (3, 517, 517), (1, 16389, 200)}
+
+
+@pytest.mark.parametrize("B,N,M", [(2, 200, 48), (1, 131, 131), (9, 300, 96), (1, 2048, 64),
+                                   *sorted(FPS_TIES)])
 def test_fps_matches_xla(B, N, M):
-    x = np.random.default_rng(N).normal(size=(B, N, 3)).astype(np.float32)
+    rng = np.random.default_rng(N)
+    if (B, N, M) in FPS_TIES:
+        x = rng.integers(-3, 4, size=(B, N, 3)).astype(np.float32)
+    else:
+        x = rng.normal(size=(B, N, 3)).astype(np.float32)
     want = np.asarray(_furthest_point_sample_xla(jnp.asarray(x), M))
     got = ops.furthest_point_sample(t(x), M)
     assert got.dtype == torch.int32

@@ -169,6 +169,9 @@ OPS = {
     "fps": ("fps", ["p2pb_fps_scratch_bytes", "p2pb_fps"],
             lambda dt: [_rand(2, 64, 3)],
             lambda t: fps_ops._furthest_point_sample_cuda(t[0], 8), 0),
+    "fps_cluster": ("fps_cluster", ["p2pb_fps_cluster_scratch_bytes", "p2pb_fps_cluster"],
+                    lambda dt: [_rand(2, fps_ops.CLUSTER_MIN_POINTS + 5, 3)],
+                    lambda t: fps_ops._furthest_point_sample_cuda(t[0], 8), 0),
     "ball_query_group": ("ball_query_group", ["p2pb_ball_query_group"],
                          lambda dt: [_rand(2, 8, 3), _rand(2, 64, 3), _rand(2, 64, 6, dtype=dt)],
                          lambda t: bq_ops._ball_query_group_cuda(*t, 0.3, 4), 1),
@@ -193,9 +196,21 @@ OPS = {
     "auction_emd": ("auction_emd", ["p2pb_auction_smem_bytes", "p2pb_auction_emd"],
                     lambda dt: [_rand(2, 16, 16)],
                     lambda t: emd_auction._auction_emd_cuda(t[0], 0.01, 10), 0),
+    # the backward scatter kernel through each of its three wrappers
+    "scatter_devoxelize": ("scatter_rows", ["p2pb_scatter_rows"],
+                           lambda dt: [_rand(2, 64, 16, dtype=dt), _rand(2, 64, 3) * 7],
+                           lambda t: devox_ops._devoxelize_backward_cuda(*t, 8), 1),
+    "scatter_ball_query_group": ("scatter_rows", ["p2pb_scatter_rows"],
+                                 lambda dt: [_rand(2, 8, 4, 6, dtype=dt), _ints(64, 2, 8, 4)],
+                                 lambda t: bq_ops._ball_query_group_backward_cuda(*t, 64), 1),
+    "scatter_three_nn_interpolate": (
+        "scatter_rows", ["p2pb_scatter_rows"],
+        lambda dt: [_rand(2, 64, 8, dtype=dt), _rand(2, 64, 3), _ints(16, 2, 64, 3)],
+        lambda t: interp_ops._three_nn_interpolate_backward_cuda(*t, 16), 1),
 }
 DATA_OPS = {"ball_query_group", "avg_voxelize", "avg_voxelize_backward", "conv3d_gn",
-            "trilinear_devoxelize", "three_nn_interpolate"}
+            "trilinear_devoxelize", "three_nn_interpolate", "scatter_devoxelize",
+            "scatter_ball_query_group", "scatter_three_nn_interpolate"}
 OP_CASES = [(op, dt) for op in OPS
             for dt in ((torch.float32, torch.bfloat16) if op in DATA_OPS else (torch.float32,))]
 
@@ -238,10 +253,10 @@ def _faults(t):
             ("layout", strided, ValueError, "contiguous")]
 
 
-# a single-input op takes its device from that input (fps, auction_emd),
-# and d2 alone sets every size of auction_emd
+# a single-input op takes its device from that input (fps, fps_cluster,
+# auction_emd), and d2 alone sets every size of auction_emd
 FAULT_CASES = [(op, fault) for op in sorted(OPS) for fault in ("device", "dtype", "shape", "layout")
-               if not (fault == "device" and op in ("fps", "auction_emd"))
+               if not (fault == "device" and op in ("fps", "fps_cluster", "auction_emd"))
                and not (fault == "shape" and op == "auction_emd")]
 
 
