@@ -19,13 +19,17 @@ Phases, in order; any failure raises and the process exits non-zero:
      no synchronise); the bound of each is the larger of its bytes over
      3.35 TB/s and its operations over the peak rate of its data type;
      K5 (FPS) indices torch.equal to the plain version at the SA stages
-     and the bucketed recombination (one block per cloud), and at the
-     seeding, the exact recombination [1 and 4, 149,504] -> 50,000 and a
-     ragged [1, 100,003] -> 33,000 whose every pick is a tie (one 16-CTA
-     cluster per cloud), the one-block kernel timed at the exact shape, and
-     both kernels at B = 1 for growing N (the dispatch's crossover);
-     K1 also at B = 1 and B = 3 (a cloud's first and last tiles, an odd
-     tile count) and at the rooms model's Cout = 512 (two channel tiles);
+     and the bucketed recombination (one warp or block per cloud), also on
+     clouds whose every pick ties across lanes and warps and at odd N (33,
+     1000, 4097, 16,383) and [8, 4096], and at the seeding, the exact
+     recombination [1 and 4, 149,504] -> 50,000 and a ragged [1, 100,003]
+     -> 33,000 whose every pick is a tie (one 16-CTA cluster per cloud),
+     with device us a pick, and both kernels at B = 1 and 73 for growing N
+     up to 16,383 (the dispatch's crossover);
+     K1 in bf16 and f32 also at B = 1 and B = 3 (a cloud's first and last
+     tiles, an odd tile count), at Cin = 35 (padded) and at the rooms
+     model's Cout = 512 (channel tiles), each shape's time beside cuDNN's
+     and beside the host clock over synchronised calls;
      K2 (voxelize) torch.equal, grid and counts, to its plain version run
      on the CPU from the same inputs and to a second kernel call, also at
      PVDL_SNPP's (4096, 32, 67) and (64, 8, 512) at B = 4; then the host
@@ -263,6 +267,21 @@ def time_ms(fn, runs: int = RUNS, back_to_back: bool = True) -> float:
     return float(np.median([run(reps) for _ in range(runs)]))
 
 
+def synced_ms(fn, runs: int = 3) -> float:
+    """Median host-clock time of one synchronised call of ``fn``: the
+    ground truth that CUDA events and the profiler's device time are held
+    to for calls long enough (milliseconds) that launch work is noise."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
 def surface_cloud(rng: np.random.Generator, n: int, noise: float = 0.01) -> np.ndarray:
     """n points on a unit sphere plus gaussian noise, unit-sphere normalised."""
     p = rng.normal(size=(n, 3))
@@ -392,8 +411,9 @@ def fps_equal(x, m, what, kernel=None) -> torch.Tensor:
 def tied_cloud(rng, n: int, chunk: int) -> np.ndarray:
     """n points in which every point appears twice, each copy at a random
     place (so every pick ties two indices), on a 1/64 grid (so distinct
-    points tie too), and the last point of each cluster CTA's range
-    repeated as the first of the next (ties across CTA boundaries)."""
+    points tie too), and the last point of each range of ``chunk`` indices
+    repeated as the first of the next: ties across the cluster kernel's
+    CTAs (chunk = a CTA's range) or across lanes and warps (chunk = 32)."""
     half = np.round(surface_cloud(rng, (n + 1) // 2) * 64) / 64
     x = np.concatenate([half, half])[rng.permutation(2 * len(half))][:n]
     for c in range(1, -(-n // chunk)):
@@ -407,10 +427,10 @@ def fps_crossover(rng, dev) -> dict:
     cluster kernel a cluster per cloud, a few at a time): us per iteration
     of the whole batch, indices equal to each other and to the plain
     version. The crossover is the smallest N from which the cluster kernel
-    is the faster at B = 1."""
+    is the faster at B = 1, up to the one-block kernel's largest cloud."""
     m, rows = 512, {}
-    for b, sizes in ((1, (2048, 4096, 8192, 12288, 16384, 32768, 65536)),
-                     (PATCHES, (4096, 16384, 32768))):
+    top = fps_ops.CLUSTER_MIN_POINTS - 1
+    for b, sizes in ((1, (2048, 4096, 8192, 12288, top)), (PATCHES, (4096, 8192, top))):
         for n in sizes:
             x = patches(rng, b, n, dev)
             t = {}
@@ -423,15 +443,21 @@ def fps_crossover(rng, dev) -> dict:
     single = {int(k.split("N=")[1]): t for k, t in rows.items() if k.startswith("B=1 ")}
     crossover = next((n for n in sorted(single) if all(
         single[k]["fps_cluster"] < single[k]["fps"] for k in single if k >= n)), None)
-    log(f"fps crossover: at B=1 the cluster kernel is the faster from N={crossover}; the "
-        f"dispatch switches at N={fps_ops.CLUSTER_MIN_POINTS}")
+    log(f"fps crossover: at B=1 the cluster kernel is the faster from N={crossover} (None: "
+        f"nowhere up to {top}); the dispatch switches at N={fps_ops.CLUSTER_MIN_POINTS}")
     return {"us_per_iteration": rows, "crossover_n_b1": crossover,
             "dispatch_n": fps_ops.CLUSTER_MIN_POINTS}
 
 
+# K5's one-warp and one-block kernels on clouds whose picks tie across
+# lanes and warps, and at odd N: (clouds, points, samples)
+FPS_ODD = ((PATCHES, 33, 17), (PATCHES, 1000, 250), (8, 4096, 1024), (8, 4097, 1024),
+           (4, 16_383, 512))
+
+
 def check_fps(rng, dev, shapes) -> dict:
-    """K5 at the backbone's shapes (one block per cloud, "fps") and at the
-    exact recombination's and the seeding's (one cluster per cloud,
+    """K5 at the backbone's shapes (one warp or block per cloud, "fps") and
+    at the exact recombination's and the seeding's (one cluster per cloud,
     "fps_cluster"); indices torch.equal to the plain version everywhere."""
     exact_n = PATCHES * PATCH
     # (what, clouds, points, samples, calls on the path, timed runs)
@@ -441,7 +467,7 @@ def check_fps(rng, dev, shapes) -> dict:
               ("seeding", 1, 50_000, PATCHES, 1, RUNS),
               ("exact recombination", 1, exact_n, 50_000, 1, RUNS)]
     tallies = {"fps": Tally("f32", library=False), "fps_cluster": Tally("f32", library=False)}
-    extra = {}
+    extra, per_pick = {}, {}
     for what, b, n, m, calls, runs in cases:
         kernel = "fps_cluster" if n >= fps_ops.CLUSTER_MIN_POINTS else "fps"
         x = patches(rng, b, n, dev)
@@ -453,16 +479,27 @@ def check_fps(rng, dev, shapes) -> dict:
         # per iteration and point: 3 sub, 3 mul, 2 add, min, compare
         bound = tallies[kernel].add(calls, ms, plain, None, b * n * 12 + b * m * 4,
                                     10.0 * b * (m - 1) * n, 0.0, dms, hus)
+        us_pick = dms / max(m - 1, 1) * 1e3
+        per_pick[what] = {"device_ms": dms, "us_per_pick": us_pick, "ms": ms}
         log(f"{kernel} {what} [{b}, {n}] -> {m}: indices equal; kernel {ms:.3f} ms (device "
-            f"{dms:.4f} ms, {dms / max(m - 1, 1) * 1e3:.3f} us an iteration; host {hus:.1f} us "
+            f"{dms:.4f} ms, {us_pick:.3f} us a pick; host {hus:.1f} us "
             f"a call), plain {plain:.3f} ms, bound {bound:.3g} ms")
         if what == "exact recombination":
-            # the one-block kernel at the same shape, as before the cluster kernel
-            one = time_ms(lambda: fps_ops._fps_launch("fps", x, m), 1)
             extra = {"exact_recombination_ms": ms, "exact_recombination_device_ms": dms,
-                     "exact_us_per_iteration": dms / (m - 1) * 1e3, "one_block_kernel_ms": one}
-            log(f"fps exact recombination on the one-block kernel: {one:.1f} ms; the cluster "
-                f"kernel {ms:.2f} ms ({one / ms:.1f}x)")
+                     "exact_us_per_iteration": us_pick}
+    # the SA stages on clouds whose every pick ties two indices, among them
+    # neighbours across lane and warp boundaries, and odd N
+    for i, (n, m, _, _, _) in enumerate(shapes["sa"]):
+        x = torch.from_numpy(np.stack([tied_cloud(rng, n, 32) for _ in range(PATCHES)])).to(dev)
+        fps_equal(x, m, f"sa{i} tied [{PATCHES}, {n}]")
+        log(f"fps sa{i} [{PATCHES}, {n}] -> {m}, every pick a tie, ties across lanes and "
+            "warps: indices equal")
+    for b, n, m in FPS_ODD:
+        x = patches(rng, b, n, dev)
+        fps_equal(x, m, f"[{b}, {n}]")
+        xt = torch.from_numpy(np.stack([tied_cloud(rng, n, 32) for _ in range(b)])).to(dev)
+        fps_equal(xt, m, f"tied [{b}, {n}]")
+        log(f"fps [{b}, {n}] -> {m}, random and tied: indices equal")
     # the bench's four objects, and a ragged cloud whose every pick is a tie
     x = patches(rng, 4, exact_n, dev)
     fps_equal(x, 50_000, f"[4, {exact_n}]")
@@ -479,6 +516,7 @@ def check_fps(rng, dev, shapes) -> dict:
     log("fps_cluster [1, 200000] -> 3000 (2,260 points a CTA past the registers): indices equal")
     extra.update(four_clouds_ms=ms4, crossover=fps_crossover(rng, dev))
     tallies["fps_cluster"].extra = extra
+    tallies["fps"].extra = {"per_call": per_pick}
     return {name: {"f32": t} for name, t in tallies.items()}
 
 
@@ -624,6 +662,8 @@ def check_conv3d_gn(rng, dev, shapes) -> dict:
             single = time_ms(lambda: conv_ops.conv3d_gn(x, w, b, gamma, beta, 8, 1e-5, act),
                              back_to_back=False)
             tally.single_call_ms += calls * single
+            wall = synced_ms(lambda: conv_ops.conv3d_gn(x, w, b, gamma, beta, 8, 1e-5, act))
+            tally.extra["synced_ms"] = tally.extra.get("synced_ms", 0.0) + calls * wall
             plain = time_ms(lambda: conv_ops.conv3d_gn_plain(x, w, b, gamma, beta, 8, 1e-5, act))
             # cuDNN conv + GroupNorm on channels-first tensors made outside the timing
             xc = x.permute(0, 4, 1, 2, 3).contiguous()
@@ -644,21 +684,27 @@ def check_conv3d_gn(rng, dev, shapes) -> dict:
             log(f"conv3d_gn {name} r={r} {cin}->{cout} x{calls} B={PATCHES}: max err {err:.3g} "
                 f"(tol {tol:.3g}); kernel {ms:.3f} ms (device {dms:.4f} ms, host {hus:.1f} us "
                 f"a call; {flop / ms / 1e9:.2f} TFLOP/s, "
-                f"{bound / ms:.3f} of the bound {bound:.3g} ms), one call alone {single:.3f} ms, "
-                f"plain {plain:.3f} ms, cuDNN conv + GroupNorm {lib:.3f} ms")
+                f"{bound / ms:.3f} of the bound {bound:.3g} ms), one call alone {single:.3f} ms "
+                f"(host clock, synchronised: {wall:.3f} ms), "
+                f"plain {plain:.3f} ms, cuDNN conv + GroupNorm {lib:.3f} ms "
+                f"(kernel / cuDNN {ms / lib:.3f})")
             del x
             torch.cuda.empty_cache()
         out[name] = tally
     # a cloud's first and last tiles alone (B = 1) and an odd tile count
     # (B = 3); Cout = 512 (PVDL_SNPP's widest conv) takes two channel tiles
-    for B in (1, 3):
-        for r, cin, cout, act in ((8, 256, 256, False), (32, 35, 32, True), (8, 512, 512, True)):
-            for shared in (False, True):
-                args = conv_inputs(gen, dev, torch.bfloat16, B, r, cin, cout, shared)
-                err, tol = conv_error("bf16", args, act, f"B={B} r={r} {cin}->{cout}")
-                out["bf16"].err = max(out["bf16"].err, err)
-                log(f"conv3d_gn bf16 B={B} r={r} {cin}->{cout} "
-                    f"{'shared' if shared else 'per-cloud'} affine: max err {err:.3g} (tol {tol:.3g})")
+    # in bf16 and four in f32, and Cin = 35 is padded (64 in bf16, 36 in f32)
+    for name, dt in DTYPES.items():
+        for B in (1, 3):
+            for r, cin, cout, act in ((8, 256, 256, False), (32, 35, 32, True),
+                                      (8, 512, 512, True)):
+                for shared in (False, True):
+                    args = conv_inputs(gen, dev, dt, B, r, cin, cout, shared)
+                    err, tol = conv_error(name, args, act, f"B={B} r={r} {cin}->{cout}")
+                    out[name].err = max(out[name].err, err)
+                    log(f"conv3d_gn {name} B={B} r={r} {cin}->{cout} "
+                        f"{'shared' if shared else 'per-cloud'} affine: max err {err:.3g} "
+                        f"(tol {tol:.3g})")
     return out
 
 
@@ -967,12 +1013,12 @@ def denoise_50k(model, twin, dev) -> dict:
 # ---------------------------------------------------------------- phase 6
 # device kernels of each hand-written kernel, by function name
 KERNEL_FUNCTIONS = {
-    "conv3d_gn": ("conv_tile_kernel", "conv_wgmma_kernel", "gn_stats_kernel", "gn_apply_kernel",
+    "conv3d_gn": ("conv_ffma_kernel", "conv_wgmma_kernel", "gn_stats_kernel", "gn_apply_kernel",
                   "gn_apply_bf16_kernel"),
     "avg_voxelize": ("bucket_kernel", "rows_kernel"),
     "trilinear_devoxelize": ("devox_kernel", "mean_partial_kernel", "mean_final_kernel"),
     "ball_query_group": ("ball_query_group_kernel",),
-    "fps": ("fps_kernel",),
+    "fps": ("fps_kernel", "fps_warp_kernel"),
     "fps_cluster": ("fps_cluster_kernel",),
     "three_nn_interpolate": ("three_nn_interp_kernel",),
     "avg_voxelize_backward": ("gather_divide_kernel",),

@@ -54,156 +54,238 @@
 //    slot, tile), no atomics; a GroupNorm group is one or more whole
 //    slots; the pre-norm grid stored in bf16 straight into the output,
 //    as the TPU kernel stages it in the compute dtype.
-// f32 (conv_tile_kernel): 64 x 64 tiles of 256 threads with 4 x 4 f32 FMA
-// accumulators, K steps of 16, the f32 pre-norm grid written in place.
+// f32 (conv_ffma_kernel), the f32 twin and any run with training.amp off:
+// exact f32 products and sums by FFMA (no TF32). Bound by the 67 TFLOP/s of
+// the CUDA cores (48 ms a PVDS_PUNet forward at B = 73), so the design keeps
+// the FMA pipes fed and nothing else in their way:
+//  * register blocking: each thread holds 8 x 8 outputs (8 x 4 at N = 32),
+//    and per k one float4 of A for each of its 8 rows is reused over 4 k
+//    with two float4 of B: 64 FMAs per four 16-byte shared loads. A warp is
+//    4 (rows) x 8 (columns) lanes, so an A load is 4 distinct 16-byte
+//    values (consecutive voxels, 32 bytes apart: no bank conflict) and a B
+//    load 8 contiguous ones, the rest broadcast;
+//  * a tile is 128 consecutive voxels of one cloud x N = 32, 64 or 128
+//    channels (the widest that divides Cout; Cout = 256 and 512 take
+//    channel tiles), 128 or 256 threads;
+//  * staging as the bf16 kernel's, in f32: per (dx, k-chunk of 8 channels)
+//    one box of the tile's voxels with a one-voxel halo in y and z, loaded
+//    once and read as the A tiles of all nine (dy, dz) taps at row offsets
+//    (a ninth of the A traffic of one gather per tap), with the nine taps'
+//    [8, N] weight slices; 16-byte cp.async copies, zero-filled outside the
+//    grid (SAME padding) and past Cin, so the loop has no masks. The
+//    wrapper pads Cin to a multiple of 4 (16-byte rows: 35 -> 36);
+//  * two stages in dynamic shared memory, one __syncthreads a stage (a
+//    stage is 72 k-steps of FMAs, 4,608 a thread): the next stage's copies
+//    are in flight while this one computes. Eight warps an SM (one block of
+//    256 threads at N = 128, two of 128 below), so a thread may hold up to
+//    255 registers: the 64 accumulators, 8 A and 8 B vectors and the
+//    addresses fit with no spill. On an NVIDIA H100 80GB HBM3 (700 W) a
+//    cap of 128 registers, to fit twice the blocks, spills and runs
+//    slower, and a third block of 128 threads, an A prefetch one k-step
+//    ahead or 16-channel chunks gain nothing;
+//  * R is a template parameter (8, 16, 32), so the box geometry and
+//    every shared-memory offset of the inner loop are constants;
+//  * epilogue: bias added in f32, the pre-norm grid stored in f32 as
+//    16-byte rows, one deterministic GroupNorm partial per (cloud, slot of
+//    N / 8 channels, tile) from the f32 values (the thread's rows, then the
+//    warp's by shuffles, then a fixed order over the warps), no atomics.
 // Then gn_stats_kernel reduces the partials in double and the apply pass
 // normalises, applies the affine and the swish in f32 and stores T, in
 // place (the bf16 pass with 16-byte vectors of 8 channels).
+#include <climits>
+
 #include "common.cuh"
 #include "hopper.cuh"
 
 namespace {
 
-constexpr int BM = 64;
-constexpr int BN = 64;
-constexpr int BK = 16;
-constexpr int NT = 256;
+constexpr int SLOTS = 8;                // GroupNorm partials a tile: N / 8 channels each
+constexpr int MAX_DEVICES = 16;         // cards whose launch state is cached
 
-__global__ void __launch_bounds__(NT)
-    conv_tile_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                     const float* __restrict__ bias, int R, int Cin, int Cout,
-                     int groups, float* __restrict__ y,
-                     double* __restrict__ partials) {
-  __shared__ __align__(16) float As[BK][BM + 4];
-  __shared__ __align__(16) float Bs[BK][BN];
-  __shared__ int vx[BM], vy[BM], vz[BM];
-  __shared__ int kdx[BK], kdy[BK], kdz[BK], kci[BK];
-  __shared__ float cs[16][BN], cs2[16][BN];
+// ---- f32: cp.async + register-blocked FFMA ----------------------------------
+constexpr int FM = 128;  // voxels of an f32 tile
+constexpr int FK = 8;    // input channels of a k-chunk
 
-  const int mt = blockIdx.x, nt = blockIdx.y, b = blockIdx.z;
-  const int V = R * R * R;
-  const int K = 27 * Cin;
-  const int m0 = mt * BM, n0 = nt * BN;
-  const int tid = threadIdx.x;
-  const int tm = tid / 16, tn = tid % 16;
-  const float* xb = x + (size_t)b * V * Cin;
+// The bm voxels of a tile as a box: z fastest, then y, then x. With a
+// one-voxel halo in y it holds the bf16 kernel's A rows of the three dy
+// taps, with halos in y and z the f32 kernel's of all nine (dy, dz) taps.
+struct Box {
+  int zb, yb, xb;
+  __host__ __device__ constexpr Box(int R, int bm)
+      : zb(R < bm ? R : bm), yb(R < bm / zb ? R : bm / zb), xb(bm / (zb * yb)) {}
+  __host__ __device__ constexpr int halo_rows() const { return zb * (yb + 2) * xb; }
+  __host__ __device__ constexpr int halo2_rows() const { return (zb + 2) * (yb + 2) * xb; }
+};
 
-  if (tid < BM) {
-    const int v = m0 + tid;
-    if (v < V) {
-      vx[tid] = v / (R * R);
-      vy[tid] = (v / R) % R;
-      vz[tid] = v % R;
-    } else {
-      vx[tid] = -4;  // every tap lands outside the grid
-      vy[tid] = -4;
-      vz[tid] = -4;
-    }
-  }
+// f32 threads a block: 8 x 8 outputs each (8 x 4 at N = 32)
+__host__ __device__ constexpr int ffma_threads(int N) { return N == 128 ? 256 : 128; }
 
-  float acc[4][4];
+// Bytes of one f32 stage: the input box with y and z halos (k-chunk rows of
+// 32 bytes) and the [9 (dy, dz)][FK][N] weight slices of one dx.
+constexpr int ffma_stage_bytes(int R, int N) {
+  return (Box(R, FM).halo2_rows() + 9 * N) * FK * 4;
+}
+
+template <int N, int R>
+__global__ void __launch_bounds__(ffma_threads(N), N == 128 ? 1 : 2)
+    conv_ffma_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                     const float* __restrict__ bias, int Cin, int Cout,
+                     float* __restrict__ y, double* __restrict__ partials) {
+  constexpr int NT = ffma_threads(N);
+  constexpr int NJ = N == 32 ? 1 : 2;  // float4 column groups of a thread, 32 apart
+  constexpr int WM = 4;                // warps along M: 32 rows each
+  constexpr Box box(R, FM);
+  constexpr int ZB = box.zb, YB = box.yb, ZS = box.zb + 2, YS = box.yb + 2;
+  constexpr int ROWS = box.halo2_rows();
+  constexpr int A_FLOATS = ROWS * FK, STAGE_FLOATS = A_FLOATS + 9 * FK * N;
+  constexpr int T = R * R * R / FM;
+  extern __shared__ __align__(16) float fsmem[];
+  __shared__ float red[WM][N / 4][2];
+
+  const int CT = Cout / N;
+  const int nt = blockIdx.x % CT, tile = (blockIdx.x / CT) % T, b = blockIdx.x / (CT * T);
+  const int v0 = tile * FM, n0 = nt * N;
+  const int x0 = v0 / (R * R), y0 = (v0 / R) % R, z0 = v0 % R;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm = warp % WM, wn = warp / WM, tm = lane >> 3, tn = lane & 7;
+  const int col0 = wn * 32 * NJ + tn * 4;  // the thread's first column in the tile
+  const float* xb = x + (size_t)b * R * R * R * Cin;
+
+  // the thread's rows m = 32 wm + tm + 4 i: four consecutive z of one box
+  // line per warp instruction (32 contiguous bytes each: no bank conflict).
+  // A warp's 32 rows lie in one x plane and start a z line, so row i sits
+  // 4 i + 2 floor(4 i / ZB) box rows after row 0 (2: the z halo of each
+  // line crossed): a constant.
+  const int m0 = 32 * wm + tm;
+  const int a0 = (((m0 / (ZB * YB)) * YS + (m0 / ZB) % YB) * ZS + m0 % ZB) * FK;
+
+  const int chunks = (Cin + FK - 1) / FK, steps = 3 * chunks;  // (dx, k-chunk)
+  // one stage: the box for dx and the chunk, rows zero-filled outside the
+  // grid (SAME padding) and past Cin; the chunk's 9 x FK weight rows
+  auto load = [&](int st, float* buf) {
+    const int dx = st / chunks, ci0 = (st - dx * chunks) * FK;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    if (tid < BK) {
-      const int k = k0 + tid;
-      if (k < K) {
-        const int tap = k / Cin;
-        kci[tid] = k - tap * Cin;
-        kdx[tid] = tap / 9 - 1;
-        kdy[tid] = (tap / 3) % 3 - 1;
-        kdz[tid] = tap % 3 - 1;
-      } else {
-        kci[tid] = 0;
-        kdx[tid] = -(1 << 20);  // out of the grid: contributes zero
-        kdy[tid] = 0;
-        kdz[tid] = 0;
+    for (int q0 = 0; q0 < FK / 4 * ROWS; q0 += NT) {  // FK / 4 copies a row
+      const int q = q0 + tid;
+      if (q < FK / 4 * ROWS) {
+        const int row = q / (FK / 4), ci = ci0 + 4 * (q % (FK / 4));
+        const int bz = row % ZS, by = (row / ZS) % YS, bx = row / (ZS * YS);
+        const int gx = x0 + bx + dx - 1, gy = y0 + by - 1, gz = z0 + bz - 1;
+        const bool in = (unsigned)gx < (unsigned)R && (unsigned)gy < (unsigned)R &&
+                        (unsigned)gz < (unsigned)R && ci < Cin;
+        p2pb::cp_async16(buf + row * FK + 4 * (q % (FK / 4)),
+                         in ? xb + ((size_t)(gx * R + gy) * R + gz) * Cin + ci : x, in);
       }
     }
-    __syncthreads();
+    float* bs = buf + A_FLOATS;
 #pragma unroll
-    for (int e = tid; e < BM * BK; e += NT) {
-      const int kk = e % BK, m = e / BK;
-      const int sx = vx[m] + kdx[kk], sy = vy[m] + kdy[kk],
-                sz = vz[m] + kdz[kk];
-      float val = 0.0f;
-      if (sx >= 0 && sx < R && sy >= 0 && sy < R && sz >= 0 && sz < R)
-        val = xb[((size_t)(sx * R + sy) * R + sz) * Cin + kci[kk]];
-      As[kk][m] = val;
+    for (int q0 = 0; q0 < 9 * FK * N / 4; q0 += NT) {
+      const int q = q0 + tid;
+      if (q < 9 * FK * N / 4) {
+        const int n4 = q % (N / 4), k = (q / (N / 4)) % FK, tap = q / (N / 4 * FK);
+        const int ci = ci0 + k;
+        p2pb::cp_async16(
+            bs + (tap * FK + k) * N + 4 * n4,
+            ci < Cin ? w + ((size_t)(dx * 9 + tap) * Cin + ci) * Cout + n0 + 4 * n4 : w,
+            ci < Cin);
+      }
     }
-#pragma unroll
-    for (int e = tid; e < BK * BN; e += NT) {
-      const int nn = e % BN, kk = e / BN;
-      const int k = k0 + kk, n = n0 + nn;
-      Bs[kk][nn] = (k < K && n < Cout) ? w[(size_t)k * Cout + n] : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[kk][tm * 4]);
-      const float4 bb = *reinterpret_cast<const float4*>(&Bs[kk][tn * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {bb.x, bb.y, bb.z, bb.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
+    p2pb::cp_async_commit();
+  };
 
-  float* yb = y + (size_t)b * V * Cout;
+  float acc[8][4 * NJ];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int n = n0 + tn * 4 + j;
-    float s = 0.0f, s2 = 0.0f;
-    if (n < Cout) {
-      const float bn = bias[n];
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int m = m0 + tm * 4 + i;
-        if (m < V) {
-          const float val = acc[i][j] + bn;
-          yb[(size_t)m * Cout + n] = val;
-          s += val;
-          s2 += val * val;
+    for (int j = 0; j < 4 * NJ; ++j) acc[i][j] = 0.0f;
+
+  load(0, fsmem);
+  for (int st = 0; st < steps; ++st) {
+    // this stage has landed for every thread, and every thread is done with
+    // the other buffer: fill it with the next stage while this one computes
+    p2pb::cp_async_wait_all();
+    __syncthreads();
+    if (st + 1 < steps) load(st + 1, fsmem + ((st + 1) & 1) * STAGE_FLOATS);
+    const float* as = fsmem + (st & 1) * STAGE_FLOATS + a0;
+    const float* bs = fsmem + (st & 1) * STAGE_FLOATS + A_FLOATS + col0;
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {  // (dy, dz)
+      const float* at = as + ((tap / 3) * ZS + tap % 3) * FK;
+      const float* bt = bs + tap * FK * N;
+#pragma unroll
+      for (int kq = 0; kq < FK / 4; ++kq) {
+        float4 a[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          a[i] = *reinterpret_cast<const float4*>(at + (4 * i + 2 * (4 * i / ZB)) * FK + 4 * kq);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          float bv[4 * NJ];
+#pragma unroll
+          for (int g = 0; g < NJ; ++g) {
+            const float4 b4 = *reinterpret_cast<const float4*>(bt + (4 * kq + kk) * N + 32 * g);
+            bv[4 * g] = b4.x;
+            bv[4 * g + 1] = b4.y;
+            bv[4 * g + 2] = b4.z;
+            bv[4 * g + 3] = b4.w;
+          }
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const float av = kk == 0 ? a[i].x : kk == 1 ? a[i].y : kk == 2 ? a[i].z : a[i].w;
+#pragma unroll
+            for (int j = 0; j < 4 * NJ; ++j) acc[i][j] = fmaf(av, bv[j], acc[i][j]);
+          }
         }
       }
     }
-    cs[tm][tn * 4 + j] = s;
-    cs2[tm][tn * 4 + j] = s2;
+  }
+
+  // epilogue: y = acc + bias in f32, stored as float4 rows of 16 bytes; per
+  // 4-column group the sums over the thread's 8 rows, then over the warp's
+  // 32 (lane bits 3-4), then a fixed order over the WM warps of a column
+  float* yt = y + ((size_t)b * R * R * R + v0) * Cout + n0;
+#pragma unroll
+  for (int g = 0; g < NJ; ++g) {
+    const int col = col0 + 32 * g;
+    const float* bc = bias + n0 + col;
+    const float4 bn = make_float4(__ldg(bc), __ldg(bc + 1), __ldg(bc + 2), __ldg(bc + 3));
+    float s1 = 0.0f, s2 = 0.0f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float4 v = make_float4(acc[i][4 * g] + bn.x, acc[i][4 * g + 1] + bn.y,
+                                   acc[i][4 * g + 2] + bn.z, acc[i][4 * g + 3] + bn.w);
+      *reinterpret_cast<float4*>(yt + (size_t)(32 * wm + tm + 4 * i) * Cout + col) = v;
+      s1 += (v.x + v.y) + (v.z + v.w);
+      s2 += (v.x * v.x + v.y * v.y) + (v.z * v.z + v.w * v.w);
+    }
+    s1 += __shfl_xor_sync(0xffffffffu, s1, 8);
+    s2 += __shfl_xor_sync(0xffffffffu, s2, 8);
+    s1 += __shfl_xor_sync(0xffffffffu, s1, 16);
+    s2 += __shfl_xor_sync(0xffffffffu, s2, 16);
+    if (tm == 0) {
+      red[wm][col / 4][0] = s1;
+      red[wm][col / 4][1] = s2;
+    }
   }
   __syncthreads();
-
-  // one deterministic partial per (cloud, group) for this block; groups the
-  // tile does not touch get zeros so phase 2 can sum every slot
-  const int gs = Cout / groups;
-  const int tiles = gridDim.x * gridDim.y;
-  const int tile = mt * gridDim.y + nt;
-  for (int g = tid; g < groups; g += NT) {
-    const int lo = max(n0, g * gs), hi = min(min(n0 + BN, (g + 1) * gs), Cout);
-    double s = 0.0, s2 = 0.0;
-    for (int r = 0; r < 16; ++r)
-      for (int n = lo; n < hi; ++n) {
-        s += (double)cs[r][n - n0];
-        s2 += (double)cs2[r][n - n0];
+  if (tid < SLOTS) {
+    constexpr int G4 = N / SLOTS / 4;  // 4-column groups of a slot
+    double s = 0.0, q = 0.0;
+    for (int r = 0; r < WM; ++r)
+      for (int c = 0; c < G4; ++c) {
+        s += (double)red[r][tid * G4 + c][0];
+        q += (double)red[r][tid * G4 + c][1];
       }
-    double* pp = partials + (((size_t)b * groups + g) * tiles + tile) * 2;
+    // [cloud][slot of the cloud][tile], as the bf16 kernel writes them
+    double* pp = partials + (((size_t)b * SLOTS * CT + nt * SLOTS + tid) * T + tile) * 2;
     pp[0] = s;
-    pp[1] = s2;
+    pp[1] = q;
   }
 }
-
-
 
 // ---- bf16: TMA + wgmma -----------------------------------------------------
 constexpr int WTHREADS = 2 * 128 + 32;  // two consumer warpgroups + a producer warp
 constexpr int MAX_STAGES = 8;
-constexpr int SLOTS = 8;                // GroupNorm partials a tile: N / 8 channels each
-constexpr int MAX_DEVICES = 16;         // cards whose launch state is cached
 
 template <int N, int CK, int MB>
 __global__ void __launch_bounds__(WTHREADS, N <= 64 && MB == 1 ? 2 : 1)
@@ -440,19 +522,18 @@ __global__ void gn_apply_bf16_kernel(p2pb::bf16* y, const float* __restrict__ st
 }
 
 // ---- host ------------------------------------------------------------------
-// the bf16 kernel's channel tile: the widest of 256, 128, 64, 32 that divides Cout
-int n_tile(int Cout) {
-  int n = 256;
+// a kernel's channel tile: the widest of 256 (bf16 only), 128, 64, 32 that
+// divides Cout
+int n_tile(int Cout, int bf16) {
+  int n = bf16 ? 256 : 128;
   while (n > 32 && Cout % n) n /= 2;
   return n;
 }
 
-// partials of one (cloud, group): the bf16 kernel writes one per voxel tile
-// and slot of N / 8 channels (the most: 128-voxel tiles), the f32 kernel one
-// per 64 x 64 block
+// partials of one (cloud, group): one per 128-voxel tile and slot of N / 8
+// channels (the bf16 kernel's 256-voxel tiles write half as many)
 int partials_per_group(int R, int Cout, int groups, int bf16) {
-  if (bf16) return Cout / groups / (n_tile(Cout) / SLOTS) * (R * R * R / 128);
-  return ((R * R * R + BM - 1) / BM) * ((Cout + BN - 1) / BN);
+  return Cout / groups / (n_tile(Cout, bf16) / SLOTS) * (R * R * R / 128);
 }
 
 // scratch: the partials (double), then the statistics (f32)
@@ -499,13 +580,6 @@ bool tensor_map(CUtensorMap* map, const void* base, int rank,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
-
-// the 128 MB voxels of a tile as a box: z fastest, then y, then x
-struct Box {
-  int zb, yb, xb;
-  Box(int R, int bm) : zb(R < bm ? R : bm), yb(R < bm / zb ? R : bm / zb), xb(bm / (zb * yb)) {}
-  int halo_rows() const { return zb * (yb + 2) * xb; }  // with a y halo
-};
 
 // shared memory of one block: two blocks an SM for N <= 64 with MB = 1
 int smem_budget(int N, int MB) { return (N <= 64 && MB == 1 ? 110 : 225) * 1024; }
@@ -596,6 +670,42 @@ int launch_n(const void* x, const void* wt, const float* bias, int B, int R, int
   return (int)cudaErrorInvalidValue;
 }
 
+// The f32 kernel: one block per (cloud, voxel tile, channel tile), channel
+// tiles fastest (they share the tile's input boxes in L2); two stages of
+// shared memory, whose limit is set once per card.
+template <int N, int R>
+int launch_ffma(const float* x, const float* w, const float* bias, int B, int Cin, int Cout,
+                float* y, double* partials, cudaStream_t s) {
+  int dev = 0, sms = 0;
+  int err = current_card(&dev, &sms);
+  if (err) return err;
+  constexpr int smem = 2 * ffma_stage_bytes(R, N);
+  auto kernel = conv_ffma_kernel<N, R>;
+  static bool limit_set[MAX_DEVICES];
+  if (!limit_set[dev]) {
+    err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err) return err;
+    limit_set[dev] = true;
+  }
+  const long long blocks = (long long)B * (R * R * R / FM) * (Cout / N);
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, ffma_threads(N), smem, s>>>(x, w, bias, Cin, Cout, y, partials);
+  return (int)cudaGetLastError();
+}
+
+// The f32 kernel's R (8, 16 or 32: every shipped config's) and N (32, 64 or
+// 128); each (N, R) is a fully unrolled instance, so the list stays short.
+template <int N>
+int launch_ffma_r(const float* x, const float* w, const float* bias, int B, int R, int Cin,
+                  int Cout, float* y, double* partials, cudaStream_t s) {
+  switch (R) {
+    case 8: return launch_ffma<N, 8>(x, w, bias, B, Cin, Cout, y, partials, s);
+    case 16: return launch_ffma<N, 16>(x, w, bias, B, Cin, Cout, y, partials, s);
+    case 32: return launch_ffma<N, 32>(x, w, bias, B, Cin, Cout, y, partials, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 P2PB_API long long p2pb_conv3d_gn_scratch_bytes(int B, int R, int Cout,
@@ -604,12 +714,14 @@ P2PB_API long long p2pb_conv3d_gn_scratch_bytes(int B, int R, int Cout,
 }
 
 // gamma/beta hold [C] (affine_per_cloud = 0) or [B, C] (= 1).
-// f32 (bf16 = 0): x [B, R, R, R, Cin], w [3, 3, 3, Cin, Cout] (DHWIO).
+// Both: Cout % 32 == 0, a GroupNorm group of whole slots (Cout / groups a
+// multiple of n_tile(Cout, bf16) / 8), R a power of two >= 8, x and w
+// 16-byte aligned.
+// f32 (bf16 = 0): x [B, R, R, R, Cin] with Cin % 4 == 0 (16-byte rows) and
+// R <= 32, w [3, 3, 3, Cin, Cout] (DHWIO).
 // bf16 (bf16 = 1): x [B, R, R, R, Cin] with Cin % 32 == 0, w [3 (dx),
 // 3 (dz), 3 (dy), Cout, Cin] (the DHWIO weight with dy and dz swapped and
-// every tap transposed: K-major B tiles), Cout % 32 == 0, a group of
-// whole slots (Cout / groups a multiple of n_tile(Cout) / 8), R a power
-// of two >= 8; x and w 16-byte aligned.
+// every tap transposed: K-major B tiles).
 P2PB_API int p2pb_conv3d_gn(const void* x, const void* w, const void* bias,
                             const void* gamma, const void* beta,
                             int affine_per_cloud, int B, int R, int Cin,
@@ -620,13 +732,14 @@ P2PB_API int p2pb_conv3d_gn(const void* x, const void* w, const void* bias,
   int T = partials_per_group(R, Cout, groups, bf16);  // the bf16 kernel may use fewer
   double* partials = (double*)scratch;
   float* stats = (float*)(partials + (size_t)B * groups * T * 2);
+  const int n = n_tile(Cout, bf16);
+  if (Cout % 32 || Cout % groups || (Cout / groups) % (n / SLOTS) || R < 8 || (R & (R - 1)) ||
+      Cin % (bf16 ? 32 : 4))
+    return (int)cudaErrorInvalidValue;
+  const float* bs = (const float*)bias;
   int err;
   if (bf16) {
-    const int n = n_tile(Cout);
-    if (Cout % 32 || Cout % groups || (Cout / groups) % (n / SLOTS) || R < 8 || (R & (R - 1)))
-      return (int)cudaErrorInvalidValue;
     p2pb::bf16* yb = (p2pb::bf16*)y;
-    const float* bs = (const float*)bias;
     int tiles = 0;  // voxel tiles of a cloud
     switch (n) {
       case 32: err = launch_n<32>(x, w, bs, B, R, Cin, Cout, yb, partials, &tiles, s); break;
@@ -636,10 +749,14 @@ P2PB_API int p2pb_conv3d_gn(const void* x, const void* w, const void* bias,
     }
     T = Cout / groups / (n / SLOTS) * tiles;  // slots of a group x voxel tiles
   } else {
-    conv_tile_kernel<<<dim3((R * R * R + BM - 1) / BM, (Cout + BN - 1) / BN, B), NT, 0, s>>>(
-        (const float*)x, (const float*)w, (const float*)bias, R, Cin, Cout, groups,
-        (float*)y, partials);
-    err = (int)cudaGetLastError();
+    const float* xf = (const float*)x;
+    const float* wf = (const float*)w;
+    float* yf = (float*)y;
+    switch (n) {
+      case 32: err = launch_ffma_r<32>(xf, wf, bs, B, R, Cin, Cout, yf, partials, s); break;
+      case 64: err = launch_ffma_r<64>(xf, wf, bs, B, R, Cin, Cout, yf, partials, s); break;
+      default: err = launch_ffma_r<128>(xf, wf, bs, B, R, Cin, Cout, yf, partials, s); break;
+    }
   }
   if (err) return err;
   const int V = R * R * R;

@@ -1,12 +1,13 @@
-// K5: furthest point sampling, [B, N, 3] f32 -> [B, M] int32, by two
-// kernels: fps_kernel (one block per cloud) for the backbone's SA stages and
-// the bucketed recombination (many clouds of at most a few thousand points),
+// K5: furthest point sampling, [B, N, 3] f32 -> [B, M] int32, by three
+// kernels: fps_warp_kernel (one warp per cloud, N <= 1024) and fps_kernel
+// (one block per cloud, N < 16,384) for the backbone's SA stages and the
+// bucketed recombination (many clouds of at most a few thousand points),
 // and fps_cluster_kernel (one 16-CTA thread block cluster per cloud) for
 // large N, the exact recombination (149,504 -> 50,000) and the seeding.
 //
 // Replaces p2p_bridge_tpu/ops/pallas/fps_kernel.py:furthest_point_sample_pallas
-// (_fps_kernel batched; _fps_kernel_single, which the JAX package takes for
-// N >= 16384, by fps_cluster_kernel).
+// (_fps_kernel batched, by fps_warp_kernel and fps_kernel; _fps_kernel_single,
+// which the JAX package takes for N >= 16384, by fps_cluster_kernel).
 //
 // Semantics (p2p_bridge_tpu/ops/fps.py:_furthest_point_sample_xla): the first
 // index is 0, the running point-to-set distance starts at FLT_MAX, and every
@@ -14,13 +15,30 @@
 //
 // What bounds it on the H100: the M-1 iterations are serially dependent, so a
 // cloud cannot be split across iterations; each iteration is a pass over N
-// distances plus an argmax over all of them, i.e. latency (barriers and
-// reductions) at patch size and on-chip bandwidth at N = 149,504.
-// fps_kernel: one block per cloud. Distances live in shared memory when
-// N * 4 B fits (and the coordinates too when N * 16 B fits); otherwise in a
-// global scratch row that stays resident in the 50 MB L2. The argmax is a
-// warp shuffle reduction followed by one warp over the per-warp winners.
-// fps_cluster_kernel: see below.
+// distances plus an argmax over all of them. At patch size (N <= 4096, some
+// 10 FP32 operations a point) the pass is a few hundred cycles of one SM, so
+// an iteration's time is the latency of its reductions and barriers, not its
+// operations.
+//
+// Every kernel holds a thread's points, k * T + t for its thread t of T,
+// coordinates and running distance in registers, and scans them in k order
+// with a strict >, so each thread offers its lowest-index maximum. An argmax
+// over lanes is two redux.sync: the largest distance bits (distances are
+// >= 0, so their bits order as the values), then the lowest index among the
+// lanes holding it. The winning lane's coordinates travel with the winner by
+// shuffle (lane = index % 32), so no iteration waits on a dependent load.
+//  - fps_warp_kernel, N <= 1024: one warp per cloud, up to 32 points a lane;
+//    an iteration is the pass, one warp argmax and three shuffles: no block
+//    barrier at all.
+//  - fps_kernel, 1024 < N < 16,384: one block of T = 128..1024 threads, 8
+//    points a thread in registers (points past 8 T, N above 8,192, keep
+//    coordinates and distance in shared memory). One __syncthreads an
+//    iteration: each warp writes its winner (distance, x, y, z, index) into
+//    its slot of a table double-buffered by iteration parity; after the
+//    barrier every warp reduces the table itself, so all warps agree on the
+//    winner without a second barrier. The table [j & 1] is written again at
+//    iteration j + 2, after barrier j + 1, which no warp passes before it
+//    has read the table at iteration j.
 #include <cfloat>
 #include <climits>
 
@@ -29,89 +47,177 @@
 
 namespace {
 
-constexpr int kSmemBudget = 200 * 1024;
+constexpr unsigned kAll = 0xffffffffu;
+constexpr unsigned kNone = 0xffffffffu;  // the index of no point: loses every tie
+constexpr int MAX_DEVICES = 16;  // cards whose attributes are set
+constexpr int kBlockPPT = 8;     // fps_kernel: points a thread holds in registers
+constexpr int kBlockMaxPoints = 16383;  // fps_kernel's largest cloud
+constexpr int kWarpMaxPoints = 1024;    // fps_warp_kernel's largest cloud
 
-__device__ __forceinline__ void take_max(float& v, int& i, float ov, int oi) {
-  if (ov > v || (ov == v && oi < i)) {
-    v = ov;
-    i = oi;
+// The argmax of (distance bits v, index i) over the warp's lanes, ties to
+// the lowest index; every lane gets it.
+__device__ __forceinline__ void argmax(unsigned& v, unsigned& i) {
+  const unsigned best = __reduce_max_sync(kAll, v);
+  i = __reduce_min_sync(kAll, v == best ? i : kNone);
+  v = best;
+}
+
+// Points k * T + t (k < PPT) of a cloud into thread t's registers; a slot
+// past the cloud gets distance -1, below every real one, so it never wins.
+template <int PPT>
+__device__ __forceinline__ void load_points(const float* p, int N, int T, int t,
+                                            float (&px)[PPT], float (&py)[PPT],
+                                            float (&pz)[PPT], float (&pd)[PPT]) {
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {
+    const int i = k * T + t;
+    const bool in = i < N;
+    px[k] = in ? p[3 * i] : 0.0f;
+    py[k] = in ? p[3 * i + 1] : 0.0f;
+    pz[k] = in ? p[3 * i + 2] : 0.0f;
+    pd[k] = in ? FLT_MAX : -1.0f;
   }
 }
 
-__global__ void fps_kernel(const float* __restrict__ pts, int N, int M,
-                           float* __restrict__ gdist, int dist_in_smem,
-                           int pts_in_smem, int32_t* __restrict__ out) {
-  extern __shared__ float smem[];
-  __shared__ float red_v[32];
-  __shared__ int red_i[32];
-  __shared__ int s_last;
-
-  const int b = blockIdx.x;
-  const float* p = pts + (size_t)b * N * 3;
-  float* dist = dist_in_smem ? smem + (pts_in_smem ? 3 * N : 0)
-                             : gdist + (size_t)b * N;
-  const float* P = pts_in_smem ? smem : p;
-  int32_t* o = out + (size_t)b * M;
-
-  for (int i = threadIdx.x; i < N; i += blockDim.x) {
-    if (pts_in_smem) {
-      smem[3 * i] = p[3 * i];
-      smem[3 * i + 1] = p[3 * i + 1];
-      smem[3 * i + 2] = p[3 * i + 2];
+// The pass of one iteration over a thread's registers against the last
+// pick (lx, ly, lz): running distances updated, the thread's best distance
+// bv and its k (strict >: the lowest k, i.e. the lowest index, of a tie).
+template <int PPT>
+__device__ __forceinline__ void pass(float (&px)[PPT], float (&py)[PPT], float (&pz)[PPT],
+                                     float (&pd)[PPT], float lx, float ly, float lz,
+                                     float& bv, int& bk) {
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {
+    const float dd = fminf(pd[k], p2pb::sqdist3(px[k] - lx, py[k] - ly, pz[k] - lz));
+    pd[k] = dd;
+    if (dd > bv) {
+      bv = dd;
+      bk = k;
     }
-    dist[i] = FLT_MAX;
   }
-  if (threadIdx.x == 0) {
-    o[0] = 0;
-    s_last = 0;
+}
+
+// Register k of a thread's points, selected without local memory.
+template <int PPT>
+__device__ __forceinline__ float pick(const float (&a)[PPT], int k) {
+  float r = a[0];
+#pragma unroll
+  for (int q = 1; q < PPT; ++q) r = k == q ? a[q] : r;
+  return r;
+}
+
+template <int PPT>
+__global__ void __launch_bounds__(32)
+    fps_warp_kernel(const float* __restrict__ pts, int N, int M, int32_t* __restrict__ out) {
+  const int b = blockIdx.x, lane = threadIdx.x;
+  const float* p = pts + (size_t)b * N * 3;
+  int32_t* o = out + (size_t)b * M;
+  float px[PPT], py[PPT], pz[PPT], pd[PPT];
+  load_points<PPT>(p, N, 32, lane, px, py, pz, pd);
+  float lx = p[0], ly = p[1], lz = p[2];
+  if (lane == 0) o[0] = 0;
+  for (int j = 1; j < M; ++j) {
+    float bv = -1.0f;
+    int bk = 0;
+    pass<PPT>(px, py, pz, pd, lx, ly, lz, bv, bk);
+    const float wx = pick<PPT>(px, bk), wy = pick<PPT>(py, bk), wz = pick<PPT>(pz, bk);
+    // lane 0 holds point 0, so some lane offers a real point
+    unsigned v = bv >= 0.0f ? __float_as_uint(bv) : 0u;
+    unsigned i = bv >= 0.0f ? (unsigned)(bk * 32 + lane) : kNone;
+    argmax(v, i);
+    lx = __shfl_sync(kAll, wx, i & 31);
+    ly = __shfl_sync(kAll, wy, i & 31);
+    lz = __shfl_sync(kAll, wz, i & 31);
+    if (lane == 0) o[j] = (int32_t)i;
   }
+}
+
+__global__ void __launch_bounds__(1024)
+    fps_kernel(const float* __restrict__ pts, int N, int M, int32_t* __restrict__ out) {
+  constexpr int PPT = kBlockPPT;
+  extern __shared__ float spill[];  // x, y, z, distance [N - PPT T] each
+  __shared__ float4 slot_v[2][32];  // distance bits, x, y, z of each warp's winner
+  __shared__ unsigned slot_i[2][32];  // its index
+
+  const int b = blockIdx.x, T = blockDim.x, t = threadIdx.x;
+  const int lane = t & 31, warp = t >> 5, nwarps = T >> 5;
+  const float* p = pts + (size_t)b * N * 3;
+  int32_t* o = out + (size_t)b * M;
+  const int held = PPT * T, extra = max(0, N - held);
+  float* sx = spill;
+  float* sy = spill + extra;
+  float* sz = spill + 2 * extra;
+  float* sd = spill + 3 * extra;
+
+  float px[PPT], py[PPT], pz[PPT], pd[PPT];
+  load_points<PPT>(p, N, T, t, px, py, pz, pd);
+  for (int li = t; li < extra; li += T) {  // point held + li = (PPT + li / T) T + t
+    const float* q = p + 3 * (size_t)(held + li);
+    sx[li] = q[0];
+    sy[li] = q[1];
+    sz[li] = q[2];
+    sd[li] = FLT_MAX;
+  }
+  float lx = p[0], ly = p[1], lz = p[2];
+  if (t == 0) o[0] = 0;
   __syncthreads();
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
   for (int j = 1; j < M; ++j) {
-    const int last = s_last;
-    const float lx = P[3 * last], ly = P[3 * last + 1], lz = P[3 * last + 2];
+    const int par = j & 1;
     float bv = -1.0f;
-    int bi = 0x7fffffff;
-    for (int i = threadIdx.x; i < N; i += blockDim.x) {
-      const float d =
-          p2pb::sqdist3(P[3 * i] - lx, P[3 * i + 1] - ly, P[3 * i + 2] - lz);
-      const float dd = fminf(dist[i], d);
-      dist[i] = dd;
-      if (dd > bv) {  // i grows, so strict > keeps the lowest index
+    int bk = 0;
+    pass<PPT>(px, py, pz, pd, lx, ly, lz, bv, bk);
+    unsigned bi = (unsigned)(bk * T + t);
+    float wx = pick<PPT>(px, bk), wy = pick<PPT>(py, bk), wz = pick<PPT>(pz, bk);
+    for (int li = t; li < extra; li += T) {  // indices above every register's
+      const float dd = fminf(sd[li], p2pb::sqdist3(sx[li] - lx, sy[li] - ly, sz[li] - lz));
+      sd[li] = dd;
+      if (dd > bv) {
         bv = dd;
-        bi = i;
+        bi = (unsigned)(held + li);
+        wx = sx[li];
+        wy = sy[li];
+        wz = sz[li];
       }
     }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_down_sync(0xffffffffu, bv, off);
-      const int oi = __shfl_down_sync(0xffffffffu, bi, off);
-      take_max(bv, bi, ov, oi);
-    }
+    unsigned v = bv >= 0.0f ? __float_as_uint(bv) : 0u;
+    unsigned i = bv >= 0.0f ? bi : kNone;
+    argmax(v, i);
+    // the winner's lane is its index % 32 (T is a multiple of 32); a warp
+    // without points offers bits 0 and no index
+    wx = __shfl_sync(kAll, wx, i & 31);
+    wy = __shfl_sync(kAll, wy, i & 31);
+    wz = __shfl_sync(kAll, wz, i & 31);
     if (lane == 0) {
-      red_v[warp] = bv;
-      red_i[warp] = bi;
+      slot_v[par][warp] = make_float4(__uint_as_float(v), wx, wy, wz);
+      slot_i[par][warp] = i;
     }
     __syncthreads();
-    if (warp == 0) {
-      bv = lane < nwarps ? red_v[lane] : -1.0f;
-      bi = lane < nwarps ? red_i[lane] : 0x7fffffff;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ov = __shfl_down_sync(0xffffffffu, bv, off);
-        const int oi = __shfl_down_sync(0xffffffffu, bi, off);
-        take_max(bv, bi, ov, oi);
-      }
-      if (lane == 0) {
-        s_last = bi;
-        o[j] = bi;
-      }
-    }
-    __syncthreads();
+    const unsigned sent = lane < nwarps ? slot_i[par][lane] : kNone;
+    v = lane < nwarps ? __float_as_uint(slot_v[par][lane].x) : 0u;
+    i = sent;
+    argmax(v, i);
+    const float4 w = slot_v[par][__ffs(__ballot_sync(kAll, sent == i)) - 1];
+    lx = w.y;
+    ly = w.z;
+    lz = w.w;
+    if (t == 0) o[j] = (int32_t)i;
   }
+}
+
+// fps_kernel's threads for N: the fewest of 128, 256, 512 and 1024 whose
+// registers hold the cloud, else 1024 and shared memory for the rest.
+int block_threads(int N) {
+  int T = 128;
+  while (T < 1024 && T * kBlockPPT < N) T *= 2;
+  return T;
+}
+
+// fps_warp_kernel's points a lane: the fewest of 1, 2, 4, ..., 32 that hold N.
+int warp_ppt(int N) {
+  int ppt = 1;
+  while (ppt * 32 < N) ppt *= 2;
+  return ppt;
 }
 
 // fps_cluster_kernel: one cluster of 16 CTAs per cloud, 512 threads each. CTA
@@ -148,17 +254,6 @@ constexpr int kClusterThreads = 512;
 constexpr int kClusterWarps = kClusterThreads / 32;
 constexpr int kMaxPPT = 20;  // registers: 4 * 20 of a 512-thread block's 128
 constexpr int kWinnerBytes = 20;  // distance, x, y, z, index
-constexpr int MAX_DEVICES = 16;  // cards whose attributes are set
-constexpr unsigned kAll = 0xffffffffu;
-constexpr unsigned kNone = 0xffffffffu;  // the index of no point: loses every tie
-
-// The argmax of (distance bits v, index i) over the warp's lanes, ties to
-// the lowest index; every lane gets it.
-__device__ __forceinline__ void argmax(unsigned& v, unsigned& i) {
-  const unsigned best = __reduce_max_sync(kAll, v);
-  i = __reduce_min_sync(kAll, v == best ? i : kNone);
-  v = best;
-}
 
 template <int PPT>
 __global__ void __launch_bounds__(kClusterThreads, 1)
@@ -337,24 +432,37 @@ int launch_cluster(const float* pts, int B, int N, int M, float* spill, int32_t*
 
 }  // namespace
 
-// Bytes of global scratch the caller must pass for this shape (0: none).
-P2PB_API long long p2pb_fps_scratch_bytes(int B, int N) {
-  return (long long)N * 4 <= kSmemBudget ? 0 : (long long)B * N * 4;
-}
-
-P2PB_API int p2pb_fps(const void* pts, int B, int N, int M, void* scratch,
-                      void* out, int device, void* stream) {
+// pts [B, N, 3] f32, out [B, M] int32, 1 <= M <= N <= 16,383: one warp
+// per cloud up to 1,024 points, else one block.
+P2PB_API int p2pb_fps(const void* pts, int B, int N, int M, void* out, int device,
+                      void* stream) {
   P2PB_ON_DEVICE(device);
-  const int pts_in_smem = (long long)N * 16 <= kSmemBudget;
-  const int dist_in_smem = (long long)N * 4 <= kSmemBudget;
-  const size_t smem = (pts_in_smem ? (size_t)N * 16
-                                   : (dist_in_smem ? (size_t)N * 4 : 0));
-  cudaFuncSetAttribute(fps_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       kSmemBudget);
-  const int threads = N <= 4096 ? 512 : 1024;
-  fps_kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
-      (const float*)pts, N, M, (float*)scratch, dist_in_smem, pts_in_smem,
-      (int32_t*)out);
+  if (N < 1 || N > kBlockMaxPoints || M < 1 || M > N) return (int)cudaErrorInvalidValue;
+  const float* p = (const float*)pts;
+  int32_t* o = (int32_t*)out;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (N <= kWarpMaxPoints) {
+    switch (warp_ppt(N)) {
+#define P2PB_WARP(ppt) \
+  case ppt: fps_warp_kernel<ppt><<<B, 32, 0, s>>>(p, N, M, o); break;
+      P2PB_WARP(1) P2PB_WARP(2) P2PB_WARP(4) P2PB_WARP(8) P2PB_WARP(16) P2PB_WARP(32)
+#undef P2PB_WARP
+    }
+    return (int)cudaGetLastError();
+  }
+  const int T = block_threads(N);
+  const int extra = N - kBlockPPT * T;
+  // once per card: room in shared memory for the largest cloud's spill
+  static bool ready[MAX_DEVICES];
+  if (device < 0 || device >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (!ready[device]) {
+    const int err = (int)cudaFuncSetAttribute(
+        fps_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        16 * (kBlockMaxPoints - kBlockPPT * 1024));
+    if (err) return err;
+    ready[device] = true;
+  }
+  fps_kernel<<<B, T, extra > 0 ? 16 * (size_t)extra : 0, s>>>(p, N, M, o);
   return (int)cudaGetLastError();
 }
 

@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks for the hand-written kernels: mbarriers,
-// TMA tile loads, cluster barriers and distributed shared memory, and
+// cp.async copies, TMA tile loads, cluster barriers and distributed shared memory, and
 // warpgroup MMAs (wgmma), as inline PTX.
 //
 // Shared-memory operands of wgmma are K-major tiles written by TMA with the
@@ -53,6 +53,22 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t by
                    smem_addr(bar)),
                "r"(bytes)
                : "memory");
+}
+
+// ---- cp.async: 16-byte copies from global to shared memory ------------------
+// Copy 16 bytes from src to dst, or zero-fill dst where `valid` is false
+// (no byte is read then; src must still be a valid address).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until every copy this thread issued has landed.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // ---- TMA: tiled loads, out-of-bounds elements zero-filled -------------------

@@ -49,8 +49,7 @@ _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlo
 _SIGNATURES = {
     # name: (restype, argtypes); every launching entry ends with the card's
     # index and the stream, which launch() appends
-    "p2pb_fps": (_I, (_P, _I, _I, _I, _P, _P, _I, _P)),
-    "p2pb_fps_scratch_bytes": (_LL, (_I, _I)),
+    "p2pb_fps": (_I, (_P, _I, _I, _I, _P, _I, _P)),
     "p2pb_fps_cluster": (_I, (_P, _I, _I, _I, _P, _P, _I, _P)),
     "p2pb_fps_cluster_scratch_bytes": (_LL, (_I, _I)),
     "p2pb_ball_query_group": (_I, (_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P, _P, _I, _P)),

@@ -61,30 +61,54 @@ def conv3d_gn_plain(x, weight, bias, gamma, beta, groups=8, eps=1e-5, act=False)
     return y.to(x.dtype)
 
 
-def pad_channels(x, weight):
+def pad_channels(x, weight, multiple=32):
     """x [..., Cin] and weight [3, 3, 3, Cin, Cout] with zero channels added
-    up to a multiple of 32, as the bf16 kernel takes them (whole k-chunks;
-    TMA rows of 64 or 128 bytes). The convolution is the same: the added
-    products are 0."""
-    pad = -x.shape[-1] % 32
+    up to a multiple of ``multiple``: 32 for the bf16 kernel (whole
+    k-chunks; TMA rows of 64 or 128 bytes), 4 for the f32 kernel (16-byte
+    rows for its copies). The convolution is the same: the added products
+    are 0."""
+    pad = -x.shape[-1] % multiple
     if pad == 0:
         return x, weight
     return F.pad(x, (0, pad)), F.pad(weight, (0, 0, 0, pad))
 
 
-def check_wgmma_shape(R: int, cout: int, groups: int) -> None:
-    """Raise unless the bf16 kernel takes this shape: 128-voxel boxes of one
-    cloud (R a power of two >= 8) by channel tiles of N, the widest of 256,
-    128, 64, 32 that divides Cout, whose GroupNorm partials cover N / 8
-    channels each, so a group must be whole slots of N / 8."""
-    if R < 8 or R & (R - 1):
-        raise ValueError(f"bf16 conv3d_gn takes a power-of-two R >= 8, got {R}")
+# input channels of each kernel's rows: a multiple of this (pad_channels)
+CIN_MULTIPLE = {torch.bfloat16: 32, torch.float32: 4}
+
+
+# the f32 kernel is built for R = 8, 16 and 32 (every shipped config's)
+F32_MAX_R = 32
+
+
+def check_tile_shape(R: int, cout: int, groups: int, dtype: torch.dtype) -> None:
+    """Raise unless the kernel of ``dtype`` takes this shape: 128-voxel
+    boxes of one cloud (R a power of two >= 8, at most F32_MAX_R in f32) by
+    channel tiles of N, the widest of 256 (bf16 only), 128, 64, 32 that
+    divides Cout, whose GroupNorm partials cover N / 8 channels each, so a
+    group must be whole slots of N / 8 (the bf16 tile is the wider, so its
+    slots decide for both)."""
+    if R < 8 or R & (R - 1) or (dtype == torch.float32 and R > F32_MAX_R):
+        raise ValueError(f"conv3d_gn {dtype} takes a power-of-two R >= 8"
+                         f"{f' and <= {F32_MAX_R}' if dtype == torch.float32 else ''}, got {R}")
     if cout % 32:
-        raise ValueError(f"bf16 conv3d_gn takes Cout a multiple of 32, got {cout}")
+        raise ValueError(f"conv3d_gn takes Cout a multiple of 32, got {cout}")
     n = next(n for n in (256, 128, 64, 32) if cout % n == 0)
     if (cout // groups) % (n // 8):
-        raise ValueError(f"bf16 conv3d_gn: a group of Cout={cout} / groups={groups} "
+        raise ValueError(f"conv3d_gn: a group of Cout={cout} / groups={groups} "
                          f"channels is not a multiple of {n // 8}")
+
+
+def kernel_operands(x, weight):
+    """x and weight as K1's kernel for their dtype takes them: Cin padded
+    with zero channels to CIN_MULTIPLE (:func:`pad_channels`); the f32
+    kernel keeps the DHWIO weight [3, 3, 3, Cin, Cout], the bf16 kernel
+    takes it as [dx, dz, dy, Cout, Cin] (per (dx, dz) and k-chunk one TMA
+    box holds the K-major weight tiles of the three dy taps)."""
+    x, weight = pad_channels(x, weight, CIN_MULTIPLE[x.dtype])
+    if x.dtype == torch.bfloat16:
+        weight = weight.permute(0, 2, 1, 4, 3).contiguous()
+    return x, weight
 
 
 def conv3d_gn_reference(x, weight, bias, gamma, beta, groups=8, eps=1e-5, act=False):
@@ -108,15 +132,14 @@ def _conv3d_gn_cuda(x, weight, bias, gamma, beta, groups, eps, act):
     if cout % groups:
         raise ValueError(f"Cout={cout} is not a multiple of groups={groups}")
     bf16 = int(dt == torch.bfloat16)
-    if bf16:
-        check_wgmma_shape(R, cout, groups)
-        x, weight = pad_channels(x, weight)
-        if x.data_ptr() % 16:  # TMA reads from a 16-byte aligned base
-            x = x.clone()
-        cin = x.shape[-1]
-        # [dx, dz, dy, Cout, Cin]: per (dx, dz) and k-chunk one TMA box holds
-        # the K-major weight tiles of the three dy taps
-        weight = weight.permute(0, 2, 1, 4, 3).contiguous()
+    check_tile_shape(R, cout, groups, dt)
+    x, weight = kernel_operands(x, weight)
+    cin = x.shape[-1]
+    # both kernels read 16-byte rows from 16-byte aligned bases
+    if x.data_ptr() % 16:
+        x = x.clone()
+    if weight.data_ptr() % 16:
+        weight = weight.clone()
     y = torch.empty((B, R, R, R, cout), dtype=dt, device=dev)
     nbytes = kernels.entry_points()["p2pb_conv3d_gn_scratch_bytes"](B, R, cout, groups, bf16)
     scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)

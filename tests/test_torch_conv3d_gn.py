@@ -21,8 +21,9 @@ from p2p_bridge_tpu.ops.pallas.conv3d_kernel import kstack_conv3d_gn_pallas
 from p2p_bridge_tpu.ops.pallas.conv3d_kernel import supports as kstack_supports
 from p2p_bridge_tpu_torch import kernels
 from p2p_bridge_tpu_torch.models.unet_pvc import build_unet_from_config
-from p2p_bridge_tpu_torch.ops.conv3d_gn import (apply_group_norm, check_wgmma_shape, conv3d_gn,
-                                                conv3d_gn_plain, pad_channels)
+from p2p_bridge_tpu_torch.ops.conv3d_gn import (CIN_MULTIPLE, apply_group_norm, check_tile_shape,
+                                                conv3d_gn, conv3d_gn_plain, kernel_operands,
+                                                pad_channels)
 from p2p_bridge_tpu_torch.utils.config import load_yaml
 
 CONFIGS = Path(__file__).resolve().parent.parent / "configs"
@@ -255,16 +256,20 @@ def conv_shapes(config):
 
 @pytest.mark.parametrize("config", ["PVDS_PUNet.yaml", "PVDL_SNPP.yaml", "PVDL_ARKIT.yaml"])
 def test_bf16_kernel_takes_every_config_shape(config):
-    """The bf16 kernel serves every voxel conv of the shipped configs
-    (GroupNorm of 8 groups), Cout = 512 of the rooms models included, and
-    its wrapper refuses what the kernel cannot tile."""
+    """Both kernels (bf16 and f32) serve every voxel conv of the shipped
+    configs (GroupNorm of 8 groups), Cout = 512 of the rooms models
+    included, and the wrapper refuses what the kernels cannot tile."""
     shapes = conv_shapes(config)
     assert shapes
-    for R, cout in shapes:
-        check_wgmma_shape(R, cout, 8)
-    for R, cout, groups in ((24, 64, 8), (4, 64, 8), (8, 40, 8), (8, 64, 16), (8, 512, 32)):
-        with pytest.raises(ValueError):
-            check_wgmma_shape(R, cout, groups)
+    for dtype in (torch.bfloat16, torch.float32):
+        for R, cout in shapes:
+            check_tile_shape(R, cout, 8, dtype)
+        for R, cout, groups in ((24, 64, 8), (4, 64, 8), (8, 40, 8), (8, 64, 16), (8, 512, 32)):
+            with pytest.raises(ValueError):
+                check_tile_shape(R, cout, groups, dtype)
+    check_tile_shape(64, 64, 8, torch.bfloat16)
+    with pytest.raises(ValueError):  # the f32 kernel is built for R <= 32
+        check_tile_shape(64, 64, 8, torch.float32)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -286,3 +291,46 @@ def test_pad_channels_leaves_the_conv_unchanged(cin, dtype):
     want = conv3d_gn_plain(x, w, b, gamma, beta, act=True)
     got = conv3d_gn_plain(xp, wp, b, gamma, beta, act=True)
     assert got.dtype == dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cin", [35, 64, 67, 192])
+def test_kernel_operands_leave_the_conv_unchanged(cin, dtype):
+    """What the wrapper hands each kernel: x and weight padded with zero
+    channels to whole rows (35 -> 36 and 67 -> 68 in f32, 35 -> 64 and
+    67 -> 96 in bf16), the f32 weight in DHWIO as it came, the bf16 weight
+    as [dx, dz, dy, Cout, Cin]. Undoing the re-layout, the plain version on
+    the kernel's operands is bit-equal to the plain version on the inputs
+    (small integers: every sum exact in any order)."""
+    rng = np.random.default_rng(cin + 1)
+    x = torch.from_numpy(rng.integers(-2, 3, size=(2, 8, 8, 8, cin)).astype(np.float32)).to(dtype)
+    w = torch.from_numpy(rng.integers(-2, 3, size=(3, 3, 3, cin, 64)).astype(np.float32) / 8).to(dtype)
+    b = torch.from_numpy(rng.integers(-4, 5, size=(64,)).astype(np.float32))
+    gamma, beta = torch.ones(2, 64), torch.zeros(64)
+    xk, wk = kernel_operands(x, w)
+    cin_k = cin + -cin % CIN_MULTIPLE[dtype]
+    assert xk.dtype == wk.dtype == dtype and xk.shape[-1] == cin_k
+    assert wk.is_contiguous() and xk.is_contiguous()
+    if dtype == torch.bfloat16:
+        assert wk.shape == (3, 3, 3, 64, cin_k)
+        wk = wk.permute(0, 2, 1, 4, 3)  # back to DHWIO
+    assert wk.shape == (3, 3, 3, cin_k, 64)
+    assert not xk[..., cin:].any() and not wk[:, :, :, cin:].any()
+    assert torch.equal(wk[:, :, :, :cin], w) and torch.equal(xk[..., :cin], x)
+    want = conv3d_gn_plain(x, w, b, gamma, beta, act=True)
+    assert torch.equal(conv3d_gn_plain(xk, wk, b, gamma, beta, act=True), want)
+
+
+@pytest.mark.parametrize("R,cin,cout", [(8, 35, 32), (8, 67, 64)])
+def test_f32_kernel_operands_match_xla(R, cin, cout):
+    """The f32 kernel's operands (Cin padded to a multiple of 4) through
+    the plain version agree with the JAX package's conv + GroupNorm on the
+    unpadded inputs."""
+    x, k, b, gamma, beta = inputs(2, R, cin, cout, True, seed=cin)
+    xk, wk = kernel_operands(torch.from_numpy(x), torch.from_numpy(k))
+    assert xk.shape[-1] % 4 == 0 and xk.shape[-1] > cin
+    want = np.asarray(_ref_conv_gn(jnp.asarray(x), jnp.asarray(k), jnp.asarray(b),
+                                   jnp.asarray(gamma), jnp.asarray(beta), groups=8,
+                                   eps=1e-5, act=True))
+    got = conv3d_gn_plain(xk, wk, *map(torch.from_numpy, (b, gamma, beta)), act=True).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)

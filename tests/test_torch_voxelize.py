@@ -166,7 +166,7 @@ def _ints(hi, *shape):
 # op -> (kernel, entry points in call order, inputs(dtype), call(inputs), the
 # input the fault tests alter); every input's shape follows from the others
 OPS = {
-    "fps": ("fps", ["p2pb_fps_scratch_bytes", "p2pb_fps"],
+    "fps": ("fps", ["p2pb_fps"],
             lambda dt: [_rand(2, 64, 3)],
             lambda t: fps_ops._furthest_point_sample_cuda(t[0], 8), 0),
     "fps_cluster": ("fps_cluster", ["p2pb_fps_cluster_scratch_bytes", "p2pb_fps_cluster"],
