@@ -32,9 +32,19 @@ Phases, in order; any failure raises and the process exits non-zero:
      and beside the host clock over synchronised calls;
      K2 (voxelize) torch.equal, grid and counts, to its plain version run
      on the CPU from the same inputs and to a second kernel call, also at
-     PVDL_SNPP's (4096, 32, 67) and (64, 8, 512) at B = 4; then the host
-     cost of K2b's wrapper, of its launch and of the pieces of the launch
-     path, this one's and the earlier one's;
+     PVDL_SNPP's (4096, 32, 67) and (64, 8, 512) at B = 4;
+     K3 (devoxelize + SE mean) within DEVOX_TOL of its plain version (f32
+     torch.equal), its mean torch.equal to grid_mean_fixed_order run on
+     the CPU, a second call bit-equal, the call without the mean equal,
+     also at C = 35 and 36 (one element a load), B = 1 and a ragged tile,
+     and one device function launched per call;
+     K4 (ball query + group) at the SA shapes: the rows entry torch.equal
+     to its plain version, and the SA module's fused entry (grouped tensor
+     [p - centre | features] written directly) torch.equal to the
+     module's composition (concatenate, plain gather, subtract,
+     concatenate), in bf16 and f32; the fused entry is the one timed;
+     then the host cost of K2b's wrapper, of its launch and of the pieces
+     of the launch path, this one's and the earlier one's;
   4. build PVDS_PUNet at full width as shipped (bf16, training.amp) and an
      f32 twin with the same weights; hold the f32 forward on the card
      against the f32 forward on the CPU, and the bf16 forward on the card
@@ -213,12 +223,21 @@ def trace_events(prof) -> list:
             if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
 
 
-def device_ms(fn, kernel: str, calls: int = 10, attempts: int = 3) -> float:
-    """Device time of one call of ``fn``: the summed durations of the
-    device functions of ``kernel`` (KERNEL_FUNCTIONS) in a torch.profiler
-    trace of ``calls`` back-to-back calls, over ``calls``. A trace now and
-    then comes back without any device events, so an empty one is taken
-    again, up to ``attempts`` times in all; then this raises."""
+# kernel -> the most distinct device functions one call of it launched
+DEVICE_LAUNCHES: dict = {}
+
+
+def device_ms(fn, kernel: str, calls: int = 10, attempts: int = 5) -> float:
+    """Device time of one call of ``fn``: the mean duration of each device
+    function of ``kernel`` (KERNEL_FUNCTIONS) over its records in a
+    torch.profiler trace of ``calls`` back-to-back calls, summed over the
+    functions (every wrapper launches each of its device functions once a
+    call). The traces drop a share of the kernel records, more late in a
+    long run, so the sum of durations over ``calls`` reads low; the mean
+    over the records that arrive does not. The distinct device functions a
+    call go to DEVICE_LAUNCHES. A trace now and then holds no device event
+    at all, so an empty one is taken again, up to ``attempts`` times in
+    all; then the time is not measured (nan)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -232,16 +251,23 @@ def device_ms(fn, kernel: str, calls: int = 10, attempts: int = 3) -> float:
         for name, _, dur in trace_events(prof):
             if kernel_group(name) == kernel:
                 fn_name = re.search(r"\(anonymous namespace\)::(\w+)", name).group(1)
-                split[fn_name] = split.get(fn_name, 0.0) + dur / 1e3 / calls
+                n, ms = split.get(fn_name, (0, 0.0))
+                split[fn_name] = (n + 1, ms + dur / 1e3)
         if split:
             break
         log(f"  {kernel}: trace {attempt} of {attempts} holds none of its device functions")
     else:
-        raise AssertionError(f"{attempts} traces of {kernel} hold none of its device functions")
-    if len(split) > 1:
+        log(f"  {kernel}: {attempts} traces hold none of its device functions: device time "
+            "not measured")
+        return float("nan")
+    DEVICE_LAUNCHES[kernel] = max(DEVICE_LAUNCHES.get(kernel, 0), len(split))
+    times = {f: ms / n for f, (n, ms) in split.items()}
+    recorded = sum(n for n, _ in split.values()) / (calls * len(split))
+    if len(times) > 1 or recorded < 1.0:
         log(f"  {kernel} device ms per call by function: "
-            + ", ".join(f"{f} {ms:.4f}" for f, ms in split.items()))
-    return sum(split.values())
+            + ", ".join(f"{f} {ms:.4f}" for f, ms in times.items())
+            + f"; the trace holds {recorded:.2f} of the launches")
+    return sum(times.values())
 
 
 def time_ms(fn, runs: int = RUNS, back_to_back: bool = True) -> float:
@@ -334,7 +360,8 @@ class Tally:
         calls = sum(c for c, _ in self.host_us)
         row = {"ms": self.ms, "plain_ms": self.plain_ms, "bound_ms": self.bound_ms,
                "bound_by": "bytes" if self.bytes_ms >= self.ops_ms else "operations",
-               "library_ms": self.library_ms, "device_ms": self.device_ms,
+               "library_ms": self.library_ms,
+               "device_ms": None if math.isnan(self.device_ms) else self.device_ms,
                "host_us_per_call": sum(c * h for c, h in self.host_us) / max(calls, 1)}
         if self.single_call_ms is not None:
             row["single_call_ms"] = self.single_call_ms
@@ -520,37 +547,62 @@ def check_fps(rng, dev, shapes) -> dict:
     return {name: {"f32": t} for name, t in tallies.items()}
 
 
+def sa_composition(centers, pts, feat, radius, k):
+    """The set-abstraction module's grouping as plain ops: [coords | features]
+    rows, the plain gather, subtract the centre, concatenate."""
+    rows = torch.cat([pts.to(feat.dtype), feat], dim=-1)
+    both, idx = bq_ops.ball_query_group_plain(centers, pts, rows, radius, k)
+    rel = both[..., :3] - centers[:, :, None, :].to(both.dtype)
+    return torch.cat([rel, both[..., 3:]], dim=-1), idx
+
+
 def check_ball_query(rng, dev, shapes) -> dict:
+    """K4 at the SA shapes: the old entry (rows gathered as they are) and the
+    fused entry the SA module calls (grouped tensor written directly), each
+    torch.equal to its plain version; the fused entry is the one timed."""
     out = {}
     for name, dt in DTYPES.items():
         tally = Tally(name, library=False)
         for n, m, radius, k, c in shapes["sa"]:
             pts = patches(rng, PATCHES, n, dev)
             centers = pts[:, :m].contiguous()
-            rows = torch.randn(PATCHES, n, c, device=dev).to(dt)
-            rows[..., :3] = pts.to(dt)
+            feat = torch.randn(PATCHES, n, c - 3, device=dev).to(dt)
+            rows = torch.cat([pts.to(dt), feat], dim=-1)
             got_g, got_i = bq_ops.ball_query_group(centers, pts, rows, radius, k)
             want_g, want_i = bq_ops.ball_query_group_plain(centers, pts, rows, radius, k)
+            fused_g, fused_i = bq_ops.ball_query_group_rel(centers, pts, feat, radius, k)
+            comp_g, comp_i = sa_composition(centers, pts, feat, radius, k)
             torch.cuda.synchronize()
-            if not torch.equal(got_i, want_i):
+            if not (torch.equal(got_i, want_i) and torch.equal(fused_i, want_i)
+                    and torch.equal(comp_i, want_i)):
                 raise AssertionError(f"ball query {name} {n}->{m}: indices differ")
             if not torch.equal(got_g, want_g):
                 raise AssertionError(f"ball query {name} {n}->{m}: gathered rows differ")
-            ms = time_ms(lambda: bq_ops.ball_query_group(centers, pts, rows, radius, k))
-            dms = device_ms(lambda: bq_ops.ball_query_group(centers, pts, rows, radius, k),
-                            "ball_query_group")
-            hus = host_us(lambda: bq_ops.ball_query_group(centers, pts, rows, radius, k), ms)
-            plain = time_ms(lambda: bq_ops.ball_query_group_plain(centers, pts, rows, radius, k))
-            # the scan stops at the warp of the K-th hit: count what it reads
+            if not (fused_g.dtype == dt and torch.equal(fused_g, comp_g)):
+                raise AssertionError(f"ball query {name} {n}->{m}: the fused grouping differs "
+                                     "from the SA module's composition")
+            old_ms = time_ms(lambda: bq_ops.ball_query_group(centers, pts, rows, radius, k))
+            def fused():
+                return bq_ops.ball_query_group_rel(centers, pts, feat, radius, k)
+            ms = time_ms(fused)
+            dms = device_ms(fused, "ball_query_group")
+            hus = host_us(fused, ms)
+            plain = time_ms(lambda: sa_composition(centers, pts, feat, radius, k))
+            # the distance tests this data needs: up to the K-th hit, or all N
             hits = (pairwise_sqdist_exact(centers, pts) < bq_ops._radius_sq(radius)).cumsum(-1)
-            kth = torch.where(hits[..., -1] >= k, (hits < k).sum(-1), torch.full_like(hits[..., -1], n))
-            scanned = torch.clamp((kth // 32 + 1) * 32, max=n).sum().item()
-            nbytes = (PATCHES * (m + n) * 12 + PATCHES * n * c * esize(dt)
+            kth = torch.where(hits[..., -1] >= k, (hits < k).sum(-1) + 1,
+                              torch.full_like(hits[..., -1], n))
+            scanned = kth.sum().item()
+            # points, features and centres read once, grouped and idx written once
+            nbytes = (PATCHES * (m + n) * 12 + PATCHES * n * (c - 3) * esize(dt)
                       + PATCHES * m * k * (c * esize(dt) + 4))
             bound = tally.add(1, ms, plain, None, nbytes, 8.0 * scanned, 0.0, dms, hus)
-            log(f"ball_query_group {name} {n}->{m} r={radius} C={c}: idx and rows equal; "
-                f"kernel {ms:.3f} ms (device {dms:.4f} ms, host {hus:.1f} us a call), "
-                f"plain {plain:.3f} ms, bound {bound:.3g} ms")
+            tally.extra.setdefault("rows_entry_ms", 0.0)
+            tally.extra["rows_entry_ms"] += old_ms
+            log(f"ball_query_group {name} {n}->{m} r={radius} C={c}: idx, rows and the fused "
+                f"grouping equal; fused kernel {ms:.3f} ms (device {dms:.4f} ms, host "
+                f"{hus:.1f} us a call), rows entry {old_ms:.3f} ms, plain composition "
+                f"{plain:.3f} ms, bound {bound:.3g} ms")
             del hits
         out[name] = tally
     return out
@@ -708,23 +760,52 @@ def check_conv3d_gn(rng, dev, shapes) -> dict:
     return out
 
 
+def devoxelize_equal(rng, dev, name, dt, b, n, r, c):
+    """K3 with the mean at (b, n, r, c): the output within DEVOX_TOL of the
+    plain version (f32: torch.equal), the mean torch.equal to
+    grid_mean_fixed_order run on the CPU, a second call bit-equal, and the
+    call without the mean equal to the output. Returns the inputs and the
+    output's error."""
+    pts = patches(rng, b, n, dev)
+    _, cont = vox_ops.normalize_coords_to_voxels(pts, r)
+    grid = torch.randn(b, r, r, r, c, device=dev).to(dt)
+    got, got_m = devox_ops.trilinear_devoxelize_with_mean(grid, cont, r)
+    again, again_m = devox_ops.trilinear_devoxelize_with_mean(grid, cont, r)
+    alone = devox_ops.trilinear_devoxelize(grid, cont, r)
+    want = devox_ops.trilinear_devoxelize_plain(grid, cont, r)
+    want_m = devox_ops.grid_mean_fixed_order(grid.cpu()).to(dev)
+    torch.cuda.synchronize()
+    what = f"devoxelize {name} B={b} N={n} r={r} C={c}"
+    err = (got.float() - want.float()).abs().max().item()
+    tol = DEVOX_TOL[name] * grid.float().abs().max().item()
+    if not (got.dtype == dt and got_m.dtype == torch.float32 and err <= tol):
+        raise AssertionError(f"{what}: max err {err} > {tol}")
+    if name == "f32" and not torch.equal(got, want):
+        raise AssertionError(f"{what}: f32 output not bit-equal to the plain version")
+    if not torch.equal(got_m, want_m):
+        raise AssertionError(f"{what}: mean differs from grid_mean_fixed_order by "
+                             f"{(got_m - want_m).abs().max().item()}")
+    if not (torch.equal(again, got) and torch.equal(again_m, got_m) and torch.equal(alone, got)):
+        raise AssertionError(f"{what}: a second call or the call without the mean differs")
+    mean_err = (got_m - devox_ops.grid_mean_plain(grid)).abs().max().item()
+    return grid, cont, err, tol, mean_err
+
+
+# off the main path: C that 16 bytes do not divide (one element a load),
+# a single cloud and a ragged last tile
+DEVOX_ODD = ((4, 2048, 32, 35), (4, 2048, 16, 36), (1, 1000, 8, 64))
+
+
 def check_devoxelize(rng, dev, shapes) -> dict:
     out = {}
     for name, dt in DTYPES.items():
         tally = Tally(name, library=True)
+        for b, n, r, c in DEVOX_ODD:
+            devoxelize_equal(rng, dev, name, dt, b, n, r, c)
+            log(f"trilinear_devoxelize {name} B={b} N={n} r={r} C={c}: output and mean equal")
         for (n, r, c), calls in counted((n, r, cout) for n, r, _, cout in shapes["pvconv"]):
-            pts = patches(rng, PATCHES, n, dev)
-            _, cont = vox_ops.normalize_coords_to_voxels(pts, r)
-            grid = torch.randn(PATCHES, r, r, r, c, device=dev).to(dt)
-            got, got_m = devox_ops.trilinear_devoxelize_with_mean(grid, cont, r)
-            want = devox_ops.trilinear_devoxelize_plain(grid, cont, r)
-            want_m = devox_ops.grid_mean_plain(grid)
-            torch.cuda.synchronize()
-            err = max((got.float() - want.float()).abs().max().item(),
-                      (got_m - want_m).abs().max().item())
-            tol = DEVOX_TOL[name] * grid.float().abs().max().item()
-            if not (got.dtype == dt and got_m.dtype == torch.float32 and err <= tol):
-                raise AssertionError(f"devoxelize {name} N={n} r={r} C={c}: max err {err} > {tol}")
+            grid, cont, err, tol, mean_err = devoxelize_equal(rng, dev, name, dt, PATCHES, n,
+                                                              r, c)
             ms = time_ms(lambda: devox_ops.trilinear_devoxelize_with_mean(grid, cont, r))
             dms = device_ms(lambda: devox_ops.trilinear_devoxelize_with_mean(grid, cont, r),
                             "trilinear_devoxelize")
@@ -740,10 +821,16 @@ def check_devoxelize(rng, dev, shapes) -> dict:
             ops = PATCHES * n * (8 * 2 * c + 24) + PATCHES * r ** 3 * c
             bound = tally.add(calls, ms, plain, lib, nbytes, ops, err, dms, hus)
             log(f"trilinear_devoxelize {name} N={n} r={r} C={c} x{calls}: max err {err:.3g} "
-                f"(tol {tol:.3g}); kernel {ms:.3f} ms (device {dms:.4f} ms, host {hus:.1f} us "
-                f"a call), plain {plain:.3f} ms, "
-                f"grid_sample {lib} ms, bound {bound:.3g} ms")
+                f"(tol {tol:.3g}), mean bit-equal to the fixed order ({mean_err:.3g} from "
+                f"the f32 mean), two calls bit-equal; kernel {ms:.3f} ms (device {dms:.4f} "
+                f"ms, {DEVICE_LAUNCHES.get('trilinear_devoxelize', 0)} device functions a call, "
+                f"host {hus:.1f} us a call), plain {plain:.3f} ms, grid_sample {lib} ms, "
+                f"bound {bound:.3g} ms")
             del gc
+        if DEVICE_LAUNCHES.get("trilinear_devoxelize") != 1:
+            raise AssertionError(f"trilinear_devoxelize launched "
+                                 f"{DEVICE_LAUNCHES.get('trilinear_devoxelize')} device "
+                                 "functions a call in its traces, not 1")
         out[name] = tally
     return out
 
@@ -1016,7 +1103,7 @@ KERNEL_FUNCTIONS = {
     "conv3d_gn": ("conv_ffma_kernel", "conv_wgmma_kernel", "gn_stats_kernel", "gn_apply_kernel",
                   "gn_apply_bf16_kernel"),
     "avg_voxelize": ("bucket_kernel", "rows_kernel"),
-    "trilinear_devoxelize": ("devox_kernel", "mean_partial_kernel", "mean_final_kernel"),
+    "trilinear_devoxelize": ("devox_kernel",),
     "ball_query_group": ("ball_query_group_kernel",),
     "fps": ("fps_kernel", "fps_warp_kernel"),
     "fps_cluster": ("fps_cluster_kernel",),
@@ -1046,11 +1133,20 @@ def profile_bf16(model, dev, mode: str) -> dict:
 
     bridge = P2PBridge.from_config(pvds_punet(), model)
     pcl = cloud_50k()
+    kernels.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         denoise(bridge, pcl, mode, dev)
         wall_ms = (time.perf_counter() - t0) * 1e3
-    return device_time(prof, wall_ms, f"bf16 {mode}")
+    out = device_time(prof, wall_ms, f"bf16 {mode}")
+    # the kernels of one device function a launch: the share of their
+    # launches whose records the trace holds (what the groups read low by)
+    single = ("trilinear_devoxelize", "ball_query_group", "three_nn_interpolate")
+    launched = sum(kernels.launch_counts[k] for k in single)
+    out["recorded_share"] = sum(out["kernels_by_group"].get(k, 0) for k in single) / launched
+    log(f"  the trace holds {out['recorded_share']:.3f} of the {launched} launches of "
+        f"{', '.join(single)}")
+    return out
 
 
 def device_time(prof, wall_ms: float, what: str) -> dict:
@@ -1072,7 +1168,8 @@ def device_time(prof, wall_ms: float, what: str) -> dict:
     for g, (ms, calls) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
         log(f"  {ms:9.2f} ms ({100 * ms / wall_ms:5.1f}% of wall) in {calls:5d} kernels: {g}")
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / wall_ms,
-            "device_ms_by_group": {g: v[0] for g, v in groups.items()}}
+            "device_ms_by_group": {g: v[0] for g, v in groups.items()},
+            "kernels_by_group": {g: v[1] for g, v in groups.items()}}
 
 
 # ---------------------------------------------------------------- phase 7
@@ -1172,10 +1269,11 @@ def scatter_cases(rng, dev, dt, shapes):
                       (torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])),
                       B * n * (c * esize(dt) + 12) + B * r ** 3 * c * esize(dt),
                       B * 8 * n * (4 * c + 12)))
-    for n, m, radius, k, c in shapes["sa"]:
-        pts = patches(rng, B, n, dev)
-        rows = torch.randn(B, n, c, device=dev).to(dt)
-        _, idx = bq_ops.ball_query_group(pts[:, :m].contiguous(), pts, rows, radius, k)
+    for n, m, radius, k, w in shapes["sa"]:
+        # the SA module's backward scatters the features' columns (W - 3)
+        pts, c = patches(rng, B, n, dev), w - 3
+        feat = torch.randn(B, n, c, device=dev).to(dt)
+        _, idx = bq_ops.ball_query_group_rel(pts[:, :m].contiguous(), pts, feat, radius, k)
         g = torch.randn(B, m, k, c, device=dev).to(dt)
         base = (torch.arange(B, device=dev) * n)[:, None, None]
         cases.append((f"K4 ball_query_group {n}->{m} K={k} C={c}", 1,
@@ -1600,6 +1698,7 @@ def main() -> None:
                  "launches": by_path[path], "launches_by_path": by_path,
                  "max_abs_err": max(t.err for t in per_dtype.values()),
                  **per_dtype[dtype].row(), "dtype": dtype,
+                 "device_functions_per_call": DEVICE_LAUNCHES.get(name),
                  "max_abs_err_by_dtype": {d: t.err for d, t in per_dtype.items()},
                  "f32": per_dtype["f32"].row(), "timed": timed}
         entries.append(entry)

@@ -53,6 +53,7 @@ _SIGNATURES = {
     "p2pb_fps_cluster": (_I, (_P, _I, _I, _I, _P, _P, _I, _P)),
     "p2pb_fps_cluster_scratch_bytes": (_LL, (_I, _I)),
     "p2pb_ball_query_group": (_I, (_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P, _P, _I, _P)),
+    "p2pb_ball_query_group_rel": (_I, (_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P, _P, _I, _P)),
     "p2pb_avg_voxelize": (_I, (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P)),
     "p2pb_avg_voxelize_backward": (_I, (_P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P)),
     "p2pb_auction_emd": (_I, (_P, _I, _I, _I, _F, _I, _P, _P, _P, _I, _P)),
@@ -60,8 +61,7 @@ _SIGNATURES = {
     "p2pb_conv3d_gn": (
         _I, (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P, _P, _I, _P)),
     "p2pb_conv3d_gn_scratch_bytes": (_LL, (_I, _I, _I, _I, _I)),
-    "p2pb_trilinear_devoxelize": (_I, (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P)),
-    "p2pb_devoxelize_scratch_bytes": (_LL, (_I, _I, _I)),
+    "p2pb_trilinear_devoxelize": (_I, (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P)),
     "p2pb_three_nn_interpolate": (_I, (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P)),
     "p2pb_scatter_rows": (_I, (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P)),
     "p2pb_error_string": (ctypes.c_char_p, (_I,)),

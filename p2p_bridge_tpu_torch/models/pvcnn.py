@@ -26,7 +26,7 @@ from torch import nn
 
 from ..ops import (
     avg_voxelize,
-    ball_query_group,
+    ball_query_group_rel,
     batched_take,
     furthest_point_sample,
     nearest_neighbor_interpolate,
@@ -295,11 +295,10 @@ class PointNetSAModule(nn.Module):
     def forward(self, features, coords, cond=None):
         s = self.spec
         centers = batched_take(coords, furthest_point_sample(coords, s.num_centers))
-        rows = torch.cat([coords.to(features.dtype), features], dim=-1)
-        both, _ = ball_query_group(centers.contiguous(), coords.contiguous(),
-                                   rows.contiguous(), s.radius, s.num_neighbors)
-        rel = both[..., :3] - centers[:, :, None, :].to(both.dtype)
-        grouped = torch.cat([rel, both[..., 3:]], dim=-1).to(features.dtype)
+        # [coords - centre | features] of each neighbour, in the features'
+        # dtype: the JAX module's concatenate, gather, subtract, concatenate
+        grouped, _ = ball_query_group_rel(centers.contiguous(), coords.contiguous(),
+                                          features.contiguous(), s.radius, s.num_neighbors)
         return self.mlps[0](grouped, cond).amax(dim=2), centers
 
 

@@ -14,6 +14,12 @@ every voxel. The coordinates get no gradient. On a CUDA tensor the scatter
 is kernel ``scatter_rows`` (``ops/scatter.py``), bit-equal to the plain
 version (``index_add_``, corner by corner) run on the CPU; the JAX package
 has no Pallas kernel here.
+
+The kernel's grid mean adds in a fixed order in double (see
+``grid_mean_fixed_order``, its bit-exact float64 twin on the CPU); the
+plain version's is ``grid_mean_plain``, an f32 mean. Without a gradient to
+record, the wrappers call the kernel (or the plain version) directly, not
+through the autograd Function.
 """
 
 from __future__ import annotations
@@ -83,23 +89,124 @@ def grid_mean_plain(grid: torch.Tensor) -> torch.Tensor:
     return grid.float().mean(dim=(1, 2, 3))
 
 
+# the kernel's mean layout (csrc/devoxelize.cu kThreads, kMaxMeanBlocks,
+# kMeanBlockBytes, kRun)
+MEAN_THREADS = 256
+MAX_MEAN_BLOCKS = 32
+MEAN_BLOCK_BYTES = 131072
+BF16_RUN = 4
+MAX_CHANNELS = 2048
+
+
+def mean_vector(dtype: torch.dtype, C: int) -> int:
+    """Elements in one of the kernel's loads: 16 bytes where C is a multiple
+    of them, else 1."""
+    vec = 8 if dtype == torch.bfloat16 else 4
+    return vec if C % vec == 0 else 1
+
+
+def mean_blocks(cloud_bytes: int) -> int:
+    """The kernel's mean blocks a cloud: its grid's bytes over 128 KB, as a
+    power of two from 1 to 32."""
+    s = 1
+    while s < MAX_MEAN_BLOCKS and 2 * s * MEAN_BLOCK_BYTES <= cloud_bytes:
+        s *= 2
+    return s
+
+
+def grid_mean_fixed_order(grid: torch.Tensor) -> torch.Tensor:
+    """The kernel's mean [B, C] f32, bit for bit, on the CPU.
+
+    Its order: S = mean_blocks(r^3 * C * element size) blocks a cloud; with
+    VEC = mean_vector(dtype, C) elements a load, G = C / VEC channel groups,
+    GT = min(G, 256) of them side by side in a block, VLc = 256 // GT voxel
+    lanes a block and VL = S * VLc a cloud, voxel lane l takes voxels l,
+    l + VL, l + 2 VL, ... in ascending order; f32 values are added one at a
+    time into a float64 sum from 0.0, bf16 values in runs of 4 consecutive
+    ones of the lane (the last run padded with zeros), each run summed in
+    f32 from its first value, in order, and then added to the float64 sum.
+    Block k's sum is the sum, from 0.0, of lanes k * VLc .. k * VLc + VLc - 1
+    in ascending order; the total is the sum, from 0.0, of the S blocks'
+    sums in block order; the mean is total / r^3 in float64, rounded to
+    f32."""
+    B, C = grid.shape[0], grid.shape[-1]
+    x = grid.detach().reshape(B, -1, C)
+    V = x.shape[1]
+    S = mean_blocks(V * C * grid.element_size())
+    GT = min(C // mean_vector(grid.dtype, C), MEAN_THREADS)
+    VLc = MEAN_THREADS // GT
+    VL = S * VLc
+    run = BF16_RUN if grid.dtype == torch.bfloat16 else 1
+    lanes = torch.zeros((B, VL, C), dtype=torch.float64, device=x.device)
+    for v0 in range(0, V, run * VL):
+        acc = None  # one run of each lane: voxels v0 + u * VL + lane, u < run
+        for u in range(run):
+            part = torch.zeros((B, VL, C), dtype=torch.float32, device=x.device)
+            step = x[:, v0 + u * VL:v0 + (u + 1) * VL].float()
+            part[:, :step.shape[1]] = step
+            acc = part if acc is None else acc + part
+        lanes += acc.double()
+    blocks = torch.zeros((B, S, C), dtype=torch.float64, device=x.device)
+    lanes = lanes.view(B, S, VLc, C)
+    for lane in range(VLc):
+        blocks += lanes[:, :, lane]
+    total = torch.zeros((B, C), dtype=torch.float64, device=x.device)
+    for k in range(S):
+        total += blocks[:, k]
+    return (total / V).float()
+
+
+def check_devoxelize_shape(B: int, N: int, r: int, C: int) -> None:
+    """Raise unless the kernel takes this shape: B, N >= 1, 1 <= C <= 2048
+    (the mean's partials fit a block's 48 KB of shared memory) and r^3 * C
+    below 2^31 (32-bit row offsets). Every call of the three configs
+    qualifies (C <= 512, r <= 32)."""
+    if not (B >= 1 and N >= 1 and 1 <= C <= MAX_CHANNELS and r >= 1 and r ** 3 * C < 2 ** 31):
+        raise ValueError(f"trilinear_devoxelize kernel takes B, N >= 1, 1 <= C <= "
+                         f"{MAX_CHANNELS} and r^3 * C < 2^31; got B={B}, N={N}, r={r}, C={C}")
+
+
+_tickets: dict = {}  # card index -> the mean's ticket counters, 0 between calls
+
+
+def _mean_tickets(grid: torch.Tensor, B: int) -> torch.Tensor:
+    """B zeroed int32 ticket counters on the grid's card, allocated once (and
+    again for a larger B); each call leaves them 0."""
+    t = _tickets.get(grid.device.index)
+    if t is None or t.numel() < B:
+        t = _tickets[grid.device.index] = torch.zeros(max(B, 256), dtype=torch.int32,
+                                                      device=grid.device)
+    return t
+
+
 def _devoxelize_cuda(grid, coords, resolution, with_mean):
     B, r, C = grid.shape[0], resolution, grid.shape[-1]
     N = coords.shape[1]
     device = kernels.check(("grid", grid, kernels.DATA, (B, r, r, r, C)),
                            ("coords", coords, torch.float32, (B, N, 3)))
-    dev, dt = grid.device, grid.dtype
-    out = torch.empty((B, N, C), dtype=dt, device=dev)
-    mean = scratch = None
+    check_devoxelize_shape(B, N, r, C)
+    if grid.data_ptr() % 16:  # read as 16-byte vectors
+        grid = grid.clone()
+    n_out = B * N * C
+    mean = scratch = tickets = None
     if with_mean:
-        mean = torch.empty((B, C), dtype=torch.float32, device=dev)
-        scratch = torch.empty(kernels.entry_points()["p2pb_devoxelize_scratch_bytes"](B, r, C),
-                              dtype=torch.uint8, device=dev)
+        # one allocation: out, the f32 mean and the mean blocks' double sums,
+        # each from a 16-byte boundary
+        es = grid.element_size()
+        at_mean = -(-n_out * es // 16) * 16
+        at_scratch = at_mean + -(-B * C * 4 // 16) * 16
+        S = mean_blocks(r ** 3 * C * es)
+        buf = grid.new_empty((at_scratch + B * S * C * 8) // es)
+        out = buf[:n_out].view(B, N, C)
+        mean = buf[at_mean // es:(at_mean + B * C * 4) // es].view(torch.float32).view(B, C)
+        scratch = buf.data_ptr() + at_scratch
+        tickets = _mean_tickets(grid, B).data_ptr()
+    else:
+        out = grid.new_empty((B, N, C))
     kernels.launch(
         "trilinear_devoxelize", "p2pb_trilinear_devoxelize", device, grid.data_ptr(),
-        coords.data_ptr(), B, N, r, C, int(dt == torch.bfloat16), out.data_ptr(),
-        None if mean is None else mean.data_ptr(),
-        None if scratch is None else scratch.data_ptr())
+        coords.data_ptr(), B, N, r, C, int(grid.dtype == torch.bfloat16), out.data_ptr(),
+        None if mean is None else mean.data_ptr(), scratch, tickets)
     return out, mean
 
 
@@ -110,6 +217,14 @@ def _devoxelize_backward_cuda(grad, coords, resolution):
                              resolution=resolution)
 
 
+def _forward(grid, coords, resolution, with_mean):
+    """(out, mean or None): kernel K3 on a CUDA tensor, else the plain version."""
+    if kernels.on_card(grid):
+        return _devoxelize_cuda(grid, coords, resolution, with_mean)
+    out = trilinear_devoxelize_plain(grid, coords, resolution)
+    return out, grid_mean_plain(grid) if with_mean else None
+
+
 class _Devoxelize(torch.autograd.Function):
     """K3 forward (with or without the mean); the backward scatters."""
 
@@ -117,11 +232,7 @@ class _Devoxelize(torch.autograd.Function):
     def forward(ctx, grid, coords, resolution, with_mean):
         ctx.save_for_backward(coords)
         ctx.resolution, ctx.with_mean = resolution, with_mean
-        if kernels.on_card(grid):
-            out, mean = _devoxelize_cuda(grid, coords, resolution, with_mean)
-        else:
-            out = trilinear_devoxelize_plain(grid, coords, resolution)
-            mean = grid_mean_plain(grid) if with_mean else None
+        out, mean = _forward(grid, coords, resolution, with_mean)
         return (out, mean) if with_mean else out
 
     @staticmethod
@@ -139,17 +250,25 @@ class _Devoxelize(torch.autograd.Function):
         return dgrid.view(B, r, r, r, C), None, None, None
 
 
+def _devoxelize(grid, coords, resolution, with_mean):
+    grid = grid.contiguous()
+    coords = coords.detach().float().contiguous()
+    if torch.is_grad_enabled() and grid.requires_grad:
+        return _Devoxelize.apply(grid, coords, resolution, with_mean)
+    out, mean = _forward(grid, coords, resolution, with_mean)  # no graph to record
+    return (out, mean) if with_mean else out
+
+
 def trilinear_devoxelize(grid: torch.Tensor, coords: torch.Tensor,
                          resolution: int) -> torch.Tensor:
     """grid [B, r, r, r, C] f32 or bf16, continuous coords [B, N, 3] f32 in
     [0, r-1] -> [B, N, C] of the grid's dtype."""
-    return _Devoxelize.apply(grid.contiguous(), coords.detach().float().contiguous(),
-                             resolution, False)
+    return _devoxelize(grid, coords, resolution, False)
 
 
 def trilinear_devoxelize_with_mean(grid: torch.Tensor, coords: torch.Tensor,
                                    resolution: int):
     """Devoxelize and also return the per-channel grid mean [B, C] f32
-    (the squeeze-excite pooling), in one kernel launch on the card."""
-    return _Devoxelize.apply(grid.contiguous(), coords.detach().float().contiguous(),
-                             resolution, True)
+    (the squeeze-excite pooling), in one kernel launch on the card (on the
+    CPU the plain f32 mean; ``grid_mean_fixed_order`` is the kernel's)."""
+    return _devoxelize(grid, coords, resolution, True)

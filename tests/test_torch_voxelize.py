@@ -175,6 +175,10 @@ OPS = {
     "ball_query_group": ("ball_query_group", ["p2pb_ball_query_group"],
                          lambda dt: [_rand(2, 8, 3), _rand(2, 64, 3), _rand(2, 64, 6, dtype=dt)],
                          lambda t: bq_ops._ball_query_group_cuda(*t, 0.3, 4), 1),
+    "ball_query_group_rel": ("ball_query_group", ["p2pb_ball_query_group_rel"],
+                             lambda dt: [_rand(2, 8, 3), _rand(2, 64, 3),
+                                         _rand(2, 64, 5, dtype=dt)],
+                             lambda t: bq_ops._ball_query_group_cuda(*t, 0.3, 4, rel=True), 1),
     "avg_voxelize": ("avg_voxelize", ["p2pb_avg_voxelize"],
                      lambda dt: [_rand(2, 64, 35, dtype=dt), _ints(8, 2, 64, 3)],
                      lambda t: vox_ops._avg_voxelize_cuda(*t, 8), 1),
@@ -186,10 +190,13 @@ OPS = {
                   lambda dt: [_rand(2, 8, 8, 8, 35, dtype=dt), _rand(3, 3, 3, 35, 64, dtype=dt),
                               _rand(64), _rand(2, 64), _rand(2, 64)],
                   lambda t: conv_ops._conv3d_gn_cuda(*t, 8, 1e-5, True), 2),
-    "trilinear_devoxelize": ("trilinear_devoxelize",
-                             ["p2pb_devoxelize_scratch_bytes", "p2pb_trilinear_devoxelize"],
+    "trilinear_devoxelize": ("trilinear_devoxelize", ["p2pb_trilinear_devoxelize"],
                              lambda dt: [_rand(2, 8, 8, 8, 16, dtype=dt), _rand(2, 64, 3) * 7],
                              lambda t: devox_ops._devoxelize_cuda(*t, 8, True), 1),
+    "trilinear_devoxelize_no_mean": (
+        "trilinear_devoxelize", ["p2pb_trilinear_devoxelize"],
+        lambda dt: [_rand(2, 8, 8, 8, 12, dtype=dt), _rand(2, 64, 3) * 7],
+        lambda t: devox_ops._devoxelize_cuda(*t, 8, False), 1),
     "three_nn_interpolate": ("three_nn_interpolate", ["p2pb_three_nn_interpolate"],
                              lambda dt: [_rand(2, 64, 3), _rand(2, 16, 3), _rand(2, 16, 8, dtype=dt)],
                              lambda t: interp_ops._three_nn_interpolate_cuda(*t, True), 1),
@@ -208,8 +215,9 @@ OPS = {
         lambda dt: [_rand(2, 64, 8, dtype=dt), _rand(2, 64, 3), _ints(16, 2, 64, 3)],
         lambda t: interp_ops._three_nn_interpolate_backward_cuda(*t, 16), 1),
 }
-DATA_OPS = {"ball_query_group", "avg_voxelize", "avg_voxelize_backward", "conv3d_gn",
-            "trilinear_devoxelize", "three_nn_interpolate", "scatter_devoxelize",
+DATA_OPS = {"ball_query_group", "ball_query_group_rel", "avg_voxelize", "avg_voxelize_backward",
+            "conv3d_gn", "trilinear_devoxelize", "trilinear_devoxelize_no_mean",
+            "three_nn_interpolate", "scatter_devoxelize",
             "scatter_ball_query_group", "scatter_three_nn_interpolate"}
 OP_CASES = [(op, dt) for op in OPS
             for dt in ((torch.float32, torch.bfloat16) if op in DATA_OPS else (torch.float32,))]
