@@ -43,6 +43,12 @@ Phases, in order; any failure raises and the process exits non-zero:
      [p - centre | features] written directly) torch.equal to the
      module's composition (concatenate, plain gather, subtract,
      concatenate), in bf16 and f32; the fused entry is the one timed;
+     K6 (3-NN interpolation) at the four FP stages: indices torch.equal
+     and weights within 1e-6 of the plain version, the sum within
+     INTERP_TOL, the sum alone (the model's form) torch.equal to the call
+     with weights, also at a ragged N with a C of no whole 16 bytes, at
+     M = 1 and 2 and on integer clouds whose picks tie exactly, with one
+     device function launched per call;
      then the host cost of K2b's wrapper, of its launch and of the pieces
      of the launch path, this one's and the earlier one's;
   4. build PVDS_PUNet at full width as shipped (bf16, training.amp) and an
@@ -57,12 +63,17 @@ Phases, in order; any failure raises and the process exits non-zero:
      after, and every kernel of the path must launch in each (the cluster
      FPS in the seeding and the exact recombination);
   6. profile one more bf16 run of each recombination with torch.profiler:
-     device time by kernel group and the device's idle share;
+     device time by kernel group and the device's idle share (each traced
+     window opens with spin kernels, which a trace late in a run partly
+     loses in place of the path's first kernels);
   7. training: hold the training kernels, K2b (voxelize backward) and the
      backward scatter of K3, K4 and K6 (scatter_rows) in bf16 and f32,
      torch.equal to their plain versions (scatter_rows run on the CPU), and
-     K7 (auction EMD) on the distances of a real batch, at the training
-     shapes (B = 32 patches of 2048 points), and time them; time K1's
+     K7 (auction EMD, from coordinates) on a real batch at 100, 3 and 1
+     rounds torch.equal to the plain version on pairwise_sqdist_ordered
+     and to a second call, one device function a call, at the training
+     shapes (B = 32 patches of 2048 points), and time them, K7 beside
+     pairwise_sqdist (the matrix the parent's route built); time K1's
      backward (cuDNN) with and without cuDNN's deterministic algorithms;
      hold the f32 gradient of the loss at full width on the card against
      the CPU's (B = 2, dropout off, fixed timesteps) and two card runs of
@@ -75,7 +86,9 @@ Phases, in order; any failure raises and the process exits non-zero:
      numpy: every loss finite, the last five below the first five, the
      launch counts set to 0 just before step 20 and read just after with
      every training kernel launched, ms per step over steps 10-29 split
-     into its phases, a torch.profiler profile of step 30; and a checkpoint
+     into its phases (CUDA events and the host clock), a torch.profiler
+     profile of step 30, the host time of model.train() and of the
+     alignment (what the alignment span issues); and a checkpoint
      that denoise_object.load_weights reads back into a model whose
      forward on the card is bit-equal to the trained model's.
 The line before the last is a JSON object with each kernel's launches,
@@ -117,7 +130,8 @@ from p2p_bridge_tpu_torch.ops import devoxelize as devox_ops
 from p2p_bridge_tpu_torch.ops import fps as fps_ops
 from p2p_bridge_tpu_torch.ops import interpolate as interp_ops
 from p2p_bridge_tpu_torch.ops import voxelize as vox_ops
-from p2p_bridge_tpu_torch.ops.common import pairwise_sqdist, pairwise_sqdist_exact
+from p2p_bridge_tpu_torch.ops.common import (pairwise_sqdist, pairwise_sqdist_exact,
+                                              pairwise_sqdist_ordered)
 
 PATCHES = 73  # int(3 * 50_000 / 2048)
 PATCH = 2048
@@ -835,28 +849,58 @@ def check_devoxelize(rng, dev, shapes) -> dict:
     return out
 
 
+def interp_equal(what, dt, pts, centers, feat) -> tuple:
+    """K6 against its plain version on the card: indices torch.equal,
+    weights within 1e-6, the sum within INTERP_TOL, the sum alone (the
+    model's form) torch.equal to the call with weights -> (weights error,
+    sum error)."""
+    name = "bf16" if dt == torch.bfloat16 else "f32"
+    got, got_w, got_i = interp_ops.three_nn_interpolate(pts, centers, feat)
+    want, want_w, want_i = interp_ops.three_nn_interpolate_plain(pts, centers, feat)
+    torch.cuda.synchronize()
+    if not torch.equal(got_i, want_i):
+        raise AssertionError(f"three_nn {name} {what}: {(got_i != want_i).sum().item()} indices "
+                             "differ")
+    err_w = (got_w - want_w).abs().max().item()
+    err = (got.float() - want.float()).abs().max().item()
+    tol = INTERP_TOL[name] * feat.float().abs().max().item()
+    if not (got.dtype == dt and err_w <= 1e-6 and err <= tol):
+        raise AssertionError(f"three_nn {name} {what}: weights {err_w}, out {err} > {tol}")
+    alone = interp_ops.nearest_neighbor_interpolate(pts, centers, feat)
+    if not torch.equal(alone, got):
+        raise AssertionError(f"three_nn {name} {what}: the sum alone differs")
+    return err_w, err
+
+
+# (B, N, M, C, integer coordinates): a ragged N with a C of no whole
+# 16 bytes (the scalar gather), M = 1 and 2, and integer clouds whose
+# picks tie exactly, at the split the 32- and 2048-point stages take
+INTERP_ODD = ((PATCHES, 1001, 250, 35, False), (4, 777, 1, 64, False), (4, 777, 2, 64, False),
+              (8, 2048, 512, 192, True), (PATCHES, 32, 8, 576, True))
+
+
 def check_interpolate(rng, dev, shapes) -> dict:
     out = {}
+    gen = torch.Generator(device=dev).manual_seed(9)
     for name, dt in DTYPES.items():
         tally = Tally(name, library=False)
+        for b, n, m, c, integer in INTERP_ODD:
+            if integer:
+                pts = torch.randint(-3, 4, (b, n, 3), generator=gen, device=dev).float()
+                centers = torch.randint(-3, 4, (b, m, 3), generator=gen, device=dev).float()
+            else:
+                pts = patches(rng, b, n, dev)
+                centers = torch.rand(b, m, 3, generator=gen, device=dev) * 2 - 1
+            feat = torch.randn(b, m, c, device=dev, generator=gen).to(dt)
+            err_w, err = interp_equal(f"[{b}] {n}<-{m} C={c}", dt, pts, centers, feat)
+            log(f"three_nn_interpolate {name} [{b}] {n}<-{m} C={c}"
+                f"{' integer' if integer else ''}: indices equal, weights {err_w:.3g}, "
+                f"max err {err:.3g}")
         for n, m, c in shapes["fp"]:
             pts = patches(rng, PATCHES, n, dev)
             centers = pts[:, :m].contiguous()  # coarse points are a subset
             feat = torch.randn(PATCHES, m, c, device=dev).to(dt)
-            got, got_w, got_i = interp_ops.three_nn_interpolate(pts, centers, feat)
-            want, want_w, want_i = interp_ops.three_nn_interpolate_plain(pts, centers, feat)
-            torch.cuda.synchronize()
-            if not torch.equal(got_i, want_i):
-                raise AssertionError(f"three_nn {name} {n}<-{m}: indices differ")
-            err_w = (got_w - want_w).abs().max().item()
-            err = (got.float() - want.float()).abs().max().item()
-            tol = INTERP_TOL[name] * feat.float().abs().max().item()
-            if not (got.dtype == dt and err_w <= 1e-6 and err <= tol):
-                raise AssertionError(f"three_nn {name} {n}<-{m}: weights {err_w}, out {err} > {tol}")
-            # the model's form, which skips the weight and index stores
-            alone = interp_ops.nearest_neighbor_interpolate(pts, centers, feat)
-            if not torch.equal(alone, got):
-                raise AssertionError(f"three_nn {name} {n}<-{m}: the sum alone differs")
+            err_w, err = interp_equal(f"{n}<-{m}", dt, pts, centers, feat)
             ms = time_ms(lambda: interp_ops.nearest_neighbor_interpolate(pts, centers, feat))
             dms = device_ms(lambda: interp_ops.nearest_neighbor_interpolate(pts, centers, feat),
                             "three_nn_interpolate")
@@ -864,12 +908,20 @@ def check_interpolate(rng, dev, shapes) -> dict:
             plain = time_ms(lambda: interp_ops.three_nn_interpolate_plain(pts, centers, feat))
             nbytes = PATCHES * (n + m) * 12 + PATCHES * (m + n) * c * esize(dt)
             # per (point, centre) pair: 3 sub, 3 mul, 2 add
-            bound = tally.add(1, ms, plain, None, nbytes, 8.0 * PATCHES * n * m, err, dms, hus)
+            bound = tally.add(1, ms, plain, None, nbytes, 8.0 * PATCHES * n * m,
+                              max(err, err_w), dms, hus)
+            tally.extra.setdefault("per_shape", []).append(
+                {"shape": [n, m, c], "ms": ms, "device_ms": dms, "host_us": hus,
+                 "bound_ms": bound})
             log(f"three_nn_interpolate {name} {n}<-{m} C={c}: indices equal, weights {err_w:.3g}, "
-                f"max err {err:.3g} (tol {tol:.3g}); kernel {ms:.3f} ms (device {dms:.4f} ms, "
+                f"max err {err:.3g}; kernel {ms:.4f} ms (device {dms:.4f} ms, "
                 f"host {hus:.1f} us a call), plain {plain:.3f} ms, "
                 f"bound {bound:.3g} ms")
         out[name] = tally
+    if DEVICE_LAUNCHES.get("three_nn_interpolate") != 1:
+        raise AssertionError(f"three_nn_interpolate launched "
+                             f"{DEVICE_LAUNCHES.get('three_nn_interpolate')} device functions a "
+                             "call in its traces, not 1")
     return out
 
 
@@ -1125,6 +1177,29 @@ def kernel_group(name: str) -> str:
     return "other PyTorch kernels"
 
 
+SPINS = 32  # spin kernels each traced window starts with
+
+
+def start_trace(prof) -> None:
+    """Start ``prof`` and run SPINS spin kernels through it, waited for:
+    late in a run a trace loses the records of the first few kernels it
+    sees (device_time counts them), so these go first, and device_time
+    leaves them out."""
+    prof.start()
+    for _ in range(SPINS):
+        torch.cuda._sleep(100)
+    torch.cuda.synchronize()
+
+
+def recorded_share(out: dict, launches: dict, single: tuple) -> float:
+    """The share of the launches of ``single`` (kernels of one device
+    function a launch) whose records a device_time result holds."""
+    launched = sum(launches[k] for k in single)
+    share = sum(out["kernels_by_group"].get(k, 0) for k in single) / launched
+    log(f"  the trace holds {share:.3f} of the {launched} launches of {', '.join(single)}")
+    return share
+
+
 def profile_bf16(model, dev, mode: str) -> dict:
     """torch.profiler over one bf16 50k run with ``mode`` recombination:
     device time by kernel group and the idle share (1 - union of
@@ -1133,27 +1208,30 @@ def profile_bf16(model, dev, mode: str) -> dict:
 
     bridge = P2PBridge.from_config(pvds_punet(), model)
     pcl = cloud_50k()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    start_trace(prof)
     kernels.reset_launch_counts()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        denoise(bridge, pcl, mode, dev)
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    denoise(bridge, pcl, mode, dev)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    prof.stop()
     out = device_time(prof, wall_ms, f"bf16 {mode}")
-    # the kernels of one device function a launch: the share of their
-    # launches whose records the trace holds (what the groups read low by)
-    single = ("trilinear_devoxelize", "ball_query_group", "three_nn_interpolate")
-    launched = sum(kernels.launch_counts[k] for k in single)
-    out["recorded_share"] = sum(out["kernels_by_group"].get(k, 0) for k in single) / launched
-    log(f"  the trace holds {out['recorded_share']:.3f} of the {launched} launches of "
-        f"{', '.join(single)}")
+    out["recorded_share"] = recorded_share(
+        out, kernels.launch_counts,
+        ("trilinear_devoxelize", "ball_query_group", "three_nn_interpolate"))
     return out
 
 
 def device_time(prof, wall_ms: float, what: str) -> dict:
     """Device time by kernel group of a finished torch.profiler run and the
-    idle share: 1 - union of kernel/copy/set intervals / host wall time."""
-    spans, groups = [], {}
+    idle share: 1 - union of kernel/copy/set intervals / host wall time.
+    The spin kernels of start_trace are left out; the ones missing are
+    the records the trace lost at its start."""
+    spans, groups, spins = [], {}, 0
     for name, ts, dur in trace_events(prof):
+        if "spin_kernel" in name:
+            spins += 1
+            continue
         spans.append((ts, ts + dur))
         total, calls = groups.get(kernel_group(name), (0.0, 0))
         groups[kernel_group(name)] = (total + dur / 1e3, calls + 1)
@@ -1164,10 +1242,12 @@ def device_time(prof, wall_ms: float, what: str) -> dict:
             end = b
     busy_ms = busy / 1e3
     log(f"profile {what}: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, "
-        f"idle share {1.0 - busy_ms / wall_ms:.4f}")
+        f"idle share {1.0 - busy_ms / wall_ms:.4f}; the trace lost {SPINS - spins} of the "
+        f"{SPINS} spin kernels at its start")
     for g, (ms, calls) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
         log(f"  {ms:9.2f} ms ({100 * ms / wall_ms:5.1f}% of wall) in {calls:5d} kernels: {g}")
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / wall_ms,
+            "records_lost_at_start": SPINS - spins,
             "device_ms_by_group": {g: v[0] for g, v in groups.items()},
             "kernels_by_group": {g: v[1] for g, v in groups.items()}}
 
@@ -1381,38 +1461,69 @@ def aligned_batch(cfg: dict, dev) -> dict:
     return {k: torch.from_numpy(v).to(dev) for k, v in batch.items() if v is not None}
 
 
+def auction_equal(what, got, want, again) -> None:
+    """One K7 route's (dist, assign, stats) torch.equal to the plain
+    version's (dist, assign) and to a second call's."""
+    dist, assign, _ = got
+    if not (torch.equal(assign, want[1]) and torch.equal(dist, want[0])):
+        raise AssertionError(f"auction {what}: {(assign != want[1]).sum().item()} assignments "
+                             "differ from the plain version")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"auction {what}: two calls differ")
+
+
 def check_auction(batch: dict, dev) -> dict:
-    """K7 on the distances of a real batch (noisy onto clean), as the
-    alignment calls it (eps 0.01, 100 rounds), then with 3 and 1 rounds so
-    that points are left to the greedy fallback."""
-    d2 = pairwise_sqdist(batch["x_start"], batch["x_gt"]).contiguous()
-    B, N, M = d2.shape
+    """K7 on a real batch (noisy onto clean), as the alignment calls it
+    (eps 0.01, 100 rounds), then with 3 and 1 rounds so that points are
+    left to the greedy fallback: torch.equal to the plain version on
+    pairwise_sqdist_ordered and to a second call. For information, the
+    assignments that differ from the plain version on the matrix product's
+    distances (pairwise_sqdist, the parent's route). Timed at 100 rounds,
+    beside pairwise_sqdist alone (the matrix the parent's route built)."""
+    x, y = batch["x_start"].contiguous(), batch["x_gt"].contiguous()
+    d2_product = pairwise_sqdist(x, y)
+    d2_ordered = pairwise_sqdist_ordered(x, y)
+    B, N, M = d2_ordered.shape
     tally = Tally("f32", library=False)
     for iters in (100, 3, 1):
-        dist, assign, stats = emd_auction._auction_emd_cuda(d2, 0.01, iters)
-        want_d, want_a = emd_auction.auction_emd_plain(d2, 0.01, iters)
+        got = emd_auction._auction_emd_cuda(x, y, 0.01, iters)
+        auction_equal(f"{iters} rounds", got,
+                      emd_auction.auction_emd_plain(d2_ordered, 0.01, iters),
+                      emd_auction._auction_emd_cuda(x, y, 0.01, iters))
         torch.cuda.synchronize()
-        if not (torch.equal(assign, want_a) and torch.equal(dist, want_d)):
-            raise AssertionError(f"auction {iters} rounds: {(assign != want_a).sum().item()} "
-                                 "assignments differ from the plain version")
-        rounds, rows, left = (int(v) for v in stats.sum(0).tolist())
-        log(f"auction_emd B={B} N={N} M={M} eps 0.01 {iters} rounds: assign and dist equal; "
-            f"rounds max {stats[:, 0].max().item()}, bidder rows {rows}, fallback points {left}")
-        if iters == 100:
-            ms = time_ms(lambda: emd_auction.auction_emd_assign(d2, 0.01, iters))
-            dms = device_ms(lambda: emd_auction.auction_emd_assign(d2, 0.01, iters),
-                            "auction_emd")
-            hus = host_us(lambda: emd_auction.auction_emd_assign(d2, 0.01, iters), ms)
-            plain = time_ms(lambda: emd_auction.auction_emd_plain(d2, 0.01, iters), runs=2)
-            # d2 read once, outputs written once; per scanned element a
-            # subtract, a compare and a max
-            nbytes = B * N * M * 4 + B * N * 8
-            bound = tally.add(1, ms, plain, None, nbytes, 3.0 * (rows + left) * M, 0.0, dms, hus)
-            log(f"auction_emd kernel {ms:.3f} ms (device {dms:.4f} ms, host {hus:.1f} us a "
-                f"call), plain {plain:.3f} ms, bound {bound:.4g} ms "
-                f"({B * N * M * 4 / 1e6:.0f} MB of d2; {rows + left} row scans)")
-        elif left == 0:
+        st = got[2]
+        rows, left = (int(v) for v in st[:, 1:].sum(0).tolist())
+        stats = {"rounds_max": int(st[:, 0].max()), "bidder_rows": rows, "fallback_points": left}
+        if iters < 100 and left == 0:
             raise AssertionError(f"auction {iters} rounds left no point to the fallback")
+        moved = int((got[1] != emd_auction.auction_emd_plain(d2_product, 0.01, iters)[1]).sum())
+        log(f"auction_emd B={B} N={N} M={M} eps 0.01 {iters} rounds: equal to the plain version "
+            f"and to a second call; {json.dumps(stats)}; the ordered distances move {moved} of "
+            f"{B * N} assignments against the matrix product's")
+        tally.extra[f"rounds_{iters}"] = {**stats, "assignments_moved": moved}
+        if iters == 100:
+            def call():
+                return emd_auction.auction_emd(x, y, 0.01, iters)
+
+            ms = time_ms(call)
+            dms = device_ms(call, "auction_emd")
+            hus = host_us(call, ms)
+            build_ms = time_ms(lambda: pairwise_sqdist(x, y))
+            plain = time_ms(lambda: emd_auction.auction_emd_plain(
+                pairwise_sqdist_ordered(x, y), 0.01, iters), runs=2)
+            # coordinates read once, outputs written once; 11 f32 operations
+            # a distance, for every value of every bidder and fallback row
+            # and one distance a point for dist
+            nbytes = B * (N + M) * 12 + B * N * 8
+            bound = tally.add(1, ms, plain, None, nbytes, 11.0 * ((rows + left) * M + B * N), 0.0,
+                              dms, hus)
+            tally.extra["pairwise_sqdist_ms"] = build_ms
+            log(f"auction_emd {ms:.4f} ms (device {dms:.4f} ms, host {hus:.1f} us a call), plain "
+                f"{plain:.3f} ms, bound {bound:.4g} ms ({rows + left} row scans); "
+                f"pairwise_sqdist alone {build_ms:.4f} ms ({B * N * M * 4 / 1e6:.0f} MB)")
+    if DEVICE_LAUNCHES.get("auction_emd") != 1:
+        raise AssertionError(f"auction_emd launched {DEVICE_LAUNCHES.get('auction_emd')} "
+                             "device functions a call in its traces, not 1")
     return {"f32": tally}
 
 
@@ -1543,30 +1654,32 @@ def determinism_audit(cfg: dict, batch: dict, dev) -> list:
 
 
 class TrainObserver:
-    """The ``train`` observer: CUDA events at every phase of steps 10-29,
-    the launch counts of step 20, a profile of step 30, every loss."""
+    """The ``train`` observer: CUDA events and the host clock at every
+    phase of steps 10-29, the launch counts of step 20, a profile of step
+    30 (and its launch counts), every loss."""
 
     PHASES = ("begin", "batch", "align", "forward_backward", "update")
 
     def __init__(self):
         from torch.profiler import ProfilerActivity, profile
 
-        self.events, self.losses, self.launches = {}, [], None
+        self.events, self.host, self.losses, self.launches = {}, {}, [], None
         self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
         self.profile = None
         self.t0 = 0.0
 
     def __call__(self, step, event, metrics):
-        if event == "begin" and step == 20:
+        if event == "begin" and step in (20, TRAIN_STEPS - 1):
+            if step == TRAIN_STEPS - 1:
+                torch.cuda.synchronize()
+                start_trace(self.prof)
             kernels.reset_launch_counts()
-        if event == "begin" and step == TRAIN_STEPS - 1:
-            torch.cuda.synchronize()
-            self.prof.start()
             self.t0 = time.perf_counter()
         if 10 <= step < 30 and event in self.PHASES:
             e = torch.cuda.Event(enable_timing=True)
             e.record()
             self.events.setdefault(step, {})[event] = e
+            self.host.setdefault(step, {})[event] = time.perf_counter() * 1e3
         if event == "end":
             self.losses.append(metrics["loss"])
             if step == 20:
@@ -1576,6 +1689,10 @@ class TrainObserver:
                 wall = (time.perf_counter() - self.t0) * 1e3
                 self.prof.stop()
                 self.profile = device_time(self.prof, wall, "one bf16 train step")
+                self.profile["recorded_share"] = recorded_share(
+                    self.profile, kernels.launch_counts,
+                    ("trilinear_devoxelize", "ball_query_group", "three_nn_interpolate",
+                     "avg_voxelize_backward", "auction_emd"))
 
 
 def train_phase(cfg: dict, dev) -> tuple:
@@ -1602,13 +1719,40 @@ def train_phase(cfg: dict, dev) -> tuple:
              "optimizer_ema": ("forward_backward", "update"), "step": ("begin", "update")}
     split = {name: float(np.median([ev[a].elapsed_time(ev[b]) for ev in obs.events.values()]))
              for name, (a, b) in spans.items()}
-    log(f"ms per step, median of steps 10-29 (CUDA events): {split['step']:.2f} "
-        f"({TRAIN_B / split['step'] * 1e3:.1f} patches/s); data {split['data']:.2f}, "
-        f"alignment {split['align']:.2f}, forward + backward {split['forward_backward']:.2f}, "
-        f"optimizer + EMA {split['optimizer_ema']:.2f}")
+    host = {name: float(np.median([h[b] - h[a] for h in obs.host.values()]))
+            for name, (a, b) in spans.items()}
+    for what, ms in (("CUDA events", split), ("host clock, as issued", host)):
+        log(f"ms per step, median of steps 10-29 ({what}): {ms['step']:.2f}; data "
+            f"{ms['data']:.2f}, alignment {ms['align']:.2f}, forward + backward "
+            f"{ms['forward_backward']:.2f}, optimizer + EMA {ms['optimizer_ema']:.2f}")
+    log(f"{TRAIN_B / split['step'] * 1e3:.1f} patches/s; K7 in the step 30 profile: "
+        f"{obs.profile['device_ms_by_group'].get('auction_emd', float('nan')):.4f} ms")
     return state, {"losses": losses, "first5_mean": first, "last5_mean": last,
-                   "launches": obs.launches, "ms": split,
+                   "launches": obs.launches, "ms": split, "host_ms": host,
                    "patches_per_s": TRAIN_B / split["step"] * 1e3, "profile": obs.profile}
+
+
+def alignment_host_ms(model, batch: dict) -> dict:
+    """Host ms of what a training step issues between its "batch" and
+    "align" marks: ``model.train()`` (train_step calls it every step) and
+    the alignment (K7 and the gather), each the median of 20 calls after
+    a synchronise."""
+    def clock(fn) -> float:
+        times = []
+        for _ in range(20):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        return float(np.median(times))
+
+    x, y = batch["x_start"], batch["x_gt"]
+    out = {"model_train_ms": clock(model.train),
+           "align_clean_to_noisy_ms": clock(lambda: align_clean_to_noisy(x, y, 0.01, 100))}
+    log(f"host ms between the alignment span's marks: model.train() {out['model_train_ms']:.3f}, "
+        f"align_clean_to_noisy issued {out['align_clean_to_noisy_ms']:.3f}")
+    return out
 
 
 def check_checkpoint(state, cfg: dict, batch: dict, dev) -> dict:
@@ -1657,6 +1801,7 @@ def training(dev, plan) -> dict:
         audit = determinism_audit(cfg, batch, dev)
         torch.cuda.empty_cache()
         state, run = train_phase(cfg, dev)
+        run["alignment_host_ms"] = alignment_host_ms(state.model, batch)
         checkpoint = check_checkpoint(state, cfg, batch, dev)
     return {"results": results, "gradient": gradient, "run": run, "checkpoint": checkpoint,
             "k1_backward_cudnn": cudnn, "determinism_audit": audit}

@@ -117,6 +117,27 @@ __device__ __forceinline__ uint32_t cluster_map(const void* p, uint32_t rank) {
   return a;
 }
 
+// The number of CTAs in this CTA's cluster.
+__device__ __forceinline__ uint32_t cluster_nctarank() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return n;
+}
+
+// Plain stores to a shared::cluster address (cluster_map); they are
+// ordered for the other CTAs by the next cluster_sync.
+__device__ __forceinline__ void st_cluster_f32(uint32_t a, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(a), "f"(v) : "memory");
+}
+
+__device__ __forceinline__ void st_cluster_s32(uint32_t a, int v) {
+  asm volatile("st.shared::cluster.s32 [%0], %1;\n" ::"r"(a), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ void st_cluster_u64(uint32_t a, unsigned long long v) {
+  asm volatile("st.shared::cluster.u64 [%0], %1;\n" ::"r"(a), "l"(v) : "memory");
+}
+
 // Make this CTA's freshly initialised mbarriers visible to the cluster's
 // other CTAs (before their first remote arrive on them).
 __device__ __forceinline__ void fence_mbar_init_cluster() {

@@ -56,7 +56,7 @@ _SIGNATURES = {
     "p2pb_ball_query_group_rel": (_I, (_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P, _P, _I, _P)),
     "p2pb_avg_voxelize": (_I, (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P)),
     "p2pb_avg_voxelize_backward": (_I, (_P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P)),
-    "p2pb_auction_emd": (_I, (_P, _I, _I, _I, _F, _I, _P, _P, _P, _I, _P)),
+    "p2pb_auction_emd": (_I, (_P, _P, _I, _I, _I, _F, _I, _P, _P, _P, _I, _P)),
     "p2pb_auction_smem_bytes": (_LL, (_I, _I)),
     "p2pb_conv3d_gn": (
         _I, (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P, _P, _I, _P)),

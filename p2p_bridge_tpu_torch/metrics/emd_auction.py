@@ -10,12 +10,13 @@ best object at the final prices. As in the reference the result
 approximates a bijection. It serves the PUNet training alignment (eps 0.01,
 100 rounds) and the EMD loss (eps 0.005, 50 rounds).
 
-On a CUDA tensor :func:`auction_emd_assign` launches kernel K7
-(``csrc/auction.cu``), which returns exactly the plain version's
-assignment and distances for the same ``d2``; on a CPU tensor it runs
-:func:`auction_emd_plain`, the JAX package's ``_auction_emd_xla`` step for
-step. Neither is differentiable: the assignment is integer and the
-distances are read from ``d2``.
+On CUDA tensors :func:`auction_emd` launches kernel K7
+(``csrc/auction.cu``) with the coordinates, and it computes each distance
+itself, in the operations of ``ops.common.pairwise_sqdist_ordered``; it
+returns exactly what :func:`auction_emd_plain`, the JAX package's
+``_auction_emd_xla`` step for step, returns on that function's matrix,
+which is what runs on CPU tensors. Neither is differentiable: the
+assignment is integer and the distances are read from d2.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
-from ..ops.common import pairwise_sqdist
+from ..ops.common import pairwise_sqdist_ordered
 
 NEG = -1e30
 
@@ -77,43 +78,46 @@ def auction_emd_plain(d2: torch.Tensor, eps: float, iters: int):
     return dist, assign.int()
 
 
-def _auction_emd_cuda(d2: torch.Tensor, eps: float, iters: int):
-    """(dist, assign, stats [B, 3] int32: rounds run, bidder rows read,
+SMEM_LIMIT = 232_448  # shared memory a block can use on the H100
+
+
+def _auction_emd_cuda(xyz1: torch.Tensor, xyz2: torch.Tensor, eps: float, iters: int):
+    """K7 from coordinates xyz1 [B, N, 3] and xyz2 [B, M, 3] f32, on the
+    distances of pairwise_sqdist_ordered -> (dist [B, N] f32, assign
+    [B, N] int32, stats [B, 3] int32: rounds run, bidder rows scanned,
     points left to the greedy fallback)."""
-    B, N, M = d2.shape
-    device = kernels.check(("d2", d2, torch.float32, (B, N, M)))
-    dev = d2.device
-    smem = kernels.entry_points()["p2pb_auction_smem_bytes"](N, M)
-    if smem > 232_448:
-        raise ValueError(f"auction_emd: N={N}, M={M} need {smem} bytes of shared memory")
+    B, N, _ = xyz1.shape
+    M = xyz2.shape[1]
+    device = kernels.check(("xyz1", xyz1, torch.float32, (B, N, 3)),
+                           ("xyz2", xyz2, torch.float32, (B, M, 3)))
     if N < 1 or M < 1:
         raise ValueError("auction_emd needs at least one point and one object")
+    smem = kernels.entry_points()["p2pb_auction_smem_bytes"](N, M)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"auction_emd: N={N}, M={M} need {smem} bytes of shared memory")
+    dev = xyz1.device
     assign = torch.empty((B, N), dtype=torch.int32, device=dev)
     dist = torch.empty((B, N), dtype=torch.float32, device=dev)
     stats = torch.empty((B, 3), dtype=torch.int32, device=dev)
-    kernels.launch("auction_emd", "p2pb_auction_emd", device, d2.data_ptr(), B, N, M,
-                   float(eps), int(iters), assign.data_ptr(), dist.data_ptr(),
+    kernels.launch("auction_emd", "p2pb_auction_emd", device, xyz1.data_ptr(), xyz2.data_ptr(),
+                   B, N, M, float(eps), int(iters), assign.data_ptr(), dist.data_ptr(),
                    stats.data_ptr())
     return dist, assign, stats
-
-
-def auction_emd_assign(d2: torch.Tensor, eps: float, iters: int):
-    """Auction over a cost matrix d2 [B, N, M] f32 -> (dist [B, N] f32,
-    assign [B, N] int32): kernel K7 on a CUDA tensor, the plain version on
-    a CPU tensor."""
-    d2 = d2.detach()
-    if kernels.on_card(d2):
-        return _auction_emd_cuda(d2.float().contiguous(), eps, iters)[:2]
-    return auction_emd_plain(d2, eps, iters)
 
 
 def auction_emd(xyz1: torch.Tensor, xyz2: torch.Tensor, eps: float = 0.005,
                 iters: int = 50):
     """Auction assignment from xyz1 [B, N, 3] onto xyz2 [B, M, 3] ->
     (dist [B, N] squared distances of the matched pairs, assign [B, N]
-    int32 indices into xyz2), on the expanded-form distances of
-    :func:`pairwise_sqdist`."""
-    return auction_emd_assign(pairwise_sqdist(xyz1.detach(), xyz2.detach()), eps, iters)
+    int32 indices into xyz2), on the distances of
+    :func:`pairwise_sqdist_ordered`: kernel K7 from the coordinates on CUDA
+    tensors (no [B, N, M] matrix is built), the plain version on that
+    matrix on CPU tensors."""
+    xyz1, xyz2 = xyz1.detach(), xyz2.detach()
+    if kernels.on_card(xyz1):
+        return _auction_emd_cuda(xyz1.float().contiguous(), xyz2.float().contiguous(),
+                                 eps, iters)[:2]
+    return auction_emd_plain(pairwise_sqdist_ordered(xyz1, xyz2), eps, iters)
 
 
 def align_clean_to_noisy(noisy: torch.Tensor, clean: torch.Tensor, eps: float = 0.005,

@@ -7,7 +7,8 @@ reached through their modules (``ops.ball_query``, ``ops.conv3d_gn``,
 ``ops.interpolate``)."""
 
 from .ball_query import ball_query_group, ball_query_group_rel
-from .common import batched_take, pairwise_sqdist, pairwise_sqdist_exact
+from .common import (batched_take, pairwise_sqdist, pairwise_sqdist_exact,
+                     pairwise_sqdist_ordered)
 from .devoxelize import trilinear_devoxelize, trilinear_devoxelize_with_mean
 from .fps import furthest_point_sample
 from .interpolate import nearest_neighbor_interpolate, three_nn
@@ -18,5 +19,5 @@ __all__ = [
     "avg_voxelize", "ball_query_group", "ball_query_group_rel", "batched_take",
     "flat_voxel_index", "furthest_point_sample", "knn", "nearest_neighbor_interpolate",
     "normalize_coords_to_voxels", "pairwise_sqdist", "pairwise_sqdist_exact",
-    "three_nn", "trilinear_devoxelize", "trilinear_devoxelize_with_mean",
+    "pairwise_sqdist_ordered", "three_nn", "trilinear_devoxelize", "trilinear_devoxelize_with_mean",
 ]

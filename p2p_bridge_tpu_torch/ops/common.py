@@ -20,6 +20,23 @@ def pairwise_sqdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return d2.clamp_min(0.0)
 
 
+def pairwise_sqdist_ordered(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Squared distances [..., M, N] in the expanded form of
+    :func:`pairwise_sqdist`, one rounded operation at a time in a fixed
+    order: a2 = (ax*ax + ay*ay) + az*az, b2 likewise, cross = (ax*bx +
+    ay*by) + az*bz, then max((a2 - 2*cross) + b2, 0). Kernel K7 computes
+    its distances in the same operations, so the two agree bit for bit on
+    any device (a matrix product sums in an order of its own)."""
+    a = a.float()
+    b = b.float()
+    a2 = (a[..., 0] * a[..., 0] + a[..., 1] * a[..., 1]) + a[..., 2] * a[..., 2]
+    b2 = (b[..., 0] * b[..., 0] + b[..., 1] * b[..., 1]) + b[..., 2] * b[..., 2]
+    ax, ay, az = (a[..., :, None, c] for c in range(3))
+    bx, by, bz = (b[..., None, :, c] for c in range(3))
+    cross = (ax * bx + ay * by) + az * bz
+    return ((a2[..., :, None] - 2.0 * cross) + b2[..., None, :]).clamp_min(0.0)
+
+
 def pairwise_sqdist_exact(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Squared distances [..., M, N] from per-coordinate differences,
     (dx*dx + dy*dy) + dz*dz: no cancellation, so strict radius tests agree

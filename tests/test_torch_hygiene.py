@@ -36,7 +36,8 @@ MAIN_PATH = [
     "p2p_bridge_tpu_torch.data.punet", "p2p_bridge_tpu_torch.data.dataloader",
     "p2p_bridge_tpu_torch.data.batch", "p2p_bridge_tpu_torch.train", "chip_smoke",
 ]
-PORT_SOURCES = sorted((ROOT / "p2p_bridge_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_SOURCES = sorted((ROOT / "p2p_bridge_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "profile_denoise.py"]
 
 
 def clean_env(**extra):

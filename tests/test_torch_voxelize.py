@@ -201,8 +201,8 @@ OPS = {
                              lambda dt: [_rand(2, 64, 3), _rand(2, 16, 3), _rand(2, 16, 8, dtype=dt)],
                              lambda t: interp_ops._three_nn_interpolate_cuda(*t, True), 1),
     "auction_emd": ("auction_emd", ["p2pb_auction_smem_bytes", "p2pb_auction_emd"],
-                    lambda dt: [_rand(2, 16, 16)],
-                    lambda t: emd_auction._auction_emd_cuda(t[0], 0.01, 10), 0),
+                    lambda dt: [_rand(2, 16, 3), _rand(2, 24, 3)],
+                    lambda t: emd_auction._auction_emd_cuda(*t, 0.01, 10), 1),
     # the backward scatter kernel through each of its three wrappers
     "scatter_devoxelize": ("scatter_rows", ["p2pb_scatter_rows"],
                            lambda dt: [_rand(2, 64, 16, dtype=dt), _rand(2, 64, 3) * 7],
@@ -261,11 +261,9 @@ def _faults(t):
             ("layout", strided, ValueError, "contiguous")]
 
 
-# a single-input op takes its device from that input (fps, fps_cluster,
-# auction_emd), and d2 alone sets every size of auction_emd
+# a single-input op takes its device from that input (fps, fps_cluster)
 FAULT_CASES = [(op, fault) for op in sorted(OPS) for fault in ("device", "dtype", "shape", "layout")
-               if not (fault == "device" and op in ("fps", "fps_cluster", "auction_emd"))
-               and not (fault == "shape" and op == "auction_emd")]
+               if not (fault == "device" and op in ("fps", "fps_cluster"))]
 
 
 @pytest.mark.parametrize("op,fault", FAULT_CASES)
