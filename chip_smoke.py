@@ -90,7 +90,24 @@ Phases, in order; any failure raises and the process exits non-zero:
      profile of step 30, the host time of model.train() and of the
      alignment (what the alignment span issues); and a checkpoint
      that denoise_object.load_weights reads back into a model whose
-     forward on the card is bit-equal to the trained model's.
+     forward on the card is bit-equal to the trained model's;
+  8. rooms: PVDL_SNPP as shipped (bf16, 118,666,115 parameters, 384
+     feature channels) with random weights from seed 0 on a synthetic
+     ScanNet++ scene written with numpy (a 4 x 4 m floor with boxes,
+     spheres and cylinders, 200,000 noisy points with outliers, a seeded
+     [384, N] feature file, the mesh): the f32 forward on the card against
+     the CPU at B = 1 x 4096 and the bf16 forward against it, two bf16
+     forwards at B = 32 x 4096 bit-equal; K1 at each conv of that forward
+     against its plain version (ROOM_CONV_TOL), timed beside it and cuDNN;
+     python -m p2p_bridge_tpu_torch.denoise_room through its main on the
+     card (5 steps, k 4, batch 32 x 4096) with the launch counts set to 0
+     just before it and read just after (every backbone kernel launched),
+     the native host runtime required, the prediction finite and bit-equal
+     over two runs, ms per batch (CUDA events), room points/s and the host
+     split (seeding and KD-tree, patching, sampling, recomposition), a
+     torch.profiler window over one batch; then python -m
+     p2p_bridge_tpu_torch.evaluate_rooms on the scene (four finite metrics)
+     and the room's Chamfer distances on the card against the CPU.
 The line before the last is a JSON object with each kernel's launches,
 errors, times (back to back, device, host per call) and bounds; the last
 line is {"ok": true, "device": {...}}.
@@ -98,9 +115,11 @@ line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import csv
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -113,11 +132,14 @@ import torch.nn.functional as F
 
 from p2p_bridge_tpu_torch import kernels
 from p2p_bridge_tpu_torch import denoise_object
-from p2p_bridge_tpu_torch.config import pvds_punet
+from p2p_bridge_tpu_torch import denoise_room as room_cli
+from p2p_bridge_tpu_torch import evaluate_rooms, rooms, runtime
+from p2p_bridge_tpu_torch.config import pvdl_snpp, pvds_punet
 from p2p_bridge_tpu_torch.data.batch import get_data_batch
 from p2p_bridge_tpu_torch.data.dataloader import get_dataloader
 from p2p_bridge_tpu_torch.inference import patch_based_denoise_batch
 from p2p_bridge_tpu_torch.metrics import emd_auction
+from p2p_bridge_tpu_torch.metrics.chamfer import chamfer_distance_large
 from p2p_bridge_tpu_torch.metrics.emd_auction import align_clean_to_noisy
 from p2p_bridge_tpu_torch.models.model_loader import save_checkpoint
 from p2p_bridge_tpu_torch.models.p2pb import P2PBridge
@@ -132,6 +154,7 @@ from p2p_bridge_tpu_torch.ops import interpolate as interp_ops
 from p2p_bridge_tpu_torch.ops import voxelize as vox_ops
 from p2p_bridge_tpu_torch.ops.common import (pairwise_sqdist, pairwise_sqdist_exact,
                                               pairwise_sqdist_ordered)
+from p2p_bridge_tpu_torch.utils.io import read_ply, write_ply
 
 PATCHES = 73  # int(3 * 50_000 / 2048)
 PATCH = 2048
@@ -149,10 +172,22 @@ PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
 # their last bit the rounding can land one bf16 ulp apart: 2^-7 of the
 # value at the bottom of a binade, 2^-8 at the top
 BF16_ULP = 2.0 ** -7
+# K1 bf16 in phase 3: one ulp holds on phase 3's seeded inputs, but the
+# derivation above misses a step of K1 (see ROOM_CONV_TOL): other inputs
+# can read two ulps, the object path's B = 73 shapes among them, and such a
+# reading is that gap, not a kernel fault (ROADMAP Queue 3)
 CONV_TOL = {"f32": 1e-4, "bf16": BF16_ULP}    # times max|out|: another f32 order, TF32 off
 DEVOX_TOL = {"f32": 1e-6, "bf16": BF16_ULP}   # times max|grid|: same order; the mean in double
 INTERP_TOL = {"f32": 1e-6, "bf16": BF16_ULP}  # times max|features|: a 3-term f32 sum
 FORWARD_TOL = 1e-3  # abs, times max(1, max|out_cpu|): whole f32 backbone, GPU vs CPU
+# K1 bf16 at the room's shapes, times max|out|: both sides store the pre-norm
+# grid in bf16 (conv3d_gn_plain stages it as the kernel does), so where the
+# two f32 sums round to neighbouring bf16 values the normalisation carries
+# that step (about one output ulp at gamma / sigma ~ 1) ahead of the
+# output's own rounding: two ulps. r = 16 256 -> 256 + swish at B = 32
+# reads 0.0625 at |out| in [4, 8) here, where CONV_TOL allows one ulp
+# (ROADMAP Queue 3).
+ROOM_CONV_TOL = 2 * BF16_ULP
 # relative L2 of the bf16 forward against the f32 forward of the same
 # weights on the card: bf16 keeps 8 bits (2^-9 per rounding) and the
 # roundings of some 40 normalised layers add up; the CPU tests measured
@@ -570,6 +605,31 @@ def sa_composition(centers, pts, feat, radius, k):
     return torch.cat([rel, both[..., 3:]], dim=-1), idx
 
 
+def ball_query_equal(rng, dev, name, dt, b, n, m, radius, k, c):
+    """K4's rows entry torch.equal to its plain version and its fused entry
+    (the SA module's) torch.equal to the SA module's composition, indices
+    equal throughout. Returns the inputs."""
+    pts = patches(rng, b, n, dev)
+    centers = pts[:, :m].contiguous()
+    feat = torch.randn(b, n, c - 3, device=dev).to(dt)
+    rows = torch.cat([pts.to(dt), feat], dim=-1)
+    got_g, got_i = bq_ops.ball_query_group(centers, pts, rows, radius, k)
+    want_g, want_i = bq_ops.ball_query_group_plain(centers, pts, rows, radius, k)
+    fused_g, fused_i = bq_ops.ball_query_group_rel(centers, pts, feat, radius, k)
+    comp_g, comp_i = sa_composition(centers, pts, feat, radius, k)
+    torch.cuda.synchronize()
+    what = f"ball query {name} B={b} {n}->{m}"
+    if not (torch.equal(got_i, want_i) and torch.equal(fused_i, want_i)
+            and torch.equal(comp_i, want_i)):
+        raise AssertionError(f"{what}: indices differ")
+    if not torch.equal(got_g, want_g):
+        raise AssertionError(f"{what}: gathered rows differ")
+    if not (fused_g.dtype == dt and torch.equal(fused_g, comp_g)):
+        raise AssertionError(f"{what}: the fused grouping differs from the SA module's "
+                             "composition")
+    return pts, centers, feat, rows
+
+
 def check_ball_query(rng, dev, shapes) -> dict:
     """K4 at the SA shapes: the old entry (rows gathered as they are) and the
     fused entry the SA module calls (grouped tensor written directly), each
@@ -578,23 +638,8 @@ def check_ball_query(rng, dev, shapes) -> dict:
     for name, dt in DTYPES.items():
         tally = Tally(name, library=False)
         for n, m, radius, k, c in shapes["sa"]:
-            pts = patches(rng, PATCHES, n, dev)
-            centers = pts[:, :m].contiguous()
-            feat = torch.randn(PATCHES, n, c - 3, device=dev).to(dt)
-            rows = torch.cat([pts.to(dt), feat], dim=-1)
-            got_g, got_i = bq_ops.ball_query_group(centers, pts, rows, radius, k)
-            want_g, want_i = bq_ops.ball_query_group_plain(centers, pts, rows, radius, k)
-            fused_g, fused_i = bq_ops.ball_query_group_rel(centers, pts, feat, radius, k)
-            comp_g, comp_i = sa_composition(centers, pts, feat, radius, k)
-            torch.cuda.synchronize()
-            if not (torch.equal(got_i, want_i) and torch.equal(fused_i, want_i)
-                    and torch.equal(comp_i, want_i)):
-                raise AssertionError(f"ball query {name} {n}->{m}: indices differ")
-            if not torch.equal(got_g, want_g):
-                raise AssertionError(f"ball query {name} {n}->{m}: gathered rows differ")
-            if not (fused_g.dtype == dt and torch.equal(fused_g, comp_g)):
-                raise AssertionError(f"ball query {name} {n}->{m}: the fused grouping differs "
-                                     "from the SA module's composition")
+            pts, centers, feat, rows = ball_query_equal(rng, dev, name, dt, PATCHES, n, m,
+                                                        radius, k, c)
             old_ms = time_ms(lambda: bq_ops.ball_query_group(centers, pts, rows, radius, k))
             def fused():
                 return bq_ops.ball_query_group_rel(centers, pts, feat, radius, k)
@@ -695,14 +740,14 @@ def conv_inputs(gen, dev, dt, B, r, cin, cout, shared):
     return x, w, b, gamma, beta
 
 
-def conv_error(name, args, act, what) -> tuple:
+def conv_error(name, args, act, what, rel_tol=None) -> tuple:
     """K1 against its plain version on the same inputs; raises above the
-    tolerance."""
+    tolerance (CONV_TOL[name] unless ``rel_tol``, times max|out|)."""
     got = conv_ops.conv3d_gn(*args, 8, 1e-5, act)
     want = conv_ops.conv3d_gn_plain(*args, 8, 1e-5, act)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
-    tol = CONV_TOL[name] * want.float().abs().max().item()
+    tol = (rel_tol or CONV_TOL[name]) * want.float().abs().max().item()
     if not (got.dtype == args[0].dtype and got.shape == want.shape and err <= tol):
         raise AssertionError(f"conv3d_gn {name} {what}: max err {err} > {tol}")
     return err, tol
@@ -1807,6 +1852,482 @@ def training(dev, plan) -> dict:
             "k1_backward_cudnn": cudnn, "determinism_audit": audit}
 
 
+# ---------------------------------------------------------------- phase 8
+ROOM_POINTS = 200_000  # scripts/make_synthetic_rooms.py's scan: points, sigma, outliers
+ROOM_NOISE = 0.015
+ROOM_OUTLIERS = 0.002
+ROOM_FEATS = 384  # PVDL_SNPP's model.extra_feature_channels (DINO features)
+ROOM_PATCH = 4096  # PVDL_SNPP's data.npoints
+ROOM_BATCH = 32  # the room CLI's --batch_size
+ROOM_STEPS = 5
+ROOM_K = 4
+# card vs CPU of one squared nearest-neighbour distance in the
+# |a|^2 + |b|^2 - 2ab form (TF32 off): the two sum the three terms in other
+# orders, a few ulps of the largest term apart
+CD_ULPS = 4
+
+
+def grid_surface(nu: int, nv: int, point) -> tuple:
+    """The surface point(u, v), u and v in [0, 1], on an nu x nv grid of
+    vertices -> (verts [nu * nv, 3], faces [2 (nu - 1)(nv - 1), 3])."""
+    u, v = np.meshgrid(np.linspace(0, 1, nu), np.linspace(0, 1, nv), indexing="ij")
+    verts = np.stack(point(u, v), -1).reshape(-1, 3)
+    a = (np.arange(nu - 1)[:, None] * nv + np.arange(nv - 1)[None, :]).ravel()
+    faces = np.concatenate([np.stack([a, a + 1, a + nv], 1),
+                            np.stack([a + 1, a + nv + 1, a + nv], 1)])
+    return verts, faces
+
+
+def room_mesh(rng) -> tuple:
+    """A 4 x 4 m floor (5 cm grid) with two each of boxes, spheres and
+    cylinders standing on it, 0.25-0.6 m in size, as
+    scripts/make_synthetic_rooms.py builds its scenes."""
+    parts = [grid_surface(81, 81, lambda u, v: (4 * u, 4 * v, 0 * u))]
+    for i in range(6):
+        cx, cy = rng.uniform(0.7, 3.3, 2)
+        s = rng.uniform(0.25, 0.6)
+        kind = ("box", "sphere", "cylinder")[i % 3]
+        if kind == "sphere":
+            parts.append(grid_surface(24, 48, lambda u, v: (
+                cx + s * np.sin(np.pi * u) * np.cos(2 * np.pi * v),
+                cy + s * np.sin(np.pi * u) * np.sin(2 * np.pi * v), s + s * np.cos(np.pi * u))))
+        elif kind == "cylinder":
+            parts.append(grid_surface(16, 48, lambda u, v: (
+                cx + s * np.cos(2 * np.pi * v), cy + s * np.sin(2 * np.pi * v), 2 * s * u)))
+        else:
+            for face in (lambda u, v: (cx + s * (2 * u - 1), cy + s * (2 * v - 1), 0 * u + s),
+                         lambda u, v: (0 * u + cx - s, cy + s * (2 * u - 1), s * v),
+                         lambda u, v: (0 * u + cx + s, cy + s * (2 * u - 1), s * v),
+                         lambda u, v: (cx + s * (2 * u - 1), 0 * u + cy - s, s * v),
+                         lambda u, v: (cx + s * (2 * u - 1), 0 * u + cy + s, s * v)):
+                parts.append(grid_surface(16, 16, face))
+    verts, faces, off = [], [], 0
+    for v, f in parts:
+        verts.append(v)
+        faces.append(f + off)
+        off += len(v)
+    return np.concatenate(verts), np.concatenate(faces)
+
+
+def sample_mesh(verts, faces, n: int, rng) -> np.ndarray:
+    """n points uniform over the mesh's area."""
+    tri = verts[faces]
+    areas = 0.5 * np.linalg.norm(np.cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0]), axis=1)
+    t = tri[rng.choice(len(faces), size=n, p=areas / areas.sum())]
+    u, v = rng.uniform(size=(2, n, 1))
+    flip = (u + v) > 1
+    u, v = np.where(flip, 1 - u, u), np.where(flip, 1 - v, v)
+    return t[:, 0] + u * (t[:, 1] - t[:, 0]) + v * (t[:, 2] - t[:, 0])
+
+
+def synthetic_room(root: Path, rng) -> tuple:
+    """A ScanNet++ scene as the room CLIs read it: data/scene0/scans/
+    iphone.ply (ROOM_POINTS points sampled from the mesh, gaussian noise
+    and a fraction of outliers), scans/mesh_aligned_0.05.ply (the mesh,
+    written with the port's write_ply) and features/dino_iphone.npy
+    ([ROOM_FEATS, N] f32 from the seed, SNPP's layout). -> (scan path,
+    data root)."""
+    scene = root / "data" / "scene0"
+    (scene / "scans").mkdir(parents=True)
+    (scene / "features").mkdir()
+    verts, faces = room_mesh(rng)
+    write_ply(str(scene / "scans" / "mesh_aligned_0.05.ply"), verts, faces=faces)
+    noisy = sample_mesh(verts, faces, ROOM_POINTS, rng)
+    noisy += rng.normal(size=noisy.shape) * ROOM_NOISE
+    sel = rng.choice(ROOM_POINTS, int(ROOM_OUTLIERS * ROOM_POINTS), replace=False)
+    noisy[sel] += rng.normal(size=(len(sel), 3)) * (10 * ROOM_NOISE)
+    scan = scene / "scans" / "iphone.ply"
+    write_ply(str(scan), noisy.astype(np.float32))
+    np.save(scene / "features" / "dino_iphone.npy",
+            rng.standard_normal((ROOM_FEATS, ROOM_POINTS), dtype=np.float32))
+    log(f"synthetic room: {ROOM_POINTS:,} points, mesh of {len(verts):,} vertices and "
+        f"{len(faces):,} faces, {ROOM_FEATS} feature channels")
+    return scan, root / "data"
+
+
+def build_room_models() -> tuple:
+    """(PVDL_SNPP as shipped, computing in bf16, random weights from seed
+    0; its f32 twin), on the CPU."""
+    model = build_unet_from_config(pvdl_snpp()).eval()
+    init_parameters(model, torch.Generator().manual_seed(0))
+    n = sum(p.numel() for p in model.parameters())
+    if n != 118_666_115 or model.dtype != torch.bfloat16:
+        raise AssertionError(f"PVDL_SNPP: {n} parameters in {model.dtype}, "
+                             "expected 118,666,115 computing in bf16")
+    cfg = pvdl_snpp()
+    cfg["model"]["compute_dtype"] = "f32"
+    twin = build_unet_from_config(cfg).eval()
+    twin.load_state_dict(model.state_dict())
+    log(f"PVDL_SNPP: {n:,} parameters, computing in bf16 as shipped; f32 twin")
+    return model, twin
+
+
+def room_inputs(scan: Path, b: int, dev) -> tuple:
+    """b patches of ROOM_PATCH points of the scan (each normalised as
+    denoise_patch_batch does), ROOM_FEATS feature channels from a seed and
+    timesteps, on ``dev``."""
+    rng = np.random.default_rng(7)
+    pts = read_ply(str(scan))["points"]
+    xyz = pts[rng.choice(len(pts), (b, ROOM_PATCH))]
+    xyz = xyz - xyz.mean(axis=1, keepdims=True)
+    xyz /= np.linalg.norm(xyz, axis=2).max(axis=1)[:, None, None]
+    cond = rng.standard_normal((b, ROOM_PATCH, ROOM_FEATS), dtype=np.float32)
+    t = rng.uniform(0.0, 1000.0, b).astype(np.float32)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+                 for a in (xyz, t, cond))
+
+
+def check_room_forward(model, twin, scan: Path, dev) -> dict:
+    """The f32 forward on the card against the CPU at B = 1 with the
+    conditioning (FORWARD_TOL) and the bf16 forward against the f32 one
+    (BF16_FORWARD_REL_L2), as phase 4; two bf16 forwards at B = ROOM_BATCH
+    bit-equal. Moves both models to the card."""
+    x, t, c = room_inputs(scan, 1, "cpu")
+    with torch.no_grad():
+        want = twin(x, t, c).numpy()
+        twin.to(dev)
+        got32 = twin(x.to(dev), t.to(dev), c.to(dev)).cpu().numpy()
+        got16 = model.to(dev)(x.to(dev), t.to(dev), c.to(dev)).cpu().numpy()
+    err = float(np.abs(got32 - want).max())
+    tol = FORWARD_TOL * max(1.0, float(np.abs(want).max()))
+    rel = float(np.linalg.norm(got16 - got32) / np.linalg.norm(got32))
+    log(f"PVDL_SNPP f32 forward [1, {ROOM_PATCH}, 3 + {ROOM_FEATS}] card vs CPU: max err "
+        f"{err:.3g} (tol {tol:.3g}), max|out| {np.abs(want).max():.3g}; bf16 vs f32 on the card: "
+        f"relative L2 {rel:.4g} (bound {BF16_FORWARD_REL_L2})")
+    if not (np.isfinite(got32).all() and err <= tol):
+        raise AssertionError(f"PVDL_SNPP card forward differs from the CPU's: {err} > {tol}")
+    if not (np.isfinite(got16).all() and rel <= BF16_FORWARD_REL_L2):
+        raise AssertionError(f"PVDL_SNPP bf16 forward: relative L2 {rel} > {BF16_FORWARD_REL_L2}")
+    x, t, c = room_inputs(scan, ROOM_BATCH, dev)
+    with torch.no_grad():
+        first = model(x, t, c)
+        second = model(x, t, c)
+    if not (torch.equal(first, second) and torch.isfinite(first).all()):
+        raise AssertionError(f"two bf16 PVDL_SNPP forwards at B={ROOM_BATCH} differ by up to "
+                             f"{(first - second).abs().max().item()}")
+    log(f"two bf16 forwards of PVDL_SNPP at B={ROOM_BATCH} x {ROOM_PATCH} with "
+        f"{ROOM_FEATS} feature channels, same weights and inputs: bit-equal")
+    return {"f32_card_vs_cpu_max_abs": err, "tol": tol, "bf16_vs_f32_rel_l2": rel,
+            "bf16_bit_equal": True}
+
+
+def check_room_conv(dev, shapes) -> dict:
+    """K1 at each conv of one bf16 PVDL_SNPP forward at B = ROOM_BATCH
+    (``shapes``): against its plain version (ROOM_CONV_TOL), and timed
+    beside the plain version and cuDNN conv + GroupNorm, with its bound;
+    r = 8 512 -> 512 runs as two channel tiles."""
+    convs = []
+    for _, r, cin, cout in shapes["pvconv"]:
+        convs += [(r, cin, cout, True), (r, cout, cout, False)]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    dt = torch.bfloat16
+    tally, shapes = Tally("bf16", library=True), []
+    for (r, cin, cout, act), calls in counted(convs):
+        x, w, b, gamma, beta = conv_inputs(gen, dev, dt, ROOM_BATCH, r, cin, cout, False)
+        err, tol = conv_error("bf16", (x, w, b, gamma, beta), act, f"room r={r} {cin}->{cout}",
+                              ROOM_CONV_TOL)
+        ms = time_ms(lambda: conv_ops.conv3d_gn(x, w, b, gamma, beta, 8, 1e-5, act))
+        plain = time_ms(lambda: conv_ops.conv3d_gn_plain(x, w, b, gamma, beta, 8, 1e-5, act))
+        xc = x.permute(0, 4, 1, 2, 3).contiguous()
+        wc = w.permute(4, 3, 0, 1, 2).contiguous()
+        ga, be = gamma.to(dt)[:, :, None, None, None], beta.to(dt)[:, :, None, None, None]
+
+        def library():
+            y = F.group_norm(F.conv3d(xc, wc, b.to(dt), padding=1), 8, eps=1e-5) * ga + be
+            return F.silu(y) if act else y
+
+        lib = time_ms(library)
+        flop = 2.0 * ROOM_BATCH * r ** 3 * 27 * cin * cout
+        nbytes = (ROOM_BATCH * r ** 3 * (cin + cout) + 27 * cin * cout) * esize(dt)
+        bound = tally.add(calls, ms, plain, lib, nbytes, flop, err)
+        shapes.append({"r": r, "cin": cin, "cout": cout, "swish": act, "calls": calls, "ms": ms,
+                       "plain_ms": plain, "library_ms": lib, "bound_ms": bound, "max_abs_err": err})
+        log(f"conv3d_gn bf16 room r={r} {cin}->{cout}{' + swish' if act else ''} x{calls} "
+            f"B={ROOM_BATCH}: max err {err:.3g} "
+            f"(tol {tol:.3g}); kernel {ms:.3f} ms ({flop / ms / 1e9:.2f} TFLOP/s, "
+            f"{bound / ms:.3f} of the bound {bound:.3g} ms), plain {plain:.3f} ms, cuDNN conv + "
+            f"GroupNorm {lib:.3f} ms (kernel / cuDNN {ms / lib:.3f})")
+        del x, xc
+        torch.cuda.empty_cache()
+    row = tally.row()
+    log(f"conv3d_gn bf16 over one PVDL_SNPP forward at B={ROOM_BATCH}: kernel {row['ms']:.3f} ms, "
+        f"plain {row['plain_ms']:.3f}, cuDNN {row['library_ms']:.3f}, bound {row['bound_ms']:.3f} "
+        f"({row['bound_by']})")
+    return {"per_forward": {k: row[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                                "bound_by")}, "max_abs_err": tally.err,
+            "shapes": shapes}
+
+
+def check_room_kernels(dev, shapes) -> dict:
+    """Phase 3's comparisons at the shapes of one PVDL_SNPP forward at
+    B = ROOM_BATCH (``shapes``: main_path_shapes of its plan at ROOM_PATCH),
+    in bf16 and f32: K5 indices torch.equal on random and tied clouds; K4's
+    rows and fused entries torch.equal to theirs; K2 grid and counts
+    torch.equal to the CPU plain version; K3 within DEVOX_TOL with the mean
+    torch.equal to the fixed order; K6 indices torch.equal, the sum within
+    INTERP_TOL; K1 f32 within CONV_TOL (bf16: check_room_conv). -> the
+    largest error of each kernel and dtype."""
+    rng = np.random.default_rng(10)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    B = ROOM_BATCH
+    errs = {name: {} for name in SERVING}
+    errs["fps"]["f32"] = 0.0  # indices, exact
+    for i, (n, m, _, _, _) in enumerate(shapes["sa"]):
+        fps_equal(patches(rng, B, n, dev), m, f"room sa{i} [{B}, {n}]")
+        tied = torch.from_numpy(np.stack([tied_cloud(rng, n, 32) for _ in range(B)])).to(dev)
+        fps_equal(tied, m, f"room sa{i} tied [{B}, {n}]")
+        log(f"fps room sa{i} [{B}, {n}] -> {m}, random and tied: indices equal")
+    for name, dt in DTYPES.items():
+        for n, m, radius, k, c in shapes["sa"]:
+            ball_query_equal(rng, dev, name, dt, B, n, m, radius, k, c)
+            log(f"ball_query_group {name} room B={B} {n}->{m} r={radius} K={k} C={c}: idx, "
+                "rows and the fused grouping equal")
+        errs["ball_query_group"][name] = errs["avg_voxelize"][name] = 0.0  # exact
+        for n, r, c in dict.fromkeys((n, r, cin) for n, r, cin, _ in shapes["pvconv"]):
+            voxelize_equal(rng, dev, dt, B, n, r, c)
+            log(f"avg_voxelize {name} room B={B} N={n} r={r} C={c}: grid and counts equal to "
+                "the CPU plain version, two calls equal")
+        worst = 0.0
+        for n, r, c in dict.fromkeys((n, r, cout) for n, r, _, cout in shapes["pvconv"]):
+            *_, err, tol, _ = devoxelize_equal(rng, dev, name, dt, B, n, r, c)
+            worst = max(worst, err)
+            log(f"trilinear_devoxelize {name} room B={B} N={n} r={r} C={c}: max err {err:.3g} "
+                f"(tol {tol:.3g}), mean bit-equal to the fixed order, two calls bit-equal")
+            torch.cuda.empty_cache()
+        errs["trilinear_devoxelize"][name] = worst
+        worst = 0.0
+        for n, m, c in shapes["fp"]:
+            pts = patches(rng, B, n, dev)
+            centers = pts[:, :m].contiguous()
+            feat = torch.randn(B, m, c, device=dev, generator=gen).to(dt)
+            err_w, err = interp_equal(f"room B={B} {n}<-{m}", dt, pts, centers, feat)
+            worst = max(worst, err, err_w)
+            log(f"three_nn_interpolate {name} room B={B} {n}<-{m} C={c}: indices equal, "
+                f"weights {err_w:.3g}, max err {err:.3g}")
+        errs["three_nn_interpolate"][name] = worst
+    convs = []
+    for _, r, cin, cout in shapes["pvconv"]:
+        convs += [(r, cin, cout, True), (r, cout, cout, False)]
+    worst = 0.0
+    for r, cin, cout, act in dict.fromkeys(convs):
+        args = conv_inputs(gen, dev, torch.float32, B, r, cin, cout, False)
+        err, tol = conv_error("f32", args, act, f"room B={B} r={r} {cin}->{cout}")
+        worst = max(worst, err)
+        log(f"conv3d_gn f32 room B={B} r={r} {cin}->{cout}{' + swish' if act else ''}: "
+            f"max err {err:.3g} (tol {tol:.3g})")
+        del args
+        torch.cuda.empty_cache()
+    errs["conv3d_gn"]["f32"] = worst
+    return errs
+
+
+class RoomClock:
+    """Clocks the phases of the room CLI's run by wrapping, while it is
+    entered, the functions of rooms.py that denoise_room calls: the whole
+    denoise_room (host clock), create_patches, each denoise_patch_batch
+    (CUDA events and the host clock) and the recomposition (RunningMean's
+    update and result). Keeps the patches and the bridge of the run."""
+
+    def __init__(self):
+        self.ms = {"denoise_room": 0.0, "create_patches": 0.0, "sampling": 0.0,
+                   "recomposition": 0.0, "before_first_batch": None}
+        self.batch_ms, self.patches, self.bridge, self.t0 = [], None, None, 0.0
+        self.saved = []
+
+    def _wrap(self, owner, name, wrapper):
+        fn = getattr(owner, name)
+        self.saved.append((owner, name, fn))
+        setattr(owner, name, wrapper(fn))
+
+    def __enter__(self):
+        def timed(key):
+            def wrapper(fn):
+                def call(*args, **kw):
+                    t0 = time.perf_counter()
+                    out = fn(*args, **kw)
+                    self.ms[key] += (time.perf_counter() - t0) * 1e3
+                    if key == "create_patches":
+                        self.patches = out
+                    return out
+                return call
+            return wrapper
+
+        def room(fn):
+            def call(*args, **kw):
+                self.t0 = time.perf_counter()
+                return timed("denoise_room")(fn)(*args, **kw)
+            return call
+
+        def batch(fn):
+            def call(bridge, *args, **kw):
+                if self.ms["before_first_batch"] is None:
+                    self.ms["before_first_batch"] = (time.perf_counter() - self.t0) * 1e3
+                self.bridge = bridge
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                    enable_timing=True)
+                start.record()
+                out = timed("sampling")(fn)(bridge, *args, **kw)
+                end.record()
+                torch.cuda.synchronize()
+                self.batch_ms.append(start.elapsed_time(end))
+                return out
+            return call
+
+        self._wrap(room_cli, "denoise_room", room)
+        self._wrap(rooms, "create_patches", timed("create_patches"))
+        self._wrap(rooms, "denoise_patch_batch", batch)
+        self._wrap(rooms.RunningMean, "update", timed("recomposition"))
+        self._wrap(rooms.RunningMean, "result", timed("recomposition"))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in reversed(self.saved):
+            setattr(owner, name, fn)
+        self.saved = []
+
+
+def denoise_room_cli(scan: Path, run: Path) -> tuple:
+    """One run of python -m p2p_bridge_tpu_torch.denoise_room on the card
+    (through main) with the launch counts set to 0 just before it and read
+    just after -> (prediction [N, 3], launches, RoomClock, CLI wall ms)."""
+    argv = ["--room_path", str(scan), "--model_path", str(run), "--steps", str(ROOM_STEPS),
+            "--k", str(ROOM_K), "--batch_size", str(ROOM_BATCH), "--device", "cuda",
+            "--overwrite"]
+    with RoomClock() as clock:
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = room_cli.main(argv)
+        wall = (time.perf_counter() - t0) * 1e3
+        launches = dict(kernels.launch_counts)
+    return read_ply(out)["points"], launches, clock, wall
+
+
+def profile_room_batch(clock: RoomClock, dev) -> dict:
+    """torch.profiler over one more batch of ROOM_BATCH patches of the run
+    (ROOM_STEPS steps): device time by kernel group, the idle share and
+    the launches of the batch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    xyz, _, feats, _, _ = clock.patches
+    sel = slice(0, ROOM_BATCH)
+
+    def batch():
+        rooms.denoise_patch_batch(clock.bridge, xyz[sel], ROOM_STEPS, None, feats[sel], False, True)
+
+    batch()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    start_trace(prof)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    batch()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    prof.stop()
+    out = device_time(prof, wall_ms, f"bf16 room batch ({ROOM_BATCH} x {ROOM_PATCH}, "
+                                     f"{ROOM_STEPS} steps)")
+    out["launches"] = dict(kernels.launch_counts)
+    out["recorded_share"] = recorded_share(
+        out, kernels.launch_counts,
+        ("trilinear_devoxelize", "ball_query_group", "three_nn_interpolate"))
+    return out
+
+
+def evaluate_room(data_root: Path, pred: np.ndarray, mesh_path: Path) -> dict:
+    """python -m p2p_bridge_tpu_torch.evaluate_rooms on the card (through
+    main), SNPP layout: the four metrics finite; the room's Chamfer
+    distances on the card against the CPU, within CD_ULPS ulps of the
+    largest term of a distance."""
+    t0 = time.perf_counter()
+    evaluate_rooms.main(["--data_root", str(data_root), "--dataset", "snpp", "--device", "cuda"])
+    wall = (time.perf_counter() - t0) * 1e3
+    (csv_path,) = data_root.glob("*/predictions/P2SB/metrics.csv")
+    with open(csv_path, newline="") as f:
+        (row,) = list(csv.DictReader(f))
+    metrics = {k: float(row[k]) for k in ("point_dist", "face_dist", "cd_pred_gt", "cd_gt_pred")}
+    log(f"evaluate_rooms (snpp, card) in {wall:.0f} ms: {metrics} (x 10^3)")
+    if not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"room metrics not finite: {metrics}")
+    gt = read_ply(str(mesh_path))["points"]
+    card = chamfer_distance_large(pred, gt, device="cuda")
+    cpu = chamfer_distance_large(pred, gt, device="cpu")
+    tol = CD_ULPS * 2.0 ** -23 * float((pred ** 2).sum(1).max() + (gt ** 2).sum(1).max())
+    err = max(float(np.abs(a - b).max()) for a, b in zip(card, cpu))
+    means = [float(d.mean()) for d in card + cpu]
+    log(f"room Chamfer distance, card vs CPU: max abs {err:.3g} a squared distance (tol "
+        f"{tol:.3g}); means card {means[0]:.6g} / {means[1]:.6g}, CPU {means[2]:.6g} / "
+        f"{means[3]:.6g}")
+    if not err <= tol:
+        raise AssertionError(f"room Chamfer distance, card vs CPU: {err} > {tol}")
+    return {"metrics_x1e3": metrics, "wall_ms": wall, "cd_card_vs_cpu_max_abs": err,
+            "cd_tol": tol}
+
+
+def room(dev) -> dict:
+    """Phase 8: the room path of PVDL_SNPP at full width, through its CLIs."""
+    if runtime.get_lib() is None:
+        raise AssertionError("the native host runtime did not build (g++): the room path "
+                             "would run on the numpy fallback")
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        scan, data_root = synthetic_room(root, np.random.default_rng(8))
+        model, twin = build_room_models()
+        run = root / "runs" / "PVDL_SNPP"
+        run.mkdir(parents=True)
+        shutil.copy(Path(__file__).resolve().parent / "configs" / "PVDL_SNPP.yaml",
+                    run / "opt.yaml")
+        torch.save({"model": model.state_dict(), "ema": None}, run / "model.pt")
+        log(f"room scene and run directory written in {time.perf_counter() - t0:.1f} s")
+        forward = check_room_forward(model, twin, scan, dev)
+        del model, twin
+        torch.cuda.empty_cache()
+        with torch.device("meta"):
+            shapes = main_path_shapes(build_unet_from_config(pvdl_snpp()).plan, ROOM_PATCH)
+        log(f"room path shapes at B={ROOM_BATCH}: {json.dumps(shapes)}")
+        conv = check_room_conv(dev, shapes)
+        kernel_errs = check_room_kernels(dev, shapes)
+        kernel_errs["conv3d_gn"]["bf16"] = conv["max_abs_err"]
+
+        first, launches, clock, wall = denoise_room_cli(scan, run)
+        idle = [k for k in SERVING if launches.get(k, 0) == 0]
+        log(f"denoise_room launches: {launches}")
+        if idle:
+            raise AssertionError(f"kernels not launched on the room path: {idle}")
+        if not (first.shape == (ROOM_POINTS, 3) and np.isfinite(first).all()):
+            raise AssertionError(f"room prediction: {first.shape}, finite "
+                                 f"{np.isfinite(first).all()}")
+        second, _, again, _ = denoise_room_cli(scan, run)
+        if not np.array_equal(first, second):
+            raise AssertionError("two runs of the room CLI differ by up to "
+                                 f"{np.abs(first - second).max()}")
+        idxs = clock.patches[3]
+        n_patches, dup = len(idxs), len(idxs) - len(np.unique(idxs, axis=0))
+        ms = clock.ms
+        split = {"seeding_kdtree": ms["before_first_batch"] - ms["create_patches"],
+                 "patching": ms["create_patches"], "sampling": ms["sampling"],
+                 "recomposition": ms["recomposition"]}
+        split["other"] = ms["denoise_room"] - sum(split.values())
+        log(f"room: {n_patches} patches of {ROOM_PATCH} ({dup} duplicates of the FPS split), "
+            f"{len(clock.batch_ms)} batches of {ROOM_BATCH}, {ROOM_STEPS} steps; ms per batch "
+            f"(CUDA events) median {np.median(clock.batch_ms):.1f}, min {min(clock.batch_ms):.1f}, "
+            f"max {max(clock.batch_ms):.1f}; denoise_room {ms['denoise_room']:.0f} ms "
+            f"({ROOM_POINTS / ms['denoise_room'] * 1e3:.0f} points/s), the CLI {wall:.0f} ms; "
+            f"host split (ms) {({k: round(v, 1) for k, v in split.items()})}; second run: "
+            f"denoise_room {again.ms['denoise_room']:.0f} ms, batch median "
+            f"{np.median(again.batch_ms):.1f}; two runs bit-equal")
+        profile = profile_room_batch(clock, dev)
+        evaluation = evaluate_room(data_root, first, scan.parent / "mesh_aligned_0.05.ply")
+    return {"forward": forward, "conv3d_gn": conv, "kernel_max_abs_err": kernel_errs,
+            "launches": launches, "patches": n_patches,
+            "duplicate_patches": dup, "batches": len(clock.batch_ms),
+            "batch_ms": clock.batch_ms, "batch_ms_second_run": again.batch_ms,
+            "denoise_room_ms": [ms["denoise_room"], again.ms["denoise_room"]],
+            "points_per_s": [ROOM_POINTS / m["denoise_room"] * 1e3 for m in (ms, again.ms)],
+            "cli_ms": wall, "host_split_ms": split, "profile_batch": profile,
+            "bit_equal_runs": True, "evaluation": evaluation}
+
+
 def main() -> None:
     require_card()
     dev = torch.device("cuda", 0)
@@ -1825,6 +2346,8 @@ def main() -> None:
     trained = training(dev, plan)
     results.update(trained["results"])
     train_launches = trained["run"]["launches"]
+    torch.cuda.empty_cache()
+    room_run = room(dev)
 
     entries = []
     for name, (src, replaces) in KERNELS.items():
@@ -1833,6 +2356,7 @@ def main() -> None:
         by_path = {f"{d} {m}": r["launches"].get(name, 0)
                    for d, modes in run.items() for m, r in modes.items()}
         by_path["bf16 train step"] = train_launches[name]
+        by_path["bf16 room"] = room_run["launches"].get(name, 0)
         path, timed = {
             "fps_cluster": (f"{MAIN} exact", "kernel calls of one 50k denoise with exact "
                             "recombination: the seeding and the recombination"),
@@ -1854,7 +2378,8 @@ def main() -> None:
             "train": {"gradient": trained["gradient"], "checkpoint": trained["checkpoint"],
                       "k1_backward_cudnn": trained["k1_backward_cudnn"],
                       "determinism_audit": trained["determinism_audit"],
-                      **{k: v for k, v in trained["run"].items() if k != "launches"}}}
+                      **{k: v for k, v in trained["run"].items() if k != "launches"}},
+            "room": {k: v for k, v in room_run.items() if k != "launches"}}
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

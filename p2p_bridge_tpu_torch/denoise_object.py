@@ -26,12 +26,11 @@ import numpy as np
 import torch
 
 from .inference import normalize_unit_sphere, patch_based_denoise
-from .models.model_loader import CHECKPOINT
+from .models.model_loader import load_config, load_weights
 from .models.p2pb import P2PBridge
 from .models.unet_pvc import build_unet_from_config, compute_dtype
-from .utils.config import apply_dot_overrides, load_yaml
+from .utils.device import resolve_device
 from .utils.io import load_point_cloud, write_xyz
-from .weights import load_jax_params, load_npz, load_torch_state_dict
 
 logger = logging.getLogger("p2pb")
 
@@ -54,43 +53,10 @@ def parse_args(argv=None):
     return parser.parse_known_args(argv)
 
 
-def load_config(model_path: str, overrides) -> dict:
-    """opt.yaml in ``model_path`` when it is a directory, else beside the
-    weights, else in their directory's parent, with ``--a.b value``
-    overrides applied."""
-    path = os.path.abspath(model_path)
-    base = path if os.path.isdir(path) else os.path.dirname(path)
-    for cand in (base, os.path.dirname(base)):
-        path = os.path.join(cand, "opt.yaml")
-        if os.path.exists(path):
-            cfg = load_yaml(path)
-            apply_dot_overrides(cfg, list(overrides))
-            return cfg
-    raise FileNotFoundError(f"opt.yaml not found near {model_path}")
-
-
-def load_weights(model: torch.nn.Module, path: str, use_ema: bool) -> None:
-    """The weights of ``path``: a file, or a run directory's model.pt."""
-    if os.path.isdir(path):
-        path = os.path.join(path, CHECKPOINT)
-    if path.endswith(".npz"):
-        load_jax_params(model, load_npz(path))
-        return
-    sd = torch.load(path, map_location="cpu", weights_only=True)
-    key = "ema" if use_ema else "model"
-    if isinstance(sd.get(key), dict):
-        sd = sd[key]
-    prefix = f"{key}."
-    sd = {(k[len(prefix):] if k.startswith(prefix) else k): v for k, v in sd.items()}
-    load_torch_state_dict(model, sd)
-
-
 def main(argv=None) -> str:
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
     args, overrides = parse_args(argv)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda, but no CUDA device is available")
+    device = resolve_device(args.device)
     cfg = load_config(args.model_path, overrides)
     logger.info("computing in %s", compute_dtype(cfg))
     torch.manual_seed(args.seed)

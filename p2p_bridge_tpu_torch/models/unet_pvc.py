@@ -116,7 +116,8 @@ class PVCNN2Unet(nn.Module):
         if C != self.input_dim + self.extra_feature_channels:
             raise ValueError(f"input dim {C}, expected "
                              f"{self.input_dim + self.extra_feature_channels}")
-        coords = x[..., :self.input_dim]
+        # a slice of the conditioned input: the kernels take contiguous tensors
+        coords = x[..., :self.input_dim].contiguous()
         features = x[..., self.input_dim:]
         if self.embed_feats is not None:
             src = coords if self.extra_feature_channels == 0 else features

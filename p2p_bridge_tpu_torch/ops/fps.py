@@ -8,14 +8,17 @@ points and one block per cloud above, below :data:`CLUSTER_MIN_POINTS`
 points a cloud (the SA stages, the bucketed recombination), and
 ``fps_cluster``, one cluster of 16 blocks per cloud, from there on (the
 exact recombination, the seeding). Both give the plain version's indices.
-On a CPU tensor it runs the plain version.
+On a CPU tensor it runs the plain version. :func:`bucket_fps` is the room
+path's host FPS over numpy, on the native runtime.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import kernels
+from ..runtime import bucket_fps_host
 
 
 def furthest_point_sample_plain(coords: torch.Tensor, num_samples: int) -> torch.Tensor:
@@ -84,3 +87,16 @@ def furthest_point_sample(coords: torch.Tensor, num_samples: int) -> torch.Tenso
     if kernels.on_card(coords):
         return _furthest_point_sample_cuda(coords, num_samples)
     return furthest_point_sample_plain(coords, num_samples)
+
+
+def bucket_fps(points, num_samples: int, seed: int = 0) -> np.ndarray:
+    """Approximate FPS for room-scale clouds on the host (port of
+    p2p_bridge_tpu/ops/fps.py ``bucket_fps``): exact FPS over a strided
+    candidate pool, in the native runtime. points [N, 3] numpy ->
+    [min(num_samples, N)] int64 indices. ``seed`` is unused, as in the JAX
+    package: the pool is deterministic, so calls that differ only in
+    ``seed`` pick the same points."""
+    points = np.asarray(points, dtype=np.float32)
+    if num_samples >= points.shape[0]:
+        return np.arange(points.shape[0], dtype=np.int64)
+    return bucket_fps_host(points, num_samples)

@@ -1,0 +1,15 @@
+"""The device a host-facing entry point runs on."""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` (a name or torch.device) as a torch.device; a CUDA device
+    where no card is available raises: nothing falls back to the CPU
+    unless the caller asks for it."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} asked for, but no CUDA device is available")
+    return device

@@ -1,6 +1,6 @@
 """Point-cloud file I/O: .xyz, .ply (ascii and binary), .npy and .npz
-(the readers and writers of p2p_bridge_tpu/utils/io.py that the CLI uses;
-tests hold them equal).
+(the readers and writers of p2p_bridge_tpu/utils/io.py that the CLIs use;
+tests hold them equal, ``write_ply`` byte for byte).
 
 PLY covers vertex elements with float x/y/z (+ optional uchar r/g/b and
 float nx/ny/nz) and optional triangle faces (a vertex_indices list).
@@ -9,7 +9,7 @@ float nx/ny/nz) and optional triangle faces (a vertex_indices list).
 from __future__ import annotations
 
 import os
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 
@@ -107,6 +107,67 @@ def read_ply(path: str) -> Dict[str, np.ndarray]:
             elif name == "face":
                 out["faces"] = data[next(iter(data))].astype(np.int64)
     return out
+
+
+def write_ply(
+    path: str,
+    points: np.ndarray,
+    colors: Optional[np.ndarray] = None,
+    normals: Optional[np.ndarray] = None,
+    faces: Optional[np.ndarray] = None,
+    binary: bool = True,
+) -> None:
+    """Write a PLY file (binary little-endian by default)."""
+    points = np.asarray(points, np.float32)
+    N = len(points)
+    header = ["ply"]
+    header.append(
+        "format binary_little_endian 1.0" if binary else "format ascii 1.0"
+    )
+    header += [f"element vertex {N}", "property float x", "property float y",
+               "property float z"]
+    fields = [("x", "<f4"), ("y", "<f4"), ("z", "<f4")]
+    if normals is not None:
+        header += ["property float nx", "property float ny", "property float nz"]
+        fields += [("nx", "<f4"), ("ny", "<f4"), ("nz", "<f4")]
+    if colors is not None:
+        header += ["property uchar red", "property uchar green", "property uchar blue"]
+        fields += [("red", "u1"), ("green", "u1"), ("blue", "u1")]
+    if faces is not None:
+        header.append(f"element face {len(faces)}")
+        header.append("property list uchar int vertex_indices")
+    header.append("end_header")
+
+    rec = np.empty(N, dtype=np.dtype(fields))
+    rec["x"], rec["y"], rec["z"] = points[:, 0], points[:, 1], points[:, 2]
+    if normals is not None:
+        normals = np.asarray(normals, np.float32)
+        rec["nx"], rec["ny"], rec["nz"] = normals[:, 0], normals[:, 1], normals[:, 2]
+    if colors is not None:
+        c = np.asarray(colors)
+        if c.dtype.kind == "f":
+            c = np.clip(c * 255.0, 0, 255)
+        c = c.astype(np.uint8)
+        rec["red"], rec["green"], rec["blue"] = c[:, 0], c[:, 1], c[:, 2]
+
+    with open(path, "wb") as f:
+        f.write(("\n".join(header) + "\n").encode("ascii"))
+        if binary:
+            f.write(rec.tobytes())
+            if faces is not None:
+                faces = np.asarray(faces, np.int32)
+                frec = np.empty(
+                    len(faces), dtype=np.dtype([("n", "u1"), ("v", "<i4", (3,))])
+                )
+                frec["n"] = 3
+                frec["v"] = faces
+                f.write(frec.tobytes())
+        else:
+            for r in rec:
+                f.write((" ".join(str(v) for v in r) + "\n").encode("ascii"))
+            if faces is not None:
+                for face in np.asarray(faces, np.int64):
+                    f.write(f"3 {face[0]} {face[1]} {face[2]}\n".encode("ascii"))
 
 
 def load_point_cloud(path: str) -> Dict[str, np.ndarray]:

@@ -303,3 +303,42 @@ def test_train_args_equal_the_original(tmp_path, argv):
     assert os.path.isdir(got["output_dir"])
     assert port_args.setup_output_subdirs(got["output_dir"], "a", "b") == \
         jax_args.setup_output_subdirs(got["output_dir"], "a", "b")
+
+
+# ---------------------------------------------------------------- room copies
+from p2p_bridge_tpu import runtime as jax_runtime  # noqa: E402
+from p2p_bridge_tpu_torch import config as port_configs  # noqa: E402
+from p2p_bridge_tpu_torch import runtime as port_runtime  # noqa: E402
+
+
+def test_native_runtime_source_is_byte_equal():
+    port = Path(port_runtime.__file__).parent / "native" / "recompose.cpp"
+    orig = Path(jax_runtime.__file__).parent / "native" / "recompose.cpp"
+    assert port.read_bytes() == orig.read_bytes()
+
+
+@pytest.mark.parametrize("binary", [True, False], ids=["binary", "ascii"])
+@pytest.mark.parametrize("extras", ["none", "float_colors", "uint8_colors", "normals_faces"])
+def test_write_ply_is_byte_equal_to_the_original(tmp_path, binary, extras):
+    c = cloud(n=40, seed=9)
+    kw = {"none": {}, "float_colors": {"colors": c["colors"]},
+          "uint8_colors": {"colors": (c["colors"] * 255).astype(np.uint8)},
+          "normals_faces": {"colors": c["colors"], "normals": c["normals"],
+                            "faces": c["faces"]}}[extras]
+    port_io.write_ply(str(tmp_path / "port.ply"), c["points"].astype(np.float64), binary=binary,
+                      **kw)
+    jax_io.write_ply(str(tmp_path / "jax.ply"), c["points"].astype(np.float64), binary=binary,
+                     **kw)
+    assert (tmp_path / "port.ply").read_bytes() == (tmp_path / "jax.ply").read_bytes()
+    assert_clouds_equal(port_io.read_ply(str(tmp_path / "port.ply")),
+                        jax_io.read_ply(str(tmp_path / "jax.ply")))
+
+
+@pytest.mark.parametrize("name", ["PVDL_SNPP", "PVDL_ARKIT"])
+def test_room_config_dicts_equal_yaml(name):
+    """config.PVDL_SNPP / PVDL_ARKIT hold their YAMLs whole, as read by the
+    JAX package."""
+    want = jax_config.Config.load(str(ROOT / "configs" / f"{name}.yaml")).to_dict()
+    assert getattr(port_configs, name) == want
+    assert port_configs.pvdl_snpp() == port_configs.PVDL_SNPP
+    assert port_configs.pvdl_snpp() is not port_configs.PVDL_SNPP

@@ -14,7 +14,7 @@ import torch
 import yaml
 
 from p2p_bridge_tpu.models.pvcnn import build_pvcnn2_plan as jax_plan
-from p2p_bridge_tpu_torch.config import PVDS_PUNET
+from p2p_bridge_tpu_torch.config import PVDL_ARKIT, PVDL_SNPP, PVDS_PUNET
 from p2p_bridge_tpu_torch.models.pvcnn import build_pvcnn2_plan as port_plan
 from p2p_bridge_tpu_torch.models.unet_pvc import build_unet_from_config
 
@@ -34,7 +34,13 @@ MAIN_PATH = [
     "p2p_bridge_tpu_torch.utils.ema", "p2p_bridge_tpu_torch.utils.args",
     "p2p_bridge_tpu_torch.parallel.train_step", "p2p_bridge_tpu_torch.data.transforms",
     "p2p_bridge_tpu_torch.data.punet", "p2p_bridge_tpu_torch.data.dataloader",
-    "p2p_bridge_tpu_torch.data.batch", "p2p_bridge_tpu_torch.train", "chip_smoke",
+    "p2p_bridge_tpu_torch.data.batch", "p2p_bridge_tpu_torch.train",
+    # rooms
+    "p2p_bridge_tpu_torch.runtime", "p2p_bridge_tpu_torch.ops.fps", "p2p_bridge_tpu_torch.ops.knn",
+    "p2p_bridge_tpu_torch.metrics.chamfer", "p2p_bridge_tpu_torch.metrics.p2m",
+    "p2p_bridge_tpu_torch.metrics.metrics", "p2p_bridge_tpu_torch.utils.device",
+    "p2p_bridge_tpu_torch.rooms", "p2p_bridge_tpu_torch.denoise_room",
+    "p2p_bridge_tpu_torch.evaluate_rooms", "chip_smoke",
 ]
 PORT_SOURCES = sorted((ROOT / "p2p_bridge_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "profile_denoise.py"]
@@ -63,6 +69,18 @@ def main_path_modules():
 
 def test_main_path_imports_no_jax_flax_or_yaml(main_path_modules):
     assert [m for m in ("jax", "flax", "yaml") if m in main_path_modules] == []
+
+
+def test_main_path_imports_no_pandas(main_path_modules):
+    """The card's machine has no pandas: evaluate_rooms writes its CSV with
+    the csv module."""
+    assert [m for m in main_path_modules if m.split(".")[0] == "pandas"] == []
+
+
+def test_port_sources_never_import_pandas():
+    for path in PORT_SOURCES:
+        for module in imported_modules(path):
+            assert module.split(".")[0] != "pandas", f"{path}: {module}"
 
 
 def test_main_path_loads_nothing_of_the_jax_package(main_path_modules):
@@ -142,3 +160,14 @@ def test_full_width_parameter_count():
     with torch.device("meta"):
         model = build_unet_from_config(PVDS_PUNET)
     assert sum(p.numel() for p in model.parameters()) == 26_441_155
+
+
+@pytest.mark.parametrize("name", ["PVDL_SNPP", "PVDL_ARKIT"])
+def test_room_model_parameter_count(name):
+    """The conditioned room model as shipped: 118,666,115 parameters,
+    computing in bf16 (training.amp)."""
+    cfg = {"PVDL_SNPP": PVDL_SNPP, "PVDL_ARKIT": PVDL_ARKIT}[name]
+    with torch.device("meta"):
+        model = build_unet_from_config(cfg)
+    assert sum(p.numel() for p in model.parameters()) == 118_666_115
+    assert model.dtype == torch.bfloat16 and model.extra_feature_channels == 384
