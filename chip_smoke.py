@@ -26,10 +26,13 @@ Phases, in order; any failure raises and the process exits non-zero:
      -> 33,000 whose every pick is a tie (one 16-CTA cluster per cloud),
      with device us a pick, and both kernels at B = 1 and 73 for growing N
      up to 16,383 (the dispatch's crossover);
-     K1 in bf16 and f32 also at B = 1 and B = 3 (a cloud's first and last
-     tiles, an odd tile count), at Cin = 35 (padded) and at the rooms
-     model's Cout = 512 (channel tiles), each shape's time beside cuDNN's
-     and beside the host clock over synchronised calls;
+     K1 in f32 within CONV_TOL and in bf16 within conv_bf16_bound, a bound
+     per element derived from the epilogue kernel, plain version and TPU
+     kernel share (each shape prints its largest ratio of error to bound),
+     also at B = 1 and B = 3 (a cloud's first and last tiles, an odd tile
+     count), at Cin = 35 (padded) and at the rooms model's Cout = 512
+     (channel tiles), each shape's time beside cuDNN's and beside the host
+     clock over synchronised calls;
      K2 (voxelize) torch.equal, grid and counts, to its plain version run
      on the CPU from the same inputs and to a second kernel call, also at
      PVDL_SNPP's (4096, 32, 67) and (64, 8, 512) at B = 4;
@@ -79,7 +82,9 @@ Phases, in order; any failure raises and the process exits non-zero:
      the CPU's (B = 2, dropout off, fixed timesteps) and two card runs of
      it bit-equal; two bf16 forward + backward passes at the training
      shape (bs 32, dropout, the K7 alignment, generators reseeded) bit-equal
-     in every parameter's gradient; log what one training step under
+     in every parameter's gradient; a watch step (train_step with
+     return_grads) bit-equal to a plain step from the same state and
+     generators, in its gradients, update, moments and EMA; log what one training step under
      torch.use_deterministic_algorithms(True, warn_only=True) warns; train
      PVDS_PUNet as shipped (bf16, AdamW, clip 1.0, EMA, the K7 alignment)
      for 31 steps through ``train`` on a synthetic PUNet tree written with
@@ -87,7 +92,11 @@ Phases, in order; any failure raises and the process exits non-zero:
      launch counts set to 0 just before step 20 and read just after with
      every training kernel launched, ms per step over steps 10-29 split
      into its phases (CUDA events and the host clock), a torch.profiler
-     profile of step 30, the host time of model.train() and of the
+     profile of step 30, one in-training evaluation after step 29 (finite
+     eval/* keys and their noisy floors in metrics.jsonl, its wall time,
+     the renderings where matplotlib imports), the histograms of every
+     parameter and gradient at the watch step 24, the profile_dir trace of
+     steps 10-14, the host time of model.train() and of the
      alignment (what the alignment span issues); and a checkpoint
      that denoise_object.load_weights reads back into a model whose
      forward on the card is bit-equal to the trained model's;
@@ -98,7 +107,7 @@ Phases, in order; any failure raises and the process exits non-zero:
      [384, N] feature file, the mesh): the f32 forward on the card against
      the CPU at B = 1 x 4096 and the bf16 forward against it, two bf16
      forwards at B = 32 x 4096 bit-equal; K1 at each conv of that forward
-     against its plain version (ROOM_CONV_TOL), timed beside it and cuDNN;
+     against its plain version (conv_bf16_bound), timed beside it and cuDNN;
      python -m p2p_bridge_tpu_torch.denoise_room through its main on the
      card (5 steps, k 4, batch 32 x 4096) with the launch counts set to 0
      just before it and read just after (every backbone kernel launched),
@@ -107,7 +116,21 @@ Phases, in order; any failure raises and the process exits non-zero:
      split (seeding and KD-tree, patching, sampling, recomposition), a
      torch.profiler window over one batch; then python -m
      p2p_bridge_tpu_torch.evaluate_rooms on the scene (four finite metrics)
-     and the room's Chamfer distances on the card against the CPU.
+     and the room's Chamfer distances on the card against the CPU;
+  9. objects: write a PU-Net test tree with scripts/make_synthetic_punet.py
+     (3 shapes, 8192-point GT, meshes, 10k and 50k inputs at noise 0.01,
+     0.02, 0.03) and run python -m p2p_bridge_tpu_torch.evaluate_objects
+     through its main on the card with phase 7's checkpoint (bf16 as
+     shipped, 5 steps) over the 6 cells, exact and then bucketed
+     recombination, the launch counts set to 0 just before each run and
+     read just after (every backbone kernel, the cluster FPS and K7
+     launched), Summary_PUNet.csv with four finite metrics a cell, ms a
+     cell split into denoise, CD, P2M, emd_sub and emd_exact_sub; the
+     Evaluator on the noisy inputs (the floor); K7 at the evaluation's
+     setting (eps 0.001, 10,000 rounds, B = 1, one shape's 2048-point
+     sub-samples) torch.equal to its plain version and to a second call,
+     one device function a call, its rounds, times and bound; the
+     approximate EMD and get_metrics at [4, 2048] card against CPU.
 The line before the last is a JSON object with each kernel's launches,
 errors, times (back to back, device, host per call) and bounds; the last
 line is {"ok": true, "device": {...}}.
@@ -116,6 +139,7 @@ line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import csv
+import importlib
 import json
 import math
 import re
@@ -133,14 +157,16 @@ import torch.nn.functional as F
 from p2p_bridge_tpu_torch import kernels
 from p2p_bridge_tpu_torch import denoise_object
 from p2p_bridge_tpu_torch import denoise_room as room_cli
-from p2p_bridge_tpu_torch import evaluate_rooms, rooms, runtime
+from p2p_bridge_tpu_torch import evaluate_objects, evaluate_rooms, rooms, runtime
 from p2p_bridge_tpu_torch.config import pvdl_snpp, pvds_punet
 from p2p_bridge_tpu_torch.data.batch import get_data_batch
 from p2p_bridge_tpu_torch.data.dataloader import get_dataloader
 from p2p_bridge_tpu_torch.inference import patch_based_denoise_batch
+from p2p_bridge_tpu_torch import metrics as obj_metrics
 from p2p_bridge_tpu_torch.metrics import emd_auction
 from p2p_bridge_tpu_torch.metrics.chamfer import chamfer_distance_large
 from p2p_bridge_tpu_torch.metrics.emd_auction import align_clean_to_noisy
+from p2p_bridge_tpu_torch.models import evaluation as object_evaluation
 from p2p_bridge_tpu_torch.models.model_loader import save_checkpoint
 from p2p_bridge_tpu_torch.models.p2pb import P2PBridge
 from p2p_bridge_tpu_torch.models.unet_pvc import build_unet_from_config, init_parameters
@@ -154,7 +180,8 @@ from p2p_bridge_tpu_torch.ops import interpolate as interp_ops
 from p2p_bridge_tpu_torch.ops import voxelize as vox_ops
 from p2p_bridge_tpu_torch.ops.common import (pairwise_sqdist, pairwise_sqdist_exact,
                                               pairwise_sqdist_ordered)
-from p2p_bridge_tpu_torch.utils.io import read_ply, write_ply
+from p2p_bridge_tpu_torch.utils.io import read_ply, read_xyz, write_ply
+from p2p_bridge_tpu_torch.utils.logging import read_summary as summary_csv
 
 PATCHES = 73  # int(3 * 50_000 / 2048)
 PATCH = 2048
@@ -172,22 +199,17 @@ PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
 # their last bit the rounding can land one bf16 ulp apart: 2^-7 of the
 # value at the bottom of a binade, 2^-8 at the top
 BF16_ULP = 2.0 ** -7
-# K1 bf16 in phase 3: one ulp holds on phase 3's seeded inputs, but the
-# derivation above misses a step of K1 (see ROOM_CONV_TOL): other inputs
-# can read two ulps, the object path's B = 73 shapes among them, and such a
-# reading is that gap, not a kernel fault (ROADMAP Queue 3)
-CONV_TOL = {"f32": 1e-4, "bf16": BF16_ULP}    # times max|out|: another f32 order, TF32 off
+CONV_TOL = {"f32": 1e-4}                      # times max|out|: another f32 order, TF32 off
 DEVOX_TOL = {"f32": 1e-6, "bf16": BF16_ULP}   # times max|grid|: same order; the mean in double
 INTERP_TOL = {"f32": 1e-6, "bf16": BF16_ULP}  # times max|features|: a 3-term f32 sum
 FORWARD_TOL = 1e-3  # abs, times max(1, max|out_cpu|): whole f32 backbone, GPU vs CPU
-# K1 bf16 at the room's shapes, times max|out|: both sides store the pre-norm
-# grid in bf16 (conv3d_gn_plain stages it as the kernel does), so where the
-# two f32 sums round to neighbouring bf16 values the normalisation carries
-# that step (about one output ulp at gamma / sigma ~ 1) ahead of the
-# output's own rounding: two ulps. r = 16 256 -> 256 + swish at B = 32
-# reads 0.0625 at |out| in [4, 8) here, where CONV_TOL allows one ulp
-# (ROADMAP Queue 3).
-ROOM_CONV_TOL = 2 * BF16_ULP
+# K1 bf16 is held per element by conv_bf16_bound, derived from the epilogue
+# that kernel, plain version and TPU kernel share: the GroupNorm statistics
+# come from the f32 accumulator y (conv + bias), y is staged in bf16, and the
+# staged value is normalised (p2p_bridge_tpu/ops/pallas/wconv3d_kernel.py:
+# 148-156, 176-181, 244): out = bf16(act(gamma (bf16(y) - m) rstd + beta)).
+# swish's slope lies in [-0.0998, 1.0998]
+SWISH_MAX_SLOPE = 1.0998
 # relative L2 of the bf16 forward against the f32 forward of the same
 # weights on the card: bf16 keeps 8 bits (2^-9 per rounding) and the
 # roundings of some 40 normalised layers add up; the CPU tests measured
@@ -225,6 +247,9 @@ SERVING = ("fps", "ball_query_group", "avg_voxelize", "conv3d_gn", "trilinear_de
 TRAINING = tuple(k for k in KERNELS if k != "fps_cluster")  # a training step's
 TRAIN_B = 32  # training.bs of PVDS_PUNet
 TRAIN_STEPS = 31  # steps 10-29 timed, 20 counted, 30 profiled
+VIZ_INTERVAL = 30  # one in-training evaluation, after step 29 and before step 30
+WATCH_INTERVAL = 25  # one watch step (24): parameter and gradient histograms
+PROFILE_STEPS = (10, 14)  # what profile_dir traces: start + 10 to start + 14
 POOL_SIZE = 96  # data.pool_size cut from 2048: the pool fills before step 0
 # The f32 loss and gradient, card vs CPU (TF32 off). The two devices sum
 # in other orders, and the GroupNorms amplify that: at r = 32 most of the
@@ -740,17 +765,86 @@ def conv_inputs(gen, dev, dt, B, r, cin, cout, shared):
     return x, w, b, gamma, beta
 
 
-def conv_error(name, args, act, what, rel_tol=None) -> tuple:
-    """K1 against its plain version on the same inputs; raises above the
-    tolerance (CONV_TOL[name] unless ``rel_tol``, times max|out|)."""
+def ulp_bf16(v: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 values in the binade of |v| (8 significant
+    bits: 2^(e - 8) for |v| in [2^(e-1), 2^e))."""
+    _, e = torch.frexp(v.float().abs().clamp_min(2.0 ** -126))
+    return torch.ldexp(torch.ones_like(v, dtype=torch.float32), e - 8)
+
+
+def conv_bf16_bound(args, act, got, want, groups: int = 8, eps: float = 1e-5) -> torch.Tensor:
+    """Per element, the most K1 bf16 (``got``) and its plain version
+    (``want``) may differ on the inputs ``args`` (x, w, bias, gamma, beta).
+
+    Both take the statistics m, rstd of a group from the f32 accumulator y
+    and normalise bf16(y), but they sum y and the statistics in other
+    orders. Where y lies near a bf16 rounding boundary the two staged values
+    land one bf16 ulp of |y| apart; z = gamma (bf16(y) - m) rstd + beta
+    carries that step times |gamma| rstd, swish times at most its slope s,
+    and each side then rounds its output by at most half an ulp of the
+    larger of the two:
+
+      |got - want| <= s (|gamma| rstd (ulp(|y|) + dy + dm)
+                         + |gamma (bf16(y) - m)| rstd dr + da) + ulp(max |out|)
+
+    with the f32 terms of the summation orders: a sum of n terms computed
+    pairwise or in blocks errs by at most about log2(n) roundings of the
+    sum of |terms|, taken twice, L(n) = 2 log2(n) 2^-24. So
+    dy = L(27 Cin) (|x| * |w| + |bias|) for the accumulator; over a group of
+    n values dm = L(n) mean|y| for the mean and, for the variance
+    v = E[y^2] - m^2, dv = L(n) (E[y^2] + 2 |m| mean|y|), which moves rstd by
+    dr = dv / (2 (v + eps)) relative; and da = 4 2^-24 (|gamma (bf16(y) - m)|
+    rstd + |beta|) for the affine's own roundings (a fused multiply-add or
+    not)."""
+    x, w, b, gamma, beta = args
+    xc, wc = x.float().permute(0, 4, 1, 2, 3), w.float().permute(4, 3, 0, 1, 2)
+    y = F.conv3d(xc, wc, b.float(), padding=1).permute(0, 2, 3, 4, 1)
+    terms = F.conv3d(xc.abs(), wc.abs(), b.float().abs(), padding=1).permute(0, 2, 3, 4, 1)
+    B, C = y.shape[0], y.shape[-1]
+    shape = (B, -1, groups, C // groups)
+    y, terms = y.reshape(shape), terms.reshape(shape)
+    n = y.shape[1] * y.shape[3]
+
+    def rounds(count: int) -> float:
+        return 2.0 * math.log2(count) * 2.0 ** -24
+
+    m = y.mean(dim=(1, 3), keepdim=True)
+    sq = (y * y).mean(dim=(1, 3), keepdim=True)
+    var = sq - m * m
+    rstd = torch.rsqrt(var + eps)
+    mean_abs = y.abs().mean(dim=(1, 3), keepdim=True)
+    dm = rounds(n) * mean_abs
+    dr = rounds(n) * (sq + 2 * m.abs() * mean_abs) / (2 * (var + eps))
+    dy = rounds(27 * x.shape[-1]) * terms
+    g = gamma.float().expand(B, C).reshape(B, 1, groups, C // groups).abs()
+    bt = beta.float().expand(B, C).reshape(B, 1, groups, C // groups).abs()
+    scale = g * rstd
+    centred = (y.to(torch.bfloat16).float() - m).abs() * scale
+    dz = scale * (ulp_bf16(y) + dy + dm) + centred * dr + 4 * 2.0 ** -24 * (centred + bt)
+    out = torch.maximum(got.float().abs(), want.float().abs()).reshape(shape)
+    return ((SWISH_MAX_SLOPE if act else 1.0) * dz + ulp_bf16(out)).reshape(got.shape)
+
+
+def conv_error(name, args, act, what) -> tuple:
+    """K1 against its plain version on the same inputs -> (max abs error,
+    the largest ratio of error to bound); raises where it exceeds 1. The
+    bound: f32, CONV_TOL times max|out|; bf16, conv_bf16_bound per
+    element."""
     got = conv_ops.conv3d_gn(*args, 8, 1e-5, act)
     want = conv_ops.conv3d_gn_plain(*args, 8, 1e-5, act)
     torch.cuda.synchronize()
-    err = (got.float() - want.float()).abs().max().item()
-    tol = (rel_tol or CONV_TOL[name]) * want.float().abs().max().item()
-    if not (got.dtype == args[0].dtype and got.shape == want.shape and err <= tol):
-        raise AssertionError(f"conv3d_gn {name} {what}: max err {err} > {tol}")
-    return err, tol
+    if not (got.dtype == args[0].dtype and got.shape == want.shape):
+        raise AssertionError(f"conv3d_gn {name} {what}: {got.dtype} {tuple(got.shape)}, "
+                             f"want {want.dtype} {tuple(want.shape)}")
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
+    if name == "bf16":
+        ratio = (diff / conv_bf16_bound(args, act, got, want)).max().item()
+    else:
+        ratio = err / (CONV_TOL[name] * want.float().abs().max().item())
+    if not ratio <= 1.0:
+        raise AssertionError(f"conv3d_gn {name} {what}: max err {err}, {ratio:.3f} of its bound")
+    return err, ratio
 
 
 def check_conv3d_gn(rng, dev, shapes) -> dict:
@@ -765,7 +859,9 @@ def check_conv3d_gn(rng, dev, shapes) -> dict:
         for i, ((r, cin, cout, act), calls) in enumerate(counted(convs)):
             # i % 3 == 2: also the shared [C] affine of plain GroupNorm
             x, w, b, gamma, beta = conv_inputs(gen, dev, dt, PATCHES, r, cin, cout, i % 3 == 2)
-            err, tol = conv_error(name, (x, w, b, gamma, beta), act, f"r={r} {cin}->{cout}")
+            err, ratio = conv_error(name, (x, w, b, gamma, beta), act, f"r={r} {cin}->{cout}")
+            tally.extra["max_ratio_to_bound"] = max(tally.extra.get("max_ratio_to_bound", 0.0),
+                                                    ratio)
             ms = time_ms(lambda: conv_ops.conv3d_gn(x, w, b, gamma, beta, 8, 1e-5, act))
             dms = device_ms(lambda: conv_ops.conv3d_gn(x, w, b, gamma, beta, 8, 1e-5, act),
                             "conv3d_gn")
@@ -793,7 +889,7 @@ def check_conv3d_gn(rng, dev, shapes) -> dict:
             nbytes = (PATCHES * r ** 3 * (cin + cout) + 27 * cin * cout) * esize(dt)
             bound = tally.add(calls, ms, plain, lib, nbytes, flop, err, dms, hus)
             log(f"conv3d_gn {name} r={r} {cin}->{cout} x{calls} B={PATCHES}: max err {err:.3g} "
-                f"(tol {tol:.3g}); kernel {ms:.3f} ms (device {dms:.4f} ms, host {hus:.1f} us "
+                f"({ratio:.3f} of its bound); kernel {ms:.3f} ms (device {dms:.4f} ms, host {hus:.1f} us "
                 f"a call; {flop / ms / 1e9:.2f} TFLOP/s, "
                 f"{bound / ms:.3f} of the bound {bound:.3g} ms), one call alone {single:.3f} ms "
                 f"(host clock, synchronised: {wall:.3f} ms), "
@@ -811,11 +907,13 @@ def check_conv3d_gn(rng, dev, shapes) -> dict:
                                       (8, 512, 512, True)):
                 for shared in (False, True):
                     args = conv_inputs(gen, dev, dt, B, r, cin, cout, shared)
-                    err, tol = conv_error(name, args, act, f"B={B} r={r} {cin}->{cout}")
+                    err, ratio = conv_error(name, args, act, f"B={B} r={r} {cin}->{cout}")
                     out[name].err = max(out[name].err, err)
+                    extra = out[name].extra
+                    extra["max_ratio_to_bound"] = max(extra.get("max_ratio_to_bound", 0.0), ratio)
                     log(f"conv3d_gn {name} B={B} r={r} {cin}->{cout} "
                         f"{'shared' if shared else 'per-cloud'} affine: max err {err:.3g} "
-                        f"(tol {tol:.3g})")
+                        f"({ratio:.3f} of its bound)")
     return out
 
 
@@ -1326,12 +1424,18 @@ def synthetic_punet(root: Path, rng) -> None:
 
 
 def train_config(data_dir: Path, out_dir: Path) -> dict:
-    """PVDS_PUNet as shipped, on the synthetic tree, for TRAIN_STEPS steps."""
+    """PVDS_PUNet as shipped, on the synthetic tree, for TRAIN_STEPS steps,
+    with one evaluation (VIZ_INTERVAL), one watch step with gradients
+    (WATCH_INTERVAL) and a profile of steps 10-14 (profile_dir)."""
     cfg = pvds_punet()
     cfg["data"]["data_dir"] = str(data_dir)
     cfg["data"]["pool_size"] = POOL_SIZE
     cfg["training"]["steps"] = TRAIN_STEPS
+    cfg["training"]["viz_interval"] = VIZ_INTERVAL
+    cfg["training"]["watch_interval"] = WATCH_INTERVAL
+    cfg["training"]["watch_gradients"] = True
     cfg["output_dir"] = str(out_dir)
+    cfg["profile_dir"] = str(out_dir / "trace")
     return cfg
 
 
@@ -1670,6 +1774,43 @@ def check_train_gradient_bits(cfg: dict, batch: dict, dev) -> dict:
     return {"bit_equal": True, "loss": losses[0], "batch": TRAIN_B}
 
 
+def check_watch_step(cfg: dict, batch: dict, dev) -> dict:
+    """A watch step (train_step with return_grads) and a plain step of
+    PVDS_PUNet as shipped, each from the same initial weights, batch and
+    reseeded generators: the clipped gradients, the parameters after the
+    update, Adam's moments and the EMA torch.equal, and the gradients the
+    watch step returns, times the clip factor, equal to the plain step's
+    clipped ones."""
+    runs = []
+    for watch in (True, False):
+        model = build_unet_from_config(cfg).train()
+        init_parameters(model, torch.Generator().manual_seed(0))
+        model.to(dev)
+        state = init_train_state(model, cfg)
+        torch.cuda.manual_seed(12)
+        metrics = train_step(P2PBridge.from_config(cfg, model), state, batch,
+                             torch.Generator(dev).manual_seed(11), grad_clip=1.0,
+                             align_cfg={"eps": 0.01, "iters": 100}, return_grads=watch)
+        runs.append((model, state, metrics))
+    (wmodel, wstate, wm), (pmodel, pstate, pm) = runs
+    clip = torch.clamp(1.0 / (wm["grad_norm"] + 1e-6), max=1.0)
+    differ = [name for (name, a), b in zip(wmodel.named_parameters(), pmodel.parameters())
+              if not (torch.equal(a, b) and torch.equal(a.grad, b.grad)
+                      and torch.equal(wm["grads"][name] * clip, b.grad)
+                      and all(torch.equal(wstate.optimizer.state[a][k],
+                                          pstate.optimizer.state[b][k])
+                              for k in ("exp_avg", "exp_avg_sq"))
+                      and torch.equal(wstate.ema.params[name], pstate.ema.params[name]))]
+    same = torch.equal(wm["loss"], pm["loss"]) and torch.equal(wm["grad_norm"], pm["grad_norm"])
+    log(f"watch step (return_grads) against a plain step from the same state and generators: "
+        f"{len(wm['grads'])} gradients returned, clip factor {clip.item():.4g}; gradients, "
+        f"update, moments and EMA {'bit-equal' if same and not differ else 'differ'}")
+    if differ or not same:
+        raise AssertionError(f"a watch step differs from a plain step in {differ[:5]} "
+                             f"(loss and norm equal: {same})")
+    return {"bit_equal": True, "gradients": len(wm["grads"]), "clip": clip.item()}
+
+
 def determinism_audit(cfg: dict, batch: dict, dev) -> list:
     """One training step (alignment, forward + backward, clip, AdamW, EMA)
     under torch.use_deterministic_algorithms(True, warn_only=True): every
@@ -1740,10 +1881,95 @@ class TrainObserver:
                      "avg_voxelize_backward", "auction_emd"))
 
 
+class EvalClock:
+    """While entered, wraps the training loop's ``evaluate``: each call's
+    host time (synchronised before and after), step and exception, which
+    it passes on to the loop's guard."""
+
+    def __init__(self):
+        self.calls = []
+        self.module = importlib.import_module("p2p_bridge_tpu_torch.train")
+        self.inner = self.module.evaluate
+
+    def __enter__(self):
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call = {"step": args[3], "error": None}
+            self.calls.append(call)
+            try:
+                return self.inner(*args, **kwargs)
+            except Exception as e:
+                call["error"] = f"{type(e).__name__}: {e}"
+                raise
+            finally:
+                torch.cuda.synchronize()
+                call["ms"] = (time.perf_counter() - t0) * 1e3
+
+        self.module.evaluate = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.module.evaluate = self.inner
+
+
+def check_train_outputs(cfg: dict, model, evals: list) -> dict:
+    """What the loop wrote besides the checkpoint: metrics.jsonl with the
+    losses and one evaluation's finite eval/* keys (CD, EMD, MSE and their
+    noisy floors; the renderings where matplotlib imports, else the
+    evaluation's ImportError is the only error allowed), histograms.jsonl
+    with a parameter row and a gradient row of every parameter at the watch
+    step, and the profile_dir trace of steps 10-14."""
+    out = Path(cfg["output_dir"])
+    recs = [json.loads(x) for x in (out / "metrics.jsonl").read_text().splitlines()]
+    keys = [f"eval/{p}{k}" for p in ("", "noisy_") for k in ("CD", "EMD", "MSE")]
+    scored = [r for r in recs if "eval/CD" in r]
+    if not (len(evals) == 1 and evals[0]["step"] == VIZ_INTERVAL and len(scored) == 1
+            and all(math.isfinite(scored[0].get(k, math.nan)) for k in keys)):
+        raise AssertionError(f"in-training evaluation: calls {evals}, records {scored}")
+    try:
+        import matplotlib  # noqa: F401
+        has_matplotlib = True
+    except ImportError:
+        has_matplotlib = False
+    pngs = sorted(p.name for p in (out / "output").glob("*.png"))
+    error = evals[0]["error"]
+    if has_matplotlib:
+        rendered = error is None and pngs == [f"{VIZ_INTERVAL:07d}_gt.png",
+                                              f"{VIZ_INTERVAL:07d}_pred.png"]
+    else:
+        rendered = error is not None and "matplotlib" in error and not pngs
+    if not rendered:
+        raise AssertionError(f"evaluation renderings {pngs}, error {error}, matplotlib "
+                             f"{has_matplotlib}")
+    names = {n for n, _ in model.named_parameters()}
+    hists = [json.loads(x) for x in (out / "histograms.jsonl").read_text().splitlines()]
+    rows = {next(iter(h["hists"])).split("/")[0]: h for h in hists}
+    if not (len(hists) == 2 and set(rows) == {"param", "grad"}
+            and all(h["step"] == WATCH_INTERVAL for h in hists)
+            and all(set(h["hists"]) == {f"{p}/{n}" for n in names} for p, h in rows.items())):
+        raise AssertionError(f"histograms.jsonl: {[(h['step'], len(h['hists'])) for h in hists]}"
+                             f" rows, {len(names)} parameters")
+    traces = sorted(p.name for p in Path(cfg["profile_dir"]).glob("*.json"))
+    if traces != [f"trace_steps_{PROFILE_STEPS[0]}_{PROFILE_STEPS[1]}.json"]:
+        raise AssertionError(f"profile_dir holds {traces}")
+    evaluation = {k: scored[0][k] for k in keys}
+    log(f"in-training evaluation after step {VIZ_INTERVAL - 1}: {evals[0]['ms']:.0f} ms "
+        f"(host clock), {json.dumps({k: round(v, 5) for k, v in evaluation.items()})}; "
+        f"renderings {pngs if pngs else 'not drawn: ' + str(error)} (matplotlib "
+        f"{'present' if has_matplotlib else 'absent'}); histograms of {len(names)} parameters "
+        f"and their gradients at step {WATCH_INTERVAL}; trace {traces[0]} "
+        f"({(Path(cfg['profile_dir']) / traces[0]).stat().st_size / 1e6:.1f} MB)")
+    return {"evaluation": evaluation, "evaluation_ms": evals[0]["ms"],
+            "rendered": bool(pngs), "matplotlib": has_matplotlib,
+            "histogram_parameters": len(names), "trace": traces[0]}
+
+
 def train_phase(cfg: dict, dev) -> tuple:
     obs = TrainObserver()
     t0 = time.perf_counter()
-    state = train(cfg, dev, observer=obs)
+    with EvalClock() as evals:
+        state = train(cfg, dev, observer=obs)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
     losses = [float(v) for v in obs.losses]
@@ -1770,11 +1996,18 @@ def train_phase(cfg: dict, dev) -> tuple:
         log(f"ms per step, median of steps 10-29 ({what}): {ms['step']:.2f}; data "
             f"{ms['data']:.2f}, alignment {ms['align']:.2f}, forward + backward "
             f"{ms['forward_backward']:.2f}, optimizer + EMA {ms['optimizer_ema']:.2f}")
-    log(f"{TRAIN_B / split['step'] * 1e3:.1f} patches/s; K7 in the step 30 profile: "
+    # steps 10-14 run under profile_dir's profiler
+    unprofiled = float(np.median([ev["begin"].elapsed_time(ev["update"])
+                                  for step, ev in obs.events.items() if step > PROFILE_STEPS[1]]))
+    log(f"{TRAIN_B / split['step'] * 1e3:.1f} patches/s; median of steps "
+        f"{PROFILE_STEPS[1] + 1}-29 alone {unprofiled:.2f} ms; K7 in the step 30 profile: "
         f"{obs.profile['device_ms_by_group'].get('auction_emd', float('nan')):.4f} ms")
+    outputs = check_train_outputs(cfg, state.model, evals.calls)
     return state, {"losses": losses, "first5_mean": first, "last5_mean": last,
                    "launches": obs.launches, "ms": split, "host_ms": host,
-                   "patches_per_s": TRAIN_B / split["step"] * 1e3, "profile": obs.profile}
+                   "step_ms_unprofiled_steps": unprofiled,
+                   "patches_per_s": TRAIN_B / split["step"] * 1e3, "profile": obs.profile,
+                   "loop_outputs": outputs}
 
 
 def alignment_host_ms(model, batch: dict) -> dict:
@@ -1828,26 +2061,27 @@ def check_checkpoint(state, cfg: dict, batch: dict, dev) -> dict:
     return {"bit_equal": True}
 
 
-def training(dev, plan) -> dict:
+def training(dev, plan, root: Path) -> dict:
+    """Phase 7, in ``root``: the trained run stays in root / "run"
+    (model.pt) for phase 9."""
     shapes = main_path_shapes(plan, PATCH)
-    with tempfile.TemporaryDirectory() as tmp:
-        root = Path(tmp)
-        t0 = time.perf_counter()
-        synthetic_punet(root / "data", np.random.default_rng(3))
-        log(f"synthetic PUNet tree written in {time.perf_counter() - t0:.1f} s")
-        cfg = train_config(root / "data", root / "run")
-        batch = aligned_batch(cfg, dev)
-        results = {"avg_voxelize_backward": check_voxelize_backward(
-            np.random.default_rng(4), dev, shapes), "auction_emd": check_auction(batch, dev),
-            "scatter_rows": check_scatter(np.random.default_rng(6), dev, shapes)}
-        cudnn = cudnn_backward_cost(dev, shapes)
-        gradient = check_gradient(dev)
-        gradient["train_shape"] = check_train_gradient_bits(cfg, batch, dev)
-        audit = determinism_audit(cfg, batch, dev)
-        torch.cuda.empty_cache()
-        state, run = train_phase(cfg, dev)
-        run["alignment_host_ms"] = alignment_host_ms(state.model, batch)
-        checkpoint = check_checkpoint(state, cfg, batch, dev)
+    t0 = time.perf_counter()
+    synthetic_punet(root / "data", np.random.default_rng(3))
+    log(f"synthetic PUNet tree written in {time.perf_counter() - t0:.1f} s")
+    cfg = train_config(root / "data", root / "run")
+    batch = aligned_batch(cfg, dev)
+    results = {"avg_voxelize_backward": check_voxelize_backward(
+        np.random.default_rng(4), dev, shapes), "auction_emd": check_auction(batch, dev),
+        "scatter_rows": check_scatter(np.random.default_rng(6), dev, shapes)}
+    cudnn = cudnn_backward_cost(dev, shapes)
+    gradient = check_gradient(dev)
+    gradient["train_shape"] = check_train_gradient_bits(cfg, batch, dev)
+    gradient["watch_step"] = check_watch_step(cfg, batch, dev)
+    audit = determinism_audit(cfg, batch, dev)
+    torch.cuda.empty_cache()
+    state, run = train_phase(cfg, dev)
+    run["alignment_host_ms"] = alignment_host_ms(state.model, batch)
+    checkpoint = check_checkpoint(state, cfg, batch, dev)
     return {"results": results, "gradient": gradient, "run": run, "checkpoint": checkpoint,
             "k1_backward_cudnn": cudnn, "determinism_audit": audit}
 
@@ -2013,7 +2247,7 @@ def check_room_forward(model, twin, scan: Path, dev) -> dict:
 
 def check_room_conv(dev, shapes) -> dict:
     """K1 at each conv of one bf16 PVDL_SNPP forward at B = ROOM_BATCH
-    (``shapes``): against its plain version (ROOM_CONV_TOL), and timed
+    (``shapes``): against its plain version (conv_bf16_bound), and timed
     beside the plain version and cuDNN conv + GroupNorm, with its bound;
     r = 8 512 -> 512 runs as two channel tiles."""
     convs = []
@@ -2021,11 +2255,11 @@ def check_room_conv(dev, shapes) -> dict:
         convs += [(r, cin, cout, True), (r, cout, cout, False)]
     gen = torch.Generator(device=dev).manual_seed(1)
     dt = torch.bfloat16
-    tally, shapes = Tally("bf16", library=True), []
+    tally, shapes, worst_ratio = Tally("bf16", library=True), [], 0.0
     for (r, cin, cout, act), calls in counted(convs):
         x, w, b, gamma, beta = conv_inputs(gen, dev, dt, ROOM_BATCH, r, cin, cout, False)
-        err, tol = conv_error("bf16", (x, w, b, gamma, beta), act, f"room r={r} {cin}->{cout}",
-                              ROOM_CONV_TOL)
+        err, ratio = conv_error("bf16", (x, w, b, gamma, beta), act, f"room r={r} {cin}->{cout}")
+        worst_ratio = max(worst_ratio, ratio)
         ms = time_ms(lambda: conv_ops.conv3d_gn(x, w, b, gamma, beta, 8, 1e-5, act))
         plain = time_ms(lambda: conv_ops.conv3d_gn_plain(x, w, b, gamma, beta, 8, 1e-5, act))
         xc = x.permute(0, 4, 1, 2, 3).contiguous()
@@ -2041,10 +2275,11 @@ def check_room_conv(dev, shapes) -> dict:
         nbytes = (ROOM_BATCH * r ** 3 * (cin + cout) + 27 * cin * cout) * esize(dt)
         bound = tally.add(calls, ms, plain, lib, nbytes, flop, err)
         shapes.append({"r": r, "cin": cin, "cout": cout, "swish": act, "calls": calls, "ms": ms,
-                       "plain_ms": plain, "library_ms": lib, "bound_ms": bound, "max_abs_err": err})
+                       "plain_ms": plain, "library_ms": lib, "bound_ms": bound, "max_abs_err": err,
+                       "max_ratio_to_bound": ratio})
         log(f"conv3d_gn bf16 room r={r} {cin}->{cout}{' + swish' if act else ''} x{calls} "
             f"B={ROOM_BATCH}: max err {err:.3g} "
-            f"(tol {tol:.3g}); kernel {ms:.3f} ms ({flop / ms / 1e9:.2f} TFLOP/s, "
+            f"({ratio:.3f} of its bound); kernel {ms:.3f} ms ({flop / ms / 1e9:.2f} TFLOP/s, "
             f"{bound / ms:.3f} of the bound {bound:.3g} ms), plain {plain:.3f} ms, cuDNN conv + "
             f"GroupNorm {lib:.3f} ms (kernel / cuDNN {ms / lib:.3f})")
         del x, xc
@@ -2055,7 +2290,7 @@ def check_room_conv(dev, shapes) -> dict:
         f"({row['bound_by']})")
     return {"per_forward": {k: row[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                                                 "bound_by")}, "max_abs_err": tally.err,
-            "shapes": shapes}
+            "max_ratio_to_bound": worst_ratio, "shapes": shapes}
 
 
 def check_room_kernels(dev, shapes) -> dict:
@@ -2111,10 +2346,10 @@ def check_room_kernels(dev, shapes) -> dict:
     worst = 0.0
     for r, cin, cout, act in dict.fromkeys(convs):
         args = conv_inputs(gen, dev, torch.float32, B, r, cin, cout, False)
-        err, tol = conv_error("f32", args, act, f"room B={B} r={r} {cin}->{cout}")
+        err, ratio = conv_error("f32", args, act, f"room B={B} r={r} {cin}->{cout}")
         worst = max(worst, err)
         log(f"conv3d_gn f32 room B={B} r={r} {cin}->{cout}{' + swish' if act else ''}: "
-            f"max err {err:.3g} (tol {tol:.3g})")
+            f"max err {err:.3g} ({ratio:.3f} of its bound)")
         del args
         torch.cuda.empty_cache()
     errs["conv3d_gn"]["f32"] = worst
@@ -2328,6 +2563,223 @@ def room(dev) -> dict:
             "bit_equal_runs": True, "evaluation": evaluation}
 
 
+# ---------------------------------------------------------------- phase 9
+EVAL_EPS, EVAL_ROUNDS = 0.001, 10000  # the object Evaluator's auction
+OBJECT_CELLS = [f"{res}_{noise}" for res in ("10000_poisson", "50000_poisson")
+                for noise in ("0.01", "0.02", "0.03")]  # the CLI's defaults
+OBJECT_METRICS = ("cd_sph", "p2f", "emd_sub", "emd_exact_sub")
+# the approximate EMD, card against CPU: its rounds amplify the last bit of
+# d2 and of each sum (one ulp of one cloud moves it by up to 4.4e-3
+# relative; tests/test_torch_emd_approx.py); Chamfer to 1e-5 relative
+# (tests/test_torch_room_metrics.py)
+EMD_CARD_REL = 1e-2
+CD_CARD_REL = 1e-5
+
+
+class ObjectClock:
+    """While entered, wraps what ``evaluate_objects.main`` calls: a cell's
+    ``input_iter`` (which starts the cell), ``patch_based_denoise`` and the
+    Evaluator's metric functions, each timed by the host clock between two
+    synchronises and summed per cell."""
+
+    TIMED = {"denoise": (evaluate_objects, "patch_based_denoise"),
+             "cd": (object_evaluation, "chamfer_distance_unit_sphere"),
+             "p2m": (object_evaluation, "point_mesh_bidir_distance_single_unit_sphere"),
+             "emd_sub": (object_evaluation, "calculate_emd"),
+             "emd_exact_sub": (object_evaluation, "calculate_emd_exact")}
+
+    def __init__(self):
+        self.cell, self.ms = None, {}
+        self.saved = []  # (module, name, the function wrapped)
+
+    def __enter__(self):
+        inner_iter = evaluate_objects.input_iter
+
+        def cell_iter(in_dir):
+            self.cell = Path(in_dir).name
+            self.ms[self.cell] = dict.fromkeys(self.TIMED, 0.0)
+            return inner_iter(in_dir)
+
+        self.saved.append((evaluate_objects, "input_iter", inner_iter))
+        evaluate_objects.input_iter = cell_iter
+        for key, (module, name) in self.TIMED.items():
+            inner = getattr(module, name)
+            self.saved.append((module, name, inner))
+
+            def timed(*args, key=key, inner=inner, **kwargs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = inner(*args, **kwargs)
+                torch.cuda.synchronize()
+                self.ms[self.cell][key] += (time.perf_counter() - t0) * 1e3
+                return out
+
+            setattr(module, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, inner in self.saved:
+            setattr(module, name, inner)
+
+
+def read_summary(path: Path) -> dict:
+    """Summary_<dataset>.csv -> {row: {metric without "(mean)": value}}."""
+    _, _, rows = summary_csv(str(path))
+    return {name: {c.replace("(mean)", ""): v for c, v in row.items()}
+            for name, row in rows.items()}
+
+
+def evaluate_objects_cli(run: Path, data: Path, out_root: Path, mode: str) -> tuple:
+    """python -m p2p_bridge_tpu_torch.evaluate_objects through its main on
+    the card (5 steps, ``mode`` recombination, the 6 cells) with the launch
+    counts set to 0 just before and read just after -> (per-cell metrics,
+    launches, per-cell ms, wall ms)."""
+    argv = ["--model_path", str(run), "--dataset_root", str(data), "--output_root",
+            str(out_root), "--steps", "5", "--recombine", mode]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with ObjectClock() as clock:
+        summary = evaluate_objects.main(argv)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    launches = dict(kernels.launch_counts)
+    rows = read_summary(Path(summary))
+    want = {f"PUNet_{cell}_steps5" for cell in OBJECT_CELLS}
+    if not (set(rows) == want and all(
+            set(r) == set(OBJECT_METRICS) and all(math.isfinite(v) for v in r.values())
+            for r in rows.values())):
+        raise AssertionError(f"Summary_PUNet.csv ({mode}): {rows}")
+    idle = [k for k in SERVING + ("fps_cluster", "auction_emd") if launches.get(k, 0) == 0]
+    if idle:
+        raise AssertionError(f"kernels not launched by evaluate_objects ({mode}): {idle}")
+    metrics = {cell: rows[f"PUNet_{cell}_steps5"] for cell in OBJECT_CELLS}
+    return metrics, launches, clock.ms, wall
+
+
+def noisy_floor(data: Path, out_root: Path, dev) -> dict:
+    """The Evaluator on each cell's noisy inputs themselves."""
+    floor = {}
+    for cell in OBJECT_CELLS:
+        object_evaluation.Evaluator(
+            str(data / "PUNet" / "pointclouds" / "test" / cell), str(data), "PUNet",
+            str(out_root), f"noisy_{cell}", device=dev).run()
+    rows = read_summary(out_root / "Summary_PUNet.csv")
+    for cell in OBJECT_CELLS:
+        floor[cell] = rows[f"noisy_{cell}"]
+    return floor
+
+
+def check_auction_eval_setting(data: Path, out_dir: Path, dev) -> dict:
+    """K7 at the Evaluator's setting (eps 0.001, 10,000 rounds, B = 1) on
+    the normalised 2048-point sub-samples of one shape, drawn as the
+    Evaluator draws them: torch.equal to the plain version on
+    pairwise_sqdist_ordered and to a second call, one device function a
+    call, its rounds, times and bound."""
+    name = sorted(out_dir.glob("*.xyz"))[0].stem
+    pcl = read_xyz(str(out_dir / f"{name}.xyz"))[:, :3]
+    gt = read_xyz(str(data / "PUNet" / "pointclouds" / "test" / "8192_poisson" / f"{name}.xyz"))
+    rng = np.random.default_rng(abs(hash(name)) % (2**32))
+    k = object_evaluation.EMD_POINTS
+    sub_p = pcl[rng.choice(len(pcl), k, replace=False)][None]
+    sub_g = gt[rng.choice(len(gt), k, replace=len(gt) < k)][None]
+    ref, center, scale = obj_metrics.normalize_sphere(torch.as_tensor(sub_g, device=dev))
+    gen = obj_metrics.normalize_pcl(torch.as_tensor(sub_p, device=dev), center, scale)
+    x, y = gen.contiguous(), ref.contiguous()
+
+    def call():
+        return emd_auction._auction_emd_cuda(x, y, EVAL_EPS, EVAL_ROUNDS)
+
+    def plain():
+        return emd_auction.auction_emd_plain(pairwise_sqdist_ordered(x, y), EVAL_EPS, EVAL_ROUNDS)
+
+    got = call()
+    auction_equal(f"eps {EVAL_EPS} {EVAL_ROUNDS} rounds", got, plain(), call())
+    torch.cuda.synchronize()
+    rounds, rows, left = (int(v) for v in got[2][0].tolist())
+    ms = time_ms(call)
+    dms = device_ms(call, "auction_emd")
+    if DEVICE_LAUNCHES.get("auction_emd") != 1:
+        raise AssertionError("auction_emd at the evaluation setting launched "
+                             f"{DEVICE_LAUNCHES.get('auction_emd')} device functions a call")
+    hus = host_us(call, ms)
+    plain_ms = time_ms(plain, runs=2)
+    tally = Tally("f32", library=False)
+    # as check_auction counts it: the coordinates read once, the outputs
+    # written once; 11 f32 operations a distance of every bidder and
+    # fallback row scanned, and one a point for dist
+    bound = tally.add(1, ms, plain_ms, None, (k + k) * 12 + k * 8,
+                      11.0 * ((rows + left) * k + k), 0.0, dms, hus)
+    value = float(got[0].mean().sqrt()) * 1000.0
+    log(f"auction_emd at the evaluation setting (B=1, N=M={k}, eps {EVAL_EPS}, "
+        f"{EVAL_ROUNDS} rounds, shape {name}): equal to the plain version and to a second call; "
+        f"{rounds} rounds, {rows} bidder rows, {left} points to the fallback; {ms:.4f} ms "
+        f"(device {dms:.4f} ms, host {hus:.1f} us a call), plain {plain_ms:.3f} ms, bound "
+        f"{bound:.4g} ms ({tally.row()['bound_by']}); emd_exact x1000 {value:.4f}")
+    return {**tally.row(), "rounds": rounds, "bidder_rows": rows, "fallback_points": left,
+            "shape": name, "emd_exact_x1000": value, "eps": EVAL_EPS, "iters": EVAL_ROUNDS,
+            "points": k}
+
+
+def check_metrics_card_vs_cpu(dev) -> dict:
+    """earth_mover_distance and get_metrics at [4, 2048] on the card
+    against the same calls on the CPU."""
+    rng = np.random.default_rng(13)
+    gt = np.stack([surface_cloud(rng, 2048) for _ in range(4)])
+    pred = (gt + 0.01 * rng.normal(size=gt.shape)).astype(np.float32)
+    emd = [obj_metrics.earth_mover_distance(torch.from_numpy(pred).to(d),
+                                            torch.from_numpy(gt).to(d)).cpu().numpy()
+           for d in (dev, "cpu")]
+    card, cpu = (object_evaluation.get_metrics(pred, gt, device=d) for d in (dev, "cpu"))
+    emd_rel = float(np.abs(emd[0] - emd[1]).max() / np.abs(emd[1]).min())
+    rel = {k: abs(card[k] - cpu[k]) / abs(cpu[k]) for k in card}
+    log(f"earth_mover_distance [4, 2048] card vs CPU: {emd[0].tolist()} vs {emd[1].tolist()} "
+        f"(relative {emd_rel:.3g}, tol {EMD_CARD_REL}); get_metrics card {card}, CPU {cpu} "
+        f"(relative {json.dumps({k: float(f'{v:.3g}') for k, v in rel.items()})})")
+    if not (emd_rel <= EMD_CARD_REL and rel["EMD"] <= EMD_CARD_REL and rel["CD"] <= CD_CARD_REL
+            and card["MSE"] == cpu["MSE"]):
+        raise AssertionError(f"object metrics card vs CPU: emd {emd_rel}, get_metrics {rel}")
+    return {"emd_rel": emd_rel, "get_metrics_rel": rel, "card": card, "cpu": cpu}
+
+
+def objects(dev, run: Path, root: Path) -> dict:
+    """Phase 9: the object evaluation protocol at full width through
+    python -m p2p_bridge_tpu_torch.evaluate_objects, with phase 7's
+    checkpoint in ``run``."""
+    t_phase = time.perf_counter()
+    here = Path(__file__).resolve().parent
+    data = root / "objects"
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, str(here / "scripts" / "make_synthetic_punet.py"), "--out",
+                    str(data), "--train", "0", "--test", "3"], check=True, capture_output=True,
+                   text=True, timeout=600)
+    shutil.copy(here / "configs" / "PVDS_PUNet.yaml", run / "opt.yaml")
+    tree_s = time.perf_counter() - t0
+    log(f"phase 9: synthetic PU-Net test tree (3 shapes, 8192-point GT, meshes, 10k and 50k "
+        f"inputs at 3 noise levels) written in {tree_s:.1f} s")
+    by_mode, launches, cell_ms, wall = {}, {}, {}, {}
+    for mode in ("exact", "bucketed"):
+        by_mode[mode], launches[mode], cell_ms[mode], wall[mode] = evaluate_objects_cli(
+            run, data, root / f"objects_{mode}", mode)
+        log(f"evaluate_objects ({mode} recombination, 5 steps, bf16 PVDS_PUNet from phase 7) "
+            f"{wall[mode]:.0f} ms; launches {launches[mode]}")
+        for cell in OBJECT_CELLS:
+            log(f"  {cell}: ms {json.dumps({k: round(v, 1) for k, v in cell_ms[mode][cell].items()})}"
+                f"; {json.dumps({k: float(f'{v:.6g}') for k, v in by_mode[mode][cell].items()})}")
+    floor = noisy_floor(data, root / "objects_noisy", dev)
+    for cell in OBJECT_CELLS:
+        log(f"  {cell} noisy input: "
+            f"{json.dumps({k: float(f'{v:.6g}') for k, v in floor[cell].items()})}")
+    k7 = check_auction_eval_setting(
+        data, root / "objects_exact" / f"PUNet_{OBJECT_CELLS[0]}_steps5", dev)
+    card_cpu = check_metrics_card_vs_cpu(dev)
+    seconds = time.perf_counter() - t_phase
+    log(f"phase 9: {seconds:.1f} s")
+    return {"metrics": {**{m: by_mode[m] for m in by_mode}, "noisy": floor},
+            "launches": launches, "cell_ms": cell_ms, "cli_ms": wall, "tree_s": tree_s,
+            "auction_eval": k7, "card_vs_cpu": card_cpu, "seconds": seconds}
+
+
 def main() -> None:
     require_card()
     dev = torch.device("cuda", 0)
@@ -2343,11 +2795,14 @@ def main() -> None:
     profile = {mode: profile_bf16(model, dev, mode) for mode in ("bucketed", "exact")}
     del model, twin
     torch.cuda.empty_cache()
-    trained = training(dev, plan)
-    results.update(trained["results"])
-    train_launches = trained["run"]["launches"]
-    torch.cuda.empty_cache()
-    room_run = room(dev)
+    with tempfile.TemporaryDirectory() as work:
+        trained = training(dev, plan, Path(work))
+        results.update(trained["results"])
+        train_launches = trained["run"]["launches"]
+        torch.cuda.empty_cache()
+        room_run = room(dev)
+        torch.cuda.empty_cache()
+        object_run = objects(dev, Path(work) / "run", Path(work))
 
     entries = []
     for name, (src, replaces) in KERNELS.items():
@@ -2357,6 +2812,8 @@ def main() -> None:
                    for d, modes in run.items() for m, r in modes.items()}
         by_path["bf16 train step"] = train_launches[name]
         by_path["bf16 room"] = room_run["launches"].get(name, 0)
+        for mode, counts in object_run["launches"].items():
+            by_path[f"bf16 evaluate_objects {mode}"] = counts.get(name, 0)
         path, timed = {
             "fps_cluster": (f"{MAIN} exact", "kernel calls of one 50k denoise with exact "
                             "recombination: the seeding and the recombination"),
@@ -2370,6 +2827,8 @@ def main() -> None:
                  "device_functions_per_call": DEVICE_LAUNCHES.get(name),
                  "max_abs_err_by_dtype": {d: t.err for d, t in per_dtype.items()},
                  "f32": per_dtype["f32"].row(), "timed": timed}
+        if name == "auction_emd":
+            entry["evaluation"] = object_run["auction_eval"]
         entries.append(entry)
     line = {"kernels": entries, "forward": forward, "launch_path_host_us": launch_costs,
             "denoise_50k_ms": {f"{d} {m}": r["ms"] for d, modes in run.items()
@@ -2379,7 +2838,9 @@ def main() -> None:
                       "k1_backward_cudnn": trained["k1_backward_cudnn"],
                       "determinism_audit": trained["determinism_audit"],
                       **{k: v for k, v in trained["run"].items() if k != "launches"}},
-            "room": {k: v for k, v in room_run.items() if k != "launches"}}
+            "room": {k: v for k, v in room_run.items() if k != "launches"},
+            "objects": {k: v for k, v in object_run.items()
+                        if k not in ("launches", "auction_eval")}}
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

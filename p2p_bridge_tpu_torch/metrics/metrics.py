@@ -1,16 +1,20 @@
-"""The metrics facade of the room evaluation (port of the room part of
-p2p_bridge_tpu/metrics/metrics.py): unit-sphere normalisation, Chamfer
-after it, point <-> mesh distance, and the room-scale Chamfer pair."""
+"""The metrics facade (port of p2p_bridge_tpu/metrics/metrics.py): the
+object metrics in sub-batches of 4 (Chamfer, approximate EMD, auction
+EMD), unit-sphere normalisation, Chamfer after it, point <-> mesh
+distance, and the room-scale Chamfer pair. Each takes [B, N, 3] clouds
+(numpy or torch) and an explicit ``device``: "cuda" with no card raises."""
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Tuple
 
 import numpy as np
 import torch
 
 from ..utils.device import resolve_device
 from .chamfer import chamfer_distance, chamfer_distance_large
+from .emd_approx import earth_mover_distance
+from .emd_auction import auction_emd
 from .p2m import point_mesh_face_distance
 
 
@@ -21,6 +25,41 @@ def _bnc(x, device) -> torch.Tensor:
     if x.shape[-1] != 3:
         x = x.transpose(-1, -2)
     return x
+
+
+def calculate_cd(pred, gt, device="cuda") -> List[float]:
+    """Per-cloud symmetric Chamfer distance: mean(d_pg) + mean(d_gp)."""
+    pred, gt = _bnc(pred, device), _bnc(gt, device)
+    dl, dr, _, _ = chamfer_distance(pred, gt)
+    return [float(v) for v in (dl.mean(dim=1) + dr.mean(dim=1)).cpu()]
+
+
+calculate_cd_cuda = calculate_cd  # the reference's name
+
+
+def calculate_emd(pred, gt, device="cuda") -> List[float]:
+    """Approximate EMD, one mean per sub-batch of 4 clouds."""
+    pred, gt = _bnc(pred, device), _bnc(gt, device)
+    return [float(earth_mover_distance(pred[s:s + 4], gt[s:s + 4]).mean())
+            for s in range(0, pred.shape[0], 4)]
+
+
+calculate_emd_cuda = calculate_emd
+
+
+def calculate_emd_exact(pred, gt, eps: float = 0.001, iters: int = 10000,
+                        device="cuda") -> List[float]:
+    """Auction EMD, sqrt of the mean matched squared distance per cloud,
+    in sub-batches of 4 (kernel K7 on the card)."""
+    pred, gt = _bnc(pred, device), _bnc(gt, device)
+    out = []
+    for s in range(0, pred.shape[0], 4):
+        dist, _ = auction_emd(pred[s:s + 4], gt[s:s + 4], eps=eps, iters=iters)
+        out.extend(float(v) for v in dist.mean(dim=1).sqrt().cpu())
+    return out
+
+
+calculate_emd_exact_cuda = calculate_emd_exact
 
 
 def normalize_sphere(pc, radius: float = 1.0):

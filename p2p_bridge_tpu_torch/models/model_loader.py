@@ -11,7 +11,9 @@ carry the reference torch ``state_dict`` keys (see weights.py), so
 
 from __future__ import annotations
 
+import logging
 import os
+from typing import Mapping, Tuple
 
 import torch
 
@@ -20,6 +22,7 @@ from ..utils.config import apply_dot_overrides, load_yaml
 from ..weights import load_jax_params, load_npz, load_torch_state_dict
 
 CHECKPOINT = "model.pt"
+logger = logging.getLogger("p2pb")
 
 
 def load_config(model_path: str, overrides) -> dict:
@@ -57,6 +60,26 @@ def load_weights(model: torch.nn.Module, path: str, use_ema: bool) -> None:
     prefix = f"{key}."
     sd = {(k[len(prefix):] if k.startswith(prefix) else k): v for k, v in sd.items()}
     load_torch_state_dict(model, sd)
+
+
+def load_matched_weights(model: torch.nn.Module,
+                         state_dict: Mapping[str, torch.Tensor]) -> Tuple[int, int]:
+    """Partial load across configuration changes: copy every tensor of
+    ``state_dict`` whose name and shape match one of the model's, keep the
+    model's own values elsewhere, and warn on each tensor kept. Returns
+    (n_loaded, n_skipped), counted over the model's tensors."""
+    n_loaded = n_skipped = 0
+    with torch.no_grad():
+        for name, own in model.state_dict().items():
+            old = state_dict.get(name)
+            if old is not None and tuple(old.shape) == tuple(own.shape):
+                own.copy_(old)
+                n_loaded += 1
+            else:
+                n_skipped += 1
+                logger.warning("Parameter %s %s; keeping fresh init.", name,
+                               "not found in checkpoint" if old is None else "shape mismatch")
+    return n_loaded, n_skipped
 
 
 def save_checkpoint(path: str, state: TrainState) -> str:

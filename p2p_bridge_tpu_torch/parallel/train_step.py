@@ -80,14 +80,18 @@ def train_step(bridge, state: TrainState, batch: Dict[str, torch.Tensor],
                grad_clip: Optional[float] = 1.0, accumulation_steps: int = 1,
                ema_decay: float = 0.999, align_cfg: Optional[dict] = None,
                steps: Optional[torch.Tensor] = None,
-               mark: Optional[Callable[[str], None]] = None) -> Dict[str, torch.Tensor]:
+               mark: Optional[Callable[[str], None]] = None,
+               return_grads: bool = False) -> Dict[str, torch.Tensor]:
     """One update of ``state`` (in place) from ``batch`` = {"x_gt",
     "x_start"[, "x_cond"]}, each [accumulation_steps * B, N, C] on the
     model's device. ``steps`` (the diffusion timesteps of every cloud, in
     batch order) are drawn from ``generator`` when not given; ``mark`` is
     called with "align", "forward_backward" and "update" as each phase has
     been issued. Returns {"loss", "grad_norm" (before the clip),
-    "param_norm" (after the update)} as 0-d tensors."""
+    "param_norm" (after the update)} as 0-d tensors; with
+    ``return_grads`` also "grads", {name: a copy of the parameter's
+    gradient before the clip}, taken from this step's backward (the
+    update is the same, bit for bit)."""
     model = state.model
     model.train()
     if align_cfg is not None:
@@ -118,6 +122,10 @@ def train_step(bridge, state: TrainState, batch: Dict[str, torch.Tensor],
     if accumulation_steps > 1:
         torch._foreach_div_(grads, accumulation_steps)
     grad_norm = global_norm(grads)
+    raw_grads = None
+    if return_grads:
+        raw_grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+                     if p.requires_grad}
     if mark:
         mark("forward_backward")
 
@@ -132,4 +140,7 @@ def train_step(bridge, state: TrainState, batch: Dict[str, torch.Tensor],
         param_norm = global_norm(model.parameters())
     if mark:
         mark("update")
-    return {"loss": loss, "grad_norm": grad_norm, "param_norm": param_norm}
+    out = {"loss": loss, "grad_norm": grad_norm, "param_norm": param_norm}
+    if raw_grads is not None:
+        out["grads"] = raw_grads
+    return out

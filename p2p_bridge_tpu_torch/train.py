@@ -14,9 +14,17 @@ reads and writes YAML; :func:`train` takes the configuration as a dict.
 Each step draws a batch from the PUNet loader, aligns the clean patches to
 the noisy ones by auction EMD on the device (eps 0.01, 100 rounds), and
 runs :func:`parallel.train_step.train_step`. Every ``log_interval`` steps it
-logs the loss and the parameter and gradient norms. The in-training
-evaluation of the JAX package (``viz_interval``) is not ported yet: the
-loop logs that it skipped it.
+logs the loss and the parameter and gradient norms (with the pooled
+loader's produced / consumed counts) and hands them to the experiment
+tracker, which writes ``metrics.jsonl`` into the output directory. Every
+``training.watch_interval`` steps the tracker writes the parameters'
+histograms to ``histograms.jsonl``, and with ``training.watch_gradients``
+the gradients' too, from that step's own backward. Every
+``training.viz_interval`` steps :func:`models.evaluation.evaluate` scores
+the val loader (with the EMA weights when ``use_ema`` is set) and renders
+into ``<output_dir>/output``; an evaluation that fails is logged and
+training goes on. With ``profile_dir`` set, steps start+10 to start+14 are
+traced with torch.profiler into a Chrome trace in that directory.
 """
 
 from __future__ import annotations
@@ -32,11 +40,13 @@ import torch
 
 from .data.batch import get_data_batch
 from .data.dataloader import get_dataloader, save_iter
+from .models.evaluation import evaluate
 from .models.model_loader import restore_checkpoint, save_checkpoint
 from .models.p2pb import P2PBridge
 from .models.unet_pvc import build_unet_from_config, init_parameters
 from .parallel.train_step import init_train_state, train_step
-from .utils.args import parse_args
+from .utils.args import parse_args, setup_output_subdirs
+from .utils.logging import ExperimentTracker
 
 logger = logging.getLogger("p2pb")
 
@@ -45,6 +55,15 @@ Observer = Callable[[int, str, Optional[dict]], None]
 
 def _to_device(batch: dict, device) -> dict:
     return {k: torch.from_numpy(v).to(device) for k, v in batch.items() if v is not None}
+
+
+def _profiler(device: torch.device):
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    return profile(activities=activities)
 
 
 def train(cfg: dict, device="cuda", observer: Optional[Observer] = None):
@@ -65,8 +84,9 @@ def train(cfg: dict, device="cuda", observer: Optional[Observer] = None):
     generator = torch.Generator(device).manual_seed(seed)  # timesteps, noise
     output_dir = cfg["output_dir"]
     os.makedirs(output_dir, exist_ok=True)
+    (outf_syn,) = setup_output_subdirs(output_dir, "output")
 
-    train_loader, _ = get_dataloader(cfg)
+    train_loader, val_loader = get_dataloader(cfg)
     model = build_unet_from_config(cfg)
     init_parameters(model, torch.Generator().manual_seed(seed))
     model.to(device)
@@ -87,36 +107,72 @@ def train(cfg: dict, device="cuda", observer: Optional[Observer] = None):
     log_interval = training.get("log_interval", 10)
     save_interval = training.get("save_interval", 10000)
     viz_interval = training.get("viz_interval", 10000)
+    watch_interval = training.get("watch_interval", 2000)
+    watch_gradients = training.get("watch_gradients", False)
+    profile_dir = cfg.get("profile_dir")
+    tracker = ExperimentTracker(output_dir, project=cfg.get("wandb_project", "P2P-Bridge"),
+                                config=cfg)
 
     train_iter = save_iter(train_loader)
     start_step = state.step
+    prof = None
     t_last = time.perf_counter()
     try:
         for step in range(start_step, training["steps"]):
+            if profile_dir and step == start_step + 10:
+                prof = _profiler(device)
+                prof.start()
+            if prof is not None and step == start_step + 15:
+                prof.stop()
+                os.makedirs(profile_dir, exist_ok=True)
+                trace = os.path.join(profile_dir, f"trace_steps_{step - 5}_{step - 1}.json")
+                prof.export_chrome_trace(trace)
+                prof = None
+                logger.info("Wrote profiler trace to %s", trace)
             if observer:
                 observer(step, "begin", None)
             batch = _to_device(get_data_batch(next(train_iter), cfg), device)
             mark = (lambda phase, step=step: observer(step, phase, None)) if observer else None
             if mark:
                 mark("batch")
+            is_watch_step = bool(watch_interval) and (step + 1) % watch_interval == 0
             metrics = train_step(bridge, state, batch, generator, grad_clip=grad_clip,
                                  accumulation_steps=accum, ema_decay=ema_decay,
-                                 align_cfg=align_cfg, mark=mark)
+                                 align_cfg=align_cfg, mark=mark,
+                                 return_grads=is_watch_step and watch_gradients)
             if observer:
                 observer(step, "end", metrics)
             if step % log_interval == 0:
+                loss = float(metrics["loss"])
                 dt = time.perf_counter() - t_last
                 t_last = time.perf_counter()
+                pool_note = ""
+                if hasattr(train_loader, "stats"):
+                    st = train_loader.stats()
+                    pool_note = "\tpool p/c: %d/%d" % (st["produced"], st["consumed"])
                 logger.info("[%6d/%d]\tloss: %10.6f\tnetpNorm: %10.2f\tnetgradNorm: %10.4f"
-                            "\t(%.2fs/%d steps)", step, training["steps"],
-                            float(metrics["loss"]), float(metrics["param_norm"]),
-                            float(metrics["grad_norm"]), dt, log_interval)
+                            "\t(%.2fs/%d steps)%s", step, training["steps"], loss,
+                            float(metrics["param_norm"]), float(metrics["grad_norm"]), dt,
+                            log_interval, pool_note)
+                tracker.log({"loss": loss, "netpNorm": float(metrics["param_norm"]),
+                             "netgradNorm": float(metrics["grad_norm"])}, step)
+            if is_watch_step:
+                tracker.log_histograms(model, step + 1, prefix="param")
+                if "grads" in metrics:
+                    tracker.log_histograms(metrics["grads"], step + 1, prefix="grad")
             if (step + 1) % save_interval == 0:
                 save_checkpoint(output_dir, state)
                 logger.info("Saved checkpoint to %s", output_dir)
             if (step + 1) % viz_interval == 0:
-                logger.info("Skipped the evaluation at step %d: not ported yet", step + 1)
+                try:
+                    evaluate(bridge, val_loader, cfg, step + 1, out_dir=outf_syn, tracker=tracker,
+                             ema_params=state.ema.params if (state.ema is not None
+                                                             and cfg.get("use_ema")) else None)
+                except Exception as e:  # the evaluation must never stop training
+                    logger.warning("Could not evaluate model. Skipping. (%s)", e, exc_info=True)
     finally:
+        if prof is not None:
+            prof.stop()
         if hasattr(train_loader, "stop"):
             train_loader.stop()
 
@@ -124,6 +180,7 @@ def train(cfg: dict, device="cuda", observer: Optional[Observer] = None):
     if final > start_step and final % save_interval != 0:
         save_checkpoint(output_dir, state)
         logger.info("Saved final checkpoint to %s", output_dir)
+    tracker.finish()
     return state
 
 

@@ -1,2 +1,3 @@
-"""Framework-free helpers of the port: point-cloud file I/O, the YAML
-config reader and argument parser of the CLIs, and the parameter EMA."""
+"""Helpers of the port: point-cloud file I/O, the YAML config reader and
+argument parser of the CLIs, the parameter EMA, the experiment tracker
+and Summary CSV, and point-cloud figures."""

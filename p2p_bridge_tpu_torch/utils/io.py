@@ -1,6 +1,7 @@
 """Point-cloud file I/O: .xyz, .ply (ascii and binary), .npy and .npz
-(the readers and writers of p2p_bridge_tpu/utils/io.py that the CLIs use;
-tests hold them equal, ``write_ply`` byte for byte).
+(the readers and writers of p2p_bridge_tpu/utils/io.py that the CLIs and
+the object evaluation use; tests hold them equal, ``write_ply`` byte for
+byte).
 
 PLY covers vertex elements with float x/y/z (+ optional uchar r/g/b and
 float nx/ny/nz) and optional triangle faces (a vertex_indices list).
@@ -9,7 +10,7 @@ float nx/ny/nz) and optional triangle faces (a vertex_indices list).
 from __future__ import annotations
 
 import os
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
@@ -168,6 +169,33 @@ def write_ply(
             if faces is not None:
                 for face in np.asarray(faces, np.int64):
                     f.write(f"3 {face[0]} {face[1]} {face[2]}\n".encode("ascii"))
+
+
+def read_off(path: str) -> Tuple[np.ndarray, np.ndarray]:
+    """Read an OFF mesh -> (verts [V, 3] float32, faces [F, 3] int64); the
+    header may carry the counts ('OFF 123 456 0'), '#' starts a comment and
+    a polygon keeps its first three vertices."""
+    with open(path, "r") as f:
+        tokens: list = []
+        first = f.readline().strip()
+        if first != "OFF":
+            if not first.startswith("OFF"):
+                raise ValueError(f"{path}: not an OFF file")
+            tokens.extend(first[3:].split())
+        for line in f:
+            line = line.split("#")[0].strip()
+            if line:
+                tokens.extend(line.split())
+    nv, nf = int(tokens[0]), int(tokens[1])
+    ptr = 3
+    verts = np.array(tokens[ptr : ptr + 3 * nv], np.float32).reshape(nv, 3)
+    ptr += 3 * nv
+    faces = []
+    for _ in range(nf):
+        k = int(tokens[ptr])
+        faces.append([int(v) for v in tokens[ptr + 1 : ptr + 1 + k]][:3])
+        ptr += 1 + k
+    return verts, np.array(faces, np.int64)
 
 
 def load_point_cloud(path: str) -> Dict[str, np.ndarray]:

@@ -334,3 +334,30 @@ def test_f32_kernel_operands_match_xla(R, cin, cout):
                                    eps=1e-5, act=True))
     got = conv3d_gn_plain(xk, wk, *map(torch.from_numpy, (b, gamma, beta)), act=True).numpy()
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("act", [False, True])
+@pytest.mark.parametrize("bias", [0.0, 6.0], ids=["centred", "large_mean"])
+def test_bf16_bound_covers_another_summation_order(act, bias):
+    """chip_smoke's per-element bound for K1 bf16 against its plain
+    version holds for a stand-in of the kernel that sums the accumulator
+    in another order (in f64, then rounded to f32) and takes the
+    statistics from it, with groups whose |mean| is large against their
+    spread (bias 6 against a conv of unit spread): the staged values of the
+    two sides then differ where y crosses a bf16 rounding boundary."""
+    import chip_smoke
+
+    x, k, b, gamma, beta = inputs(2, 8, 32, 64, True, seed=3)
+    x = torch.from_numpy(x).to(torch.bfloat16)
+    w = (torch.from_numpy(k) * (1 / (0.05 * (27 * 32) ** 0.5))).to(torch.bfloat16)
+    b = torch.from_numpy(b) * 0.1 + bias
+    args = (x, w, b, torch.from_numpy(gamma), torch.from_numpy(beta))
+    want = conv3d_gn_plain(*args, 8, 1e-5, act)
+    y = torch.nn.functional.conv3d(x.double().permute(0, 4, 1, 2, 3),
+                                   w.double().permute(4, 3, 0, 1, 2), b.double(), padding=1)
+    got = apply_group_norm(y.float().permute(0, 2, 3, 4, 1), args[3], args[4], 8, 1e-5, act,
+                           staged=torch.bfloat16).to(torch.bfloat16)
+    diff = (got.float() - want.float()).abs()
+    bound = chip_smoke.conv_bf16_bound(args, act, got, want)
+    assert diff.max() > 0
+    assert (diff <= bound).all(), (diff / bound).max()

@@ -131,6 +131,24 @@ def test_point_files_round_trip_like_the_original(tmp_path, ext):
         port_io.load_point_cloud(str(tmp_path / "c.obj"))
 
 
+@pytest.mark.parametrize("text", [
+    "OFF\n4 2 0\n0 0 0\n1 0 0\n0 1 0\n0 0 1.5\n3 0 1 2\n3 0 2 3\n",
+    # counts on the header line, comments, blank lines, a quad keeps its first three
+    "OFF 4 2 0\n\n0 0 0\n1 0 0 # a vertex\n0 1 0\n0 0 1.5\n4 0 1 2 3\n3 1 2 3\n",
+], ids=["plain", "glued_header"])
+def test_read_off_equals_the_original(tmp_path, text):
+    path = tmp_path / "m.off"
+    path.write_text(text)
+    got, want = port_io.read_off(str(path)), jax_io.read_off(str(path))
+    for g, w in zip(got, want, strict=True):
+        np.testing.assert_array_equal(g, w)
+        assert g.dtype == w.dtype
+    assert got[0].shape == (4, 3) and got[1].shape == (2, 3)
+    path.write_text("PLY\n")
+    with pytest.raises(ValueError, match="not an OFF file"):
+        port_io.read_off(str(path))
+
+
 def test_normalize_unit_sphere_equals_the_original():
     p = cloud(seed=2)["points"] + 5.0
     for args in ((), (np.ones((1, 3), np.float32), None), (None, 2.5)):

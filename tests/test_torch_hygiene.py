@@ -40,7 +40,11 @@ MAIN_PATH = [
     "p2p_bridge_tpu_torch.metrics.chamfer", "p2p_bridge_tpu_torch.metrics.p2m",
     "p2p_bridge_tpu_torch.metrics.metrics", "p2p_bridge_tpu_torch.utils.device",
     "p2p_bridge_tpu_torch.rooms", "p2p_bridge_tpu_torch.denoise_room",
-    "p2p_bridge_tpu_torch.evaluate_rooms", "chip_smoke",
+    "p2p_bridge_tpu_torch.evaluate_rooms",
+    # object evaluation, the training CLI's tracking
+    "p2p_bridge_tpu_torch.metrics.emd_approx", "p2p_bridge_tpu_torch.utils.logging",
+    "p2p_bridge_tpu_torch.utils.visualize", "p2p_bridge_tpu_torch.models.evaluation",
+    "p2p_bridge_tpu_torch.evaluate_objects", "chip_smoke",
 ]
 PORT_SOURCES = sorted((ROOT / "p2p_bridge_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "profile_denoise.py"]

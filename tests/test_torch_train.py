@@ -356,3 +356,152 @@ def test_checkpoint_round_trip_restores_the_whole_state(tmp_path):
             for key in ("exp_avg", "exp_avg_sq"):
                 assert torch.equal(state.optimizer.state[p][key], state2.optimizer.state[q][key])
         assert all(torch.equal(state.ema.params[k], state2.ema.params[k]) for k in ("w", "b"))
+
+
+@pytest.fixture
+def p2pb_records(monkeypatch):
+    """Let the "p2pb" logger's records reach caplog: the JAX package's
+    setup_logger, which other test modules import, stops them at that
+    logger."""
+    import logging
+
+    monkeypatch.setattr(logging.getLogger("p2pb"), "propagate", True)
+
+
+@pytest.fixture
+def one_thread():
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+def test_load_matched_weights_partial(caplog, p2pb_records):
+    """A tensor whose name and shape match is copied; a shape mismatch and
+    a tensor the checkpoint lacks keep the fresh values, each with a
+    warning; a key the model lacks is ignored. The strict loader refuses
+    the same dict."""
+    from p2p_bridge_tpu_torch.models.model_loader import load_matched_weights
+
+    model = torch.nn.Sequential(torch.nn.Linear(2, 2), torch.nn.Linear(2, 3))
+    fresh = {k: v.clone() for k, v in model.state_dict().items()}
+    loaded = {"0.weight": torch.ones(2, 2), "0.bias": torch.ones(5),  # shape mismatch
+              "1.weight": torch.full((3, 2), 2.0), "unknown": torch.ones(1)}  # 1.bias missing
+    with caplog.at_level("WARNING", logger="p2pb"):
+        n_loaded, n_skipped = load_matched_weights(model, loaded)
+    assert (n_loaded, n_skipped) == (2, 2)
+    sd = model.state_dict()
+    assert torch.equal(sd["0.weight"], torch.ones(2, 2))
+    assert torch.equal(sd["1.weight"], torch.full((3, 2), 2.0))
+    assert torch.equal(sd["0.bias"], fresh["0.bias"]) and torch.equal(sd["1.bias"], fresh["1.bias"])
+    warned = [r.getMessage() for r in caplog.records]
+    assert any("0.bias shape mismatch" in m for m in warned)
+    assert any("1.bias not found in checkpoint" in m for m in warned)
+    with pytest.raises(RuntimeError):
+        model.load_state_dict(loaded, strict=True)
+
+
+def loop_cfg(tmp_path, name, *extra):
+    """The training CLI's configuration at TINY widths on the synthetic
+    tree, exact epochs (data.loader epoch), 16 steps, evaluations of one
+    val batch of 2 patches."""
+    from p2p_bridge_tpu_torch.utils.args import parse_args
+
+    return parse_args(["--config", str(ROOT / "configs" / "PVDS_PUNet.yaml"),
+                       "--save_dir", str(tmp_path / "runs"), "--name", name,
+                       "--data.data_dir", str(tmp_path / "data"), "--data.loader", "epoch",
+                       "--training.steps", "16", "--training.log_interval", "1",
+                       "--training.save_interval", "1000", "--diffusion.sampling_timesteps", "2",
+                       "--training.eval_max_batches", "1", "--sampling.bs", "2", *TINY_OVERRIDES,
+                       *extra])
+
+
+def test_training_loop_evaluates_watches_and_profiles(tmp_path, one_thread):
+    """16 CPU steps with an evaluation every 2 steps (with the EMA
+    weights), histograms of the parameters and of the gradients every 4 and
+    a profile of steps 10-14: metrics.jsonl holds the losses and the eval
+    keys, histograms.jsonl a row of every parameter at each watch step, the
+    trace is written, and the parameters and EMA end bit-equal to those of
+    a run that does none of it."""
+    import json
+
+    from p2p_bridge_tpu_torch.train import train
+
+    synthetic_tree(tmp_path / "data")
+    plain = train(loop_cfg(tmp_path, "plain"), "cpu")
+    cfg = loop_cfg(tmp_path, "watched", "--training.viz_interval", "2",
+                   "--training.watch_interval", "4", "--training.watch_gradients", "true",
+                   "--profile_dir", str(tmp_path / "trace"), "--use_ema")
+    state = train(cfg, "cpu")
+    for a, b in zip(plain.model.parameters(), state.model.parameters(), strict=True):
+        assert torch.equal(a, b)
+    assert all(torch.equal(plain.ema.params[k], v) for k, v in state.ema.params.items())
+
+    run = Path(cfg["output_dir"])
+    recs = [json.loads(x) for x in (run / "metrics.jsonl").read_text().splitlines()]
+    assert [r["step"] for r in recs if "loss" in r] == list(range(16))
+    evals = [r for r in recs if "eval/CD" in r]
+    assert [r["step"] for r in evals] == list(range(2, 17, 2))
+    for r in evals:
+        assert all(np.isfinite(r[f"eval/{p}{k}"]) for p in ("", "noisy_")
+                   for k in ("CD", "EMD", "MSE"))
+    names = {n for n, _ in state.model.named_parameters()}
+    hists = [json.loads(x) for x in (run / "histograms.jsonl").read_text().splitlines()]
+    assert [h["step"] for h in hists] == [4, 4, 8, 8, 12, 12, 16, 16]
+    for h in hists:
+        prefix = next(iter(h["hists"])).split("/")[0]
+        assert prefix in ("param", "grad")
+        assert set(h["hists"]) == {f"{prefix}/{n}" for n in names}
+    assert os.listdir(tmp_path / "trace") == ["trace_steps_10_14.json"]
+    assert "0000016_pred.png" in os.listdir(run / "output")
+
+
+def test_training_loop_survives_a_failed_evaluation(tmp_path, monkeypatch, caplog, p2pb_records,
+                                                    one_thread):
+    from p2p_bridge_tpu_torch import train as train_module
+
+    def broken(*args, **kwargs):
+        raise ValueError("evaluation broke")
+
+    monkeypatch.setattr(train_module, "evaluate", broken)
+    synthetic_tree(tmp_path / "data")
+    cfg = loop_cfg(tmp_path, "broken", "--training.viz_interval", "2", "--training.steps", "4")
+    with caplog.at_level("WARNING", logger="p2pb"):
+        state = train_module.train(cfg, "cpu")
+    assert state.step == 4
+    warned = [r.getMessage() for r in caplog.records if "Could not evaluate" in r.getMessage()]
+    assert len(warned) == 2 and "evaluation broke" in warned[0]
+
+
+def test_a_watch_step_updates_as_a_plain_step(tiny_pair):
+    """return_grads hands back this step's gradients before the clip and
+    changes nothing: the clipped gradients, the parameters, the moments and
+    the EMA equal a plain step's from the same state and draws, bit for
+    bit, and the returned gradients times the clip factor are the clipped
+    ones."""
+    import copy
+
+    cfg, tmodel, _, _ = tiny_pair
+    rng = np.random.default_rng(5)
+    batch = {n: torch.tensor(v) for n, v in shuffled_batch(rng, 2, 256).items()}
+    results = []
+    for watch in (True, False):
+        model = copy.deepcopy(tmodel)
+        state = pts.init_train_state(model, cfg)
+        bridge = P2PBridge.from_config(cfg, model)
+        torch.manual_seed(3)
+        m = pts.train_step(bridge, state, batch, torch.Generator().manual_seed(4),
+                           grad_clip=1e-3, align_cfg=ALIGN, return_grads=watch)
+        results.append((model, state, m))
+    (wmodel, wstate, wm), (pmodel, pstate, pm) = results
+    assert "grads" in wm and "grads" not in pm
+    assert torch.equal(wm["loss"], pm["loss"]) and torch.equal(wm["grad_norm"], pm["grad_norm"])
+    clip = torch.clamp(1e-3 / (wm["grad_norm"] + 1e-6), max=1.0)
+    assert clip < 1.0
+    for (name, a), b in zip(wmodel.named_parameters(), pmodel.parameters(), strict=True):
+        assert torch.equal(a, b) and torch.equal(a.grad, b.grad), name
+        assert torch.equal(wm["grads"][name] * clip, b.grad), name
+        assert not torch.equal(wm["grads"][name], b.grad) or not b.grad.any(), name
+        for key in ("exp_avg", "exp_avg_sq"):
+            assert torch.equal(wstate.optimizer.state[a][key], pstate.optimizer.state[b][key])
+    assert all(torch.equal(v, pstate.ema.params[k]) for k, v in wstate.ema.params.items())
