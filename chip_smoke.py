@@ -130,10 +130,32 @@ Phases, in order; any failure raises and the process exits non-zero:
      setting (eps 0.001, 10,000 rounds, B = 1, one shape's 2048-point
      sub-samples) torch.equal to its plain version and to a second call,
      one device function a call, its rounds, times and bound; the
-     approximate EMD and get_metrics at [4, 2048] card against CPU.
+     approximate EMD and get_metrics at [4, 2048] card against CPU;
+ 10. room training (run after phase 8, before phase 9): two synthetic
+     ScanNet++ scenes from phase 8's generator (train0 with 200,000 points,
+     val0 with 100,000) and their split files, made into 4096-point paired
+     batches with 384 float16 feature channels by python -m
+     p2p_bridge_tpu_torch.preprocess_batches (its main, two spawned
+     workers, r 0.3); K2b and scatter_rows (bf16 and f32) at every
+     backward shape of a PVDL_SNPP training step at B = 4 held as in phase
+     7, the calls at exactly 2^15 entries or rows a cloud required among
+     them, and K1's cuDNN backward timed; two bf16 forward + backward
+     passes of PVDL_SNPP on one room batch (dropout, x_cond) bit-equal in
+     every parameter's gradient; PVDL_SNPP as shipped (118,666,115
+     parameters, bf16, bs 4 x 4096, AdamW, clip 1.0, EMA, no alignment)
+     trained for 31 steps through ``train`` with phase 7's observer: every
+     loss finite, every training kernel but K7 launched in step 20, ms a
+     step over steps 10-29 by phase, patches/s, a profile of step 30, one
+     in-training evaluation after step 29 with finite eval/* keys; the
+     run directory (model.pt, opt.yaml as the training CLI writes it)
+     through denoise_room's loader with and without the EMA, its forward
+     bit-equal to the trained model's, and python -m
+     p2p_bridge_tpu_torch.denoise_room with that run on the val scan.
 The line before the last is a JSON object with each kernel's launches,
 errors, times (back to back, device, host per call) and bounds; the last
-line is {"ok": true, "device": {...}}.
+line is {"ok": true, "device": {...}}. Phase 10's figures are under
+"room_train" on the line before the last, and each kernel's launches in a
+room training step under "bf16 room train step" in its launches_by_path.
 """
 
 from __future__ import annotations
@@ -157,7 +179,8 @@ import torch.nn.functional as F
 from p2p_bridge_tpu_torch import kernels
 from p2p_bridge_tpu_torch import denoise_object
 from p2p_bridge_tpu_torch import denoise_room as room_cli
-from p2p_bridge_tpu_torch import evaluate_objects, evaluate_rooms, rooms, runtime
+from p2p_bridge_tpu_torch import (evaluate_objects, evaluate_rooms, preprocess_batches, rooms,
+                                  runtime)
 from p2p_bridge_tpu_torch.config import pvdl_snpp, pvds_punet
 from p2p_bridge_tpu_torch.data.batch import get_data_batch
 from p2p_bridge_tpu_torch.data.dataloader import get_dataloader
@@ -171,12 +194,13 @@ from p2p_bridge_tpu_torch.models.model_loader import save_checkpoint
 from p2p_bridge_tpu_torch.models.p2pb import P2PBridge
 from p2p_bridge_tpu_torch.models.unet_pvc import build_unet_from_config, init_parameters
 from p2p_bridge_tpu_torch.parallel.train_step import init_train_state, train_step
-from p2p_bridge_tpu_torch.train import train
+from p2p_bridge_tpu_torch.train import train, write_run_config
 from p2p_bridge_tpu_torch.ops import ball_query as bq_ops
 from p2p_bridge_tpu_torch.ops import conv3d_gn as conv_ops
 from p2p_bridge_tpu_torch.ops import devoxelize as devox_ops
 from p2p_bridge_tpu_torch.ops import fps as fps_ops
 from p2p_bridge_tpu_torch.ops import interpolate as interp_ops
+from p2p_bridge_tpu_torch.ops import scatter as scatter_ops
 from p2p_bridge_tpu_torch.ops import voxelize as vox_ops
 from p2p_bridge_tpu_torch.ops.common import (pairwise_sqdist, pairwise_sqdist_exact,
                                               pairwise_sqdist_ordered)
@@ -245,6 +269,10 @@ KERNELS = {
 SERVING = ("fps", "ball_query_group", "avg_voxelize", "conv3d_gn", "trilinear_devoxelize",
            "three_nn_interpolate")  # the kernels of every denoising path's backbone
 TRAINING = tuple(k for k in KERNELS if k != "fps_cluster")  # a training step's
+ROOM_TRAINING = tuple(k for k in TRAINING if k != "auction_emd")  # room pairs are aligned offline
+# the kernels of one device function a launch, whose records a profile's share counts
+SINGLE_FUNCTION = ("trilinear_devoxelize", "ball_query_group", "three_nn_interpolate",
+                   "avg_voxelize_backward", "auction_emd")
 TRAIN_B = 32  # training.bs of PVDS_PUNet
 TRAIN_STEPS = 31  # steps 10-29 timed, 20 counted, 30 profiled
 VIZ_INTERVAL = 30  # one in-training evaluation, after step 29 and before step 30
@@ -1439,17 +1467,20 @@ def train_config(data_dir: Path, out_dir: Path) -> dict:
     return cfg
 
 
-def check_voxelize_backward(rng, dev, shapes) -> dict:
+def check_voxelize_backward(rng, dev, shapes, b: int = TRAIN_B) -> dict:
+    """Kernel K2b (voxelize backward) at every voxelization of a training
+    step of ``b`` clouds (``shapes``), bf16 and f32: torch.equal to its plain
+    version; timed beside it and torch.gather + divide."""
     out = {}
     for name, dt in DTYPES.items():
         tally = Tally(name, library=True)
         for (n, r, c), calls in counted((n, r, cin) for n, r, cin, _ in shapes["pvconv"]):
-            pts = patches(rng, TRAIN_B, n, dev)
+            pts = patches(rng, b, n, dev)
             vox, _ = vox_ops.normalize_coords_to_voxels(pts, r)
             idx = vox_ops.flat_voxel_index(vox, r).int()
-            cnt = torch.zeros(TRAIN_B, r ** 3, device=dev).scatter_add_(
-                1, idx.long(), torch.ones(TRAIN_B, n, device=dev))
-            g = torch.randn(TRAIN_B, r ** 3, c, device=dev).to(dt)
+            cnt = torch.zeros(b, r ** 3, device=dev).scatter_add_(
+                1, idx.long(), torch.ones(b, n, device=dev))
+            g = torch.randn(b, r ** 3, c, device=dev).to(dt)
             got = vox_ops.avg_voxelize_backward(g, idx, cnt)
             want = vox_ops.avg_voxelize_backward_plain(g, idx, cnt)
             torch.cuda.synchronize()
@@ -1462,15 +1493,15 @@ def check_voxelize_backward(rng, dev, shapes) -> dict:
             hus = host_us(lambda: vox_ops.avg_voxelize_backward(g, idx, cnt), ms)
             plain = time_ms(lambda: vox_ops.avg_voxelize_backward_plain(g, idx, cnt))
             # library: torch.gather of the rows, then the divide (two calls)
-            rows_idx = idx.long()[..., None].expand(TRAIN_B, n, c)
+            rows_idx = idx.long()[..., None].expand(b, n, c)
             den = torch.gather(cnt, 1, idx.long()).clamp_min(1.0)[..., None]
             lib = time_ms(lambda: torch.gather(g, 1, rows_idx) / den)
             lib_hus = host_us(lambda: torch.gather(g, 1, rows_idx) / den, lib)
-            touched = torch.unique(idx.long() + torch.arange(TRAIN_B, device=dev)[:, None] * r ** 3)
-            nbytes = (touched.numel() * (c * esize(dt) + 4) + TRAIN_B * n * 4
-                      + TRAIN_B * n * c * esize(dt))
-            bound = tally.add(calls, ms, plain, lib, nbytes, TRAIN_B * n * c, 0.0, dms, hus)
-            log(f"avg_voxelize_backward {name} N={n} r={r} C={c} x{calls} B={TRAIN_B}: "
+            touched = torch.unique(idx.long() + torch.arange(b, device=dev)[:, None] * r ** 3)
+            nbytes = (touched.numel() * (c * esize(dt) + 4) + b * n * 4
+                      + b * n * c * esize(dt))
+            bound = tally.add(calls, ms, plain, lib, nbytes, b * n * c, 0.0, dms, hus)
+            log(f"avg_voxelize_backward {name} N={n} r={r} C={c} x{calls} B={b}: "
                 f"bit-equal; kernel {ms:.4f} ms (device {dms:.4f} ms, host {hus:.1f} us a "
                 f"call), plain {plain:.4f} ms, gather + divide (2 calls) {lib:.4f} ms "
                 f"(host {lib_hus:.1f} us), bound {bound:.4g} ms")
@@ -1478,13 +1509,13 @@ def check_voxelize_backward(rng, dev, shapes) -> dict:
     return out
 
 
-def scatter_cases(rng, dev, dt, shapes):
-    """The backward scatters of one training step at B = TRAIN_B, from the
+def scatter_cases(rng, dev, dt, shapes, b: int = TRAIN_B):
+    """The backward scatters of one training step of ``b`` clouds, from the
     forwards' own indices and weights: [(what, calls, kernel wrapper, plain
     version, their arguments, rows a cloud, (flat destination rows, f32
     terms) of the one index_add_ that computes the same, bytes,
     operations)]."""
-    B, cases = TRAIN_B, []
+    B, cases = b, []
     for (n, r, c), calls in counted((n, r, cout) for n, r, _, cout in shapes["pvconv"]):
         _, cont = vox_ops.normalize_coords_to_voxels(patches(rng, B, n, dev), r)
         g = torch.randn(B, n, c, device=dev).to(dt)
@@ -1526,17 +1557,18 @@ def scatter_cases(rng, dev, dt, shapes):
     return cases
 
 
-def check_scatter(rng, dev, shapes) -> dict:
+def check_scatter(rng, dev, shapes, b: int = TRAIN_B) -> dict:
     """Kernel scatter_rows at every backward scatter of the training step
-    (B = 32), bf16 and f32: torch.equal to the plain version run on the CPU
-    from the same inputs and to a second call; timed beside the plain
-    version on the card (index_add_) and one index_add_ of the precomputed
-    terms."""
+    of ``b`` clouds, bf16 and f32: torch.equal to the plain version run on
+    the CPU from the same inputs and to a second call; timed beside the
+    plain version on the card (index_add_) and one index_add_ of the
+    precomputed terms. The calls at the kernel's limit (2^15 entries or
+    rows a cloud) go into the row's "at_limit"."""
     out = {}
     for name, dt in DTYPES.items():
         tally = Tally(name, library=True)
         for what, calls, kernel, plain_fn, args, rows, (flat, src), nbytes, ops in scatter_cases(
-                rng, dev, dt, shapes):
+                rng, dev, dt, shapes, b):
             got, again = kernel(*args), kernel(*args)
             want = plain_fn(*(a.cpu() if torch.is_tensor(a) else a for a in args))
             torch.cuda.synchronize()
@@ -1551,10 +1583,15 @@ def check_scatter(rng, dev, shapes) -> dict:
             dms = device_ms(lambda: kernel(*args), "scatter_rows")
             hus = host_us(lambda: kernel(*args), ms)
             plain = time_ms(lambda: plain_fn(*args))
-            acc = torch.zeros(TRAIN_B * rows, src.shape[-1], device=dev)
+            acc = torch.zeros(b * rows, src.shape[-1], device=dev)
             lib = time_ms(lambda: acc.index_add_(0, flat, src))
             bound = tally.add(calls, ms, plain, lib, nbytes, ops, 0.0, dms, hus)
-            log(f"scatter_rows {name} {what} x{calls} B={TRAIN_B}: bit-equal to the CPU plain "
+            entries = flat.numel() // b
+            if entries == scatter_ops.MAX_ENTRIES or rows == scatter_ops.MAX_ROWS:
+                tally.extra.setdefault("at_limit", []).append(
+                    f"{what}: {entries} entries, {rows} rows a cloud")
+            log(f"scatter_rows {name} {what} x{calls} B={b} ({entries} entries, {rows} rows a "
+                f"cloud): bit-equal to the CPU plain "
                 f"version, two calls equal; kernel {ms:.4f} ms (device {dms:.4f} ms, host "
                 f"{hus:.1f} us a call), plain (index_add_) {plain:.4f} ms, one index_add_ of "
                 f"the terms {lib:.4f} ms, bound {bound:.4g} ms")
@@ -1563,21 +1600,25 @@ def check_scatter(rng, dev, shapes) -> dict:
     return out
 
 
-def cudnn_backward_cost(dev, shapes) -> dict:
+def cudnn_backward_cost(dev, shapes, b: int = TRAIN_B) -> dict:
     """K1's backward (the recomputed conv + GroupNorm and its gradient
-    through cuDNN) at the training step's 16 convs (B = 32, bf16), with
+    through cuDNN) at the convs of a training step of ``b`` clouds (bf16), with
     cuDNN's deterministic algorithms as the port runs it and without them,
     TF32 off in both: ms per step, and the deterministic gradient's bits
-    equal over two calls."""
+    equal over two calls. Beside the back-to-back times, the device time
+    of the deterministic call from a trace: all its kernels (the recompute
+    and the plain GroupNorm backward included), and cuDNN's alone, the
+    group the profiled training step reports."""
     convs = []
     for _, r, cin, cout in shapes["pvconv"]:
         convs += [(r, cin, cout, True), (r, cout, cout, False)]
     gen = torch.Generator(device=dev).manual_seed(7)
     total = {True: 0.0, False: 0.0}
+    device = {"all": 0.0, "cudnn": 0.0}
     for (r, cin, cout, act), calls in counted(convs):
-        x, w, b, gamma, beta = conv_inputs(gen, dev, torch.bfloat16, TRAIN_B, r, cin, cout, False)
-        inputs = [t.requires_grad_() for t in (x, w, b, gamma, beta)]
-        g = torch.randn(TRAIN_B, r, r, r, cout, device=dev, generator=gen).bfloat16()
+        x, w, bias, gamma, beta = conv_inputs(gen, dev, torch.bfloat16, b, r, cin, cout, False)
+        inputs = [t.requires_grad_() for t in (x, w, bias, gamma, beta)]
+        g = torch.randn(b, r, r, r, cout, device=dev, generator=gen).bfloat16()
 
         def backward(det, inputs=inputs, g=g, act=act):
             with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=det,
@@ -1591,13 +1632,40 @@ def cudnn_backward_cost(dev, shapes) -> dict:
         ms = {det: time_ms(lambda det=det: backward(det)) for det in (True, False)}
         for det in ms:
             total[det] += calls * ms[det]
-        log(f"K1 backward (cuDNN) bf16 r={r} {cin}->{cout} x{calls} B={TRAIN_B}: deterministic "
-            f"{ms[True]:.3f} ms (two calls bit-equal), default algorithms {ms[False]:.3f} ms")
+        groups = traced_device_ms(lambda: backward(True), f"K1 backward r={r} {cin}->{cout}")
+        dev_ms = {"all": sum(groups.values()),
+                  "cudnn": groups.get("cuDNN convolutions (K1's backward)", 0.0)}
+        for k in device:
+            device[k] += calls * dev_ms[k]
+        log(f"K1 backward (cuDNN) bf16 r={r} {cin}->{cout} x{calls} B={b}: deterministic "
+            f"{ms[True]:.3f} ms (two calls bit-equal; device {dev_ms['all']:.3f} ms, cuDNN's "
+            f"{dev_ms['cudnn']:.3f}), default algorithms {ms[False]:.3f} ms")
         del x, inputs, g
         torch.cuda.empty_cache()
-    log(f"K1 backward per training step: deterministic {total[True]:.2f} ms, default "
+    log(f"K1 backward per training step: deterministic {total[True]:.2f} ms (device "
+        f"{device['all']:.2f} ms, cuDNN's kernels {device['cudnn']:.2f}), default "
         f"{total[False]:.2f} ms")
-    return {"deterministic_ms": total[True], "default_ms": total[False]}
+    return {"deterministic_ms": total[True], "default_ms": total[False],
+            "deterministic_device_ms": device["all"], "cudnn_device_ms": device["cudnn"]}
+
+
+def traced_device_ms(fn, what: str, calls: int = 3) -> dict:
+    """Device ms of one call of ``fn`` by kernel group: ``calls`` calls
+    traced after start_trace's spin kernels, through device_time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    start_trace(prof)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    prof.stop()
+    out = device_time(prof, wall_ms, what)
+    return {g: ms / calls for g, ms in out["device_ms_by_group"].items()}
 
 
 def aligned_batch(cfg: dict, dev) -> dict:
@@ -1737,41 +1805,50 @@ def first_differing(model, first: list, second: list):
                  if not torch.equal(a, b)), None)
 
 
-def train_gradient(model, bridge, batch: dict) -> torch.Tensor:
+def train_gradient(model, bridge, batch: dict, align: bool = True) -> torch.Tensor:
     """One forward + backward of a training step as train_step runs it:
-    the K7 alignment, then the loss with its timesteps and noise from a
+    the K7 alignment where ``align`` (PUNet), then the loss (conditioned on
+    the batch's x_cond where it has one) with its timesteps and noise from a
     generator seeded here and dropout from the CUDA RNG, seeded here too."""
     generator = torch.Generator(batch["x_start"].device).manual_seed(11)
-    torch.cuda.manual_seed(12)
-    x_gt = align_clean_to_noisy(batch["x_start"], batch["x_gt"], eps=0.01, iters=100)
-    loss = bridge.loss_fn(x_gt, batch["x_start"], generator=generator)
+    torch.manual_seed(12)  # dropout: the CUDA RNG (and the CPU's)
+    x_gt = batch["x_gt"]
+    if align:
+        x_gt = align_clean_to_noisy(batch["x_start"], x_gt, eps=0.01, iters=100)
+    loss = bridge.loss_fn(x_gt, batch["x_start"], batch.get("x_cond"), generator=generator)
     loss.backward()
     return loss
 
 
 def check_train_gradient_bits(cfg: dict, batch: dict, dev) -> dict:
-    """PVDS_PUNet as shipped (bf16, bs 32 x 2048, dropout, the K7
-    alignment): one forward + backward twice from the same weights and
-    batch, every generator reseeded before each; every parameter's gradient
-    must be torch.equal, and the error names the first that differs."""
+    """The configuration's model as shipped (bf16, dropout; PVDS_PUNet at
+    bs 32 x 2048 with the K7 alignment, PVDL_SNPP at bs 4 x 4096 with its
+    384 feature channels): one forward + backward twice from the same
+    weights and batch, every generator reseeded before each; every
+    parameter's gradient must be torch.equal, and the error names the first
+    that differs."""
     model = build_unet_from_config(cfg).train()
     init_parameters(model, torch.Generator().manual_seed(0))
     model.to(dev)
     bridge = P2PBridge.from_config(cfg, model)
+    align = cfg["data"]["dataset"] == "PUNet"
     runs, losses = [], []
     for _ in range(2):
         model.zero_grad(set_to_none=True)
-        losses.append(train_gradient(model, bridge, batch).item())
+        losses.append(train_gradient(model, bridge, batch, align).item())
         runs.append([p.grad.clone() for p in model.parameters()])
     differ = first_differing(model, *runs)
-    log(f"bf16 forward + backward at the training shape (bs {TRAIN_B} x {PATCH}, dropout "
-        f"{cfg['model']['dropout']}, K7 alignment), twice from the same weights and batch: "
-        f"losses {losses}; gradients "
+    b, n, _ = batch["x_start"].shape
+    cond = batch.get("x_cond")
+    log(f"bf16 forward + backward at the training shape (bs {b} x {n}"
+        f"{'' if cond is None else f', {cond.shape[-1]} feature channels'}, dropout "
+        f"{cfg['model']['dropout']}{', K7 alignment' if align else ''}), twice from the same "
+        f"weights and batch: losses {losses}; gradients "
         f"{'bit-equal in every parameter' if differ is None else f'differ first in {differ}'}")
     if differ is not None or losses[0] != losses[1]:
         raise AssertionError(f"two bf16 training-shape gradients differ, first in {differ}; "
                              f"losses {losses}")
-    return {"bit_equal": True, "loss": losses[0], "batch": TRAIN_B}
+    return {"bit_equal": True, "loss": losses[0], "batch": b}
 
 
 def check_watch_step(cfg: dict, batch: dict, dev) -> dict:
@@ -1841,22 +1918,25 @@ def determinism_audit(cfg: dict, batch: dict, dev) -> list:
 
 class TrainObserver:
     """The ``train`` observer: CUDA events and the host clock at every
-    phase of steps 10-29, the launch counts of step 20, a profile of step
-    30 (and its launch counts), every loss."""
+    phase of steps 10-29, the launch counts of step 20, a profile of the
+    last step, ``steps`` - 1 (and its launch counts), every loss. ``single``
+    names the kernels of one device function a launch whose share of
+    records in the profile is checked."""
 
     PHASES = ("begin", "batch", "align", "forward_backward", "update")
 
-    def __init__(self):
+    def __init__(self, steps: int, what: str, single: tuple):
         from torch.profiler import ProfilerActivity, profile
 
+        self.last, self.what, self.single = steps - 1, what, single
         self.events, self.host, self.losses, self.launches = {}, {}, [], None
         self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
         self.profile = None
         self.t0 = 0.0
 
     def __call__(self, step, event, metrics):
-        if event == "begin" and step in (20, TRAIN_STEPS - 1):
-            if step == TRAIN_STEPS - 1:
+        if event == "begin" and step in (20, self.last):
+            if step == self.last:
                 torch.cuda.synchronize()
                 start_trace(self.prof)
             kernels.reset_launch_counts()
@@ -1870,15 +1950,14 @@ class TrainObserver:
             self.losses.append(metrics["loss"])
             if step == 20:
                 self.launches = dict(kernels.launch_counts)
-            if step == TRAIN_STEPS - 1:
+            if step == self.last:
                 torch.cuda.synchronize()
                 wall = (time.perf_counter() - self.t0) * 1e3
                 self.prof.stop()
-                self.profile = device_time(self.prof, wall, "one bf16 train step")
+                self.profile = device_time(self.prof, wall, self.what)
+                self.profile["launches"] = dict(kernels.launch_counts)
                 self.profile["recorded_share"] = recorded_share(
-                    self.profile, kernels.launch_counts,
-                    ("trilinear_devoxelize", "ball_query_group", "three_nn_interpolate",
-                     "avg_voxelize_backward", "auction_emd"))
+                    self.profile, kernels.launch_counts, self.single)
 
 
 class EvalClock:
@@ -1917,9 +1996,10 @@ def check_train_outputs(cfg: dict, model, evals: list) -> dict:
     """What the loop wrote besides the checkpoint: metrics.jsonl with the
     losses and one evaluation's finite eval/* keys (CD, EMD, MSE and their
     noisy floors; the renderings where matplotlib imports, else the
-    evaluation's ImportError is the only error allowed), histograms.jsonl
-    with a parameter row and a gradient row of every parameter at the watch
-    step, and the profile_dir trace of steps 10-14."""
+    evaluation's ImportError is the only error allowed) and, where the
+    configuration asks for them (phase 7), histograms.jsonl with a
+    parameter row and a gradient row of every parameter at the watch step
+    and the profile_dir trace of steps 10-14."""
     out = Path(cfg["output_dir"])
     recs = [json.loads(x) for x in (out / "metrics.jsonl").read_text().splitlines()]
     keys = [f"eval/{p}{k}" for p in ("", "noisy_") for k in ("CD", "EMD", "MSE")]
@@ -1942,6 +2022,15 @@ def check_train_outputs(cfg: dict, model, evals: list) -> dict:
     if not rendered:
         raise AssertionError(f"evaluation renderings {pngs}, error {error}, matplotlib "
                              f"{has_matplotlib}")
+    evaluation = {k: scored[0][k] for k in keys}
+    log(f"in-training evaluation after step {VIZ_INTERVAL - 1}: {evals[0]['ms']:.0f} ms "
+        f"(host clock), {json.dumps({k: round(v, 5) for k, v in evaluation.items()})}; "
+        f"renderings {pngs if pngs else 'not drawn: ' + str(error)} (matplotlib "
+        f"{'present' if has_matplotlib else 'absent'})")
+    written = {"evaluation": evaluation, "evaluation_ms": evals[0]["ms"],
+               "rendered": bool(pngs), "matplotlib": has_matplotlib}
+    if not cfg.get("profile_dir"):
+        return written
     names = {n for n, _ in model.named_parameters()}
     hists = [json.loads(x) for x in (out / "histograms.jsonl").read_text().splitlines()]
     rows = {next(iter(h["hists"])).split("/")[0]: h for h in hists}
@@ -1953,35 +2042,42 @@ def check_train_outputs(cfg: dict, model, evals: list) -> dict:
     traces = sorted(p.name for p in Path(cfg["profile_dir"]).glob("*.json"))
     if traces != [f"trace_steps_{PROFILE_STEPS[0]}_{PROFILE_STEPS[1]}.json"]:
         raise AssertionError(f"profile_dir holds {traces}")
-    evaluation = {k: scored[0][k] for k in keys}
-    log(f"in-training evaluation after step {VIZ_INTERVAL - 1}: {evals[0]['ms']:.0f} ms "
-        f"(host clock), {json.dumps({k: round(v, 5) for k, v in evaluation.items()})}; "
-        f"renderings {pngs if pngs else 'not drawn: ' + str(error)} (matplotlib "
-        f"{'present' if has_matplotlib else 'absent'}); histograms of {len(names)} parameters "
-        f"and their gradients at step {WATCH_INTERVAL}; trace {traces[0]} "
+    log(f"histograms of {len(names)} parameters and their gradients at step {WATCH_INTERVAL}; "
+        f"trace {traces[0]} "
         f"({(Path(cfg['profile_dir']) / traces[0]).stat().st_size / 1e6:.1f} MB)")
-    return {"evaluation": evaluation, "evaluation_ms": evals[0]["ms"],
-            "rendered": bool(pngs), "matplotlib": has_matplotlib,
-            "histogram_parameters": len(names), "trace": traces[0]}
+    return {**written, "histogram_parameters": len(names), "trace": traces[0]}
 
 
 def train_phase(cfg: dict, dev) -> tuple:
-    obs = TrainObserver()
+    """``train`` on ``cfg`` (phase 7's PUNet or phase 10's ScanNet++
+    configuration) through a TrainObserver: every loss finite and the last
+    five below the first five, every kernel of the step launched in step 20
+    (K7 only where PUNet's alignment runs), the ms of a step over steps
+    10-29 by phase, patches/s; then check_train_outputs."""
+    punet = cfg["data"]["dataset"] == "PUNet"
+    required = TRAINING if punet else ROOM_TRAINING
+    steps, bs = cfg["training"]["steps"], cfg["training"]["bs"]
+    extra = cfg["model"].get("extra_feature_channels", 0)
+    obs = TrainObserver(steps, f"one bf16 {'' if punet else 'room '}train step",
+                        tuple(k for k in SINGLE_FUNCTION if k in required))
     t0 = time.perf_counter()
     with EvalClock() as evals:
         state = train(cfg, dev, observer=obs)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
     losses = [float(v) for v in obs.losses]
-    log(f"trained {TRAIN_STEPS} steps of PVDS_PUNet (bf16, bs {TRAIN_B} x {PATCH}, AdamW, "
-        f"clip 1.0, EMA, K7 alignment) in {total_s:.1f} s, data.pool_size cut to {POOL_SIZE}; "
+    pool = cfg["data"].get("pool_size") if punet else None
+    log(f"trained {steps} steps on {cfg['data']['dataset']} (bf16, bs {bs} x "
+        f"{cfg['data']['npoints']}{f', {extra} feature channels' if extra else ''}, AdamW, clip "
+        f"1.0, EMA{', K7 alignment' if punet else ''}) in {total_s:.1f} s"
+        f"{f', data.pool_size cut to {pool}' if pool else ''}; "
         f"losses {[round(v, 5) for v in losses]}")
     first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
-    if not (len(losses) == TRAIN_STEPS and all(math.isfinite(v) for v in losses)):
+    if not (len(losses) == steps and all(math.isfinite(v) for v in losses)):
         raise AssertionError(f"training losses: {losses}")
     if not last < first:
         raise AssertionError(f"mean loss of the last five steps {last} >= first five {first}")
-    idle = [k for k in TRAINING if obs.launches.get(k, 0) == 0]
+    idle = [k for k in required if obs.launches.get(k, 0) == 0]
     log(f"launches in step 20: {obs.launches}")
     if idle:
         raise AssertionError(f"kernels not launched in a training step: {idle}")
@@ -1992,22 +2088,24 @@ def train_phase(cfg: dict, dev) -> tuple:
              for name, (a, b) in spans.items()}
     host = {name: float(np.median([h[b] - h[a] for h in obs.host.values()]))
             for name, (a, b) in spans.items()}
-    for what, ms in (("CUDA events", split), ("host clock, as issued", host)):
-        log(f"ms per step, median of steps 10-29 ({what}): {ms['step']:.2f}; data "
+    for clock, ms in (("CUDA events", split), ("host clock, as issued", host)):
+        log(f"ms per step, median of steps 10-29 ({clock}): {ms['step']:.2f}; data "
             f"{ms['data']:.2f}, alignment {ms['align']:.2f}, forward + backward "
             f"{ms['forward_backward']:.2f}, optimizer + EMA {ms['optimizer_ema']:.2f}")
-    # steps 10-14 run under profile_dir's profiler
+    # steps 10-14 run under profile_dir's profiler where it is set
+    profiled = PROFILE_STEPS[1] if cfg.get("profile_dir") else -1
     unprofiled = float(np.median([ev["begin"].elapsed_time(ev["update"])
-                                  for step, ev in obs.events.items() if step > PROFILE_STEPS[1]]))
-    log(f"{TRAIN_B / split['step'] * 1e3:.1f} patches/s; median of steps "
-        f"{PROFILE_STEPS[1] + 1}-29 alone {unprofiled:.2f} ms; K7 in the step 30 profile: "
-        f"{obs.profile['device_ms_by_group'].get('auction_emd', float('nan')):.4f} ms")
-    outputs = check_train_outputs(cfg, state.model, evals.calls)
+                                  for step, ev in obs.events.items() if step > profiled]))
+    k7 = obs.profile["device_ms_by_group"].get("auction_emd", float("nan"))
+    log(f"{bs / split['step'] * 1e3:.1f} patches/s; median of steps {max(profiled + 1, 10)}-29 "
+        f"without profile_dir's profiler {unprofiled:.2f} ms"
+        f"{f'; K7 in the step {steps - 1} profile: {k7:.4f} ms' if 'auction_emd' in required else ''}")
+    written = check_train_outputs(cfg, state.model, evals.calls)
     return state, {"losses": losses, "first5_mean": first, "last5_mean": last,
                    "launches": obs.launches, "ms": split, "host_ms": host,
-                   "step_ms_unprofiled_steps": unprofiled,
-                   "patches_per_s": TRAIN_B / split["step"] * 1e3, "profile": obs.profile,
-                   "loop_outputs": outputs}
+                   "step_ms_unprofiled_steps": unprofiled, "train_s": total_s,
+                   "patches_per_s": bs / split["step"] * 1e3, "profile": obs.profile,
+                   "loop_outputs": written}
 
 
 def alignment_host_ms(model, batch: dict) -> dict:
@@ -2033,31 +2131,41 @@ def alignment_host_ms(model, batch: dict) -> dict:
     return out
 
 
-def check_checkpoint(state, cfg: dict, batch: dict, dev) -> dict:
-    """save_checkpoint -> denoise_object.load_weights into fresh models,
-    with and without --use_ema: every tensor equal to the trained one, and
-    a bit-equal forward on one cloud, on the card."""
-    x = batch["x_start"][:1]
+def loaded_forwards_equal(state, cfg: dict, loaded_cfg: dict, path: str, load, batch: dict,
+                          dev, what: str) -> None:
+    """``load(model, path, use_ema)`` into models built from ``loaded_cfg``,
+    with and without the EMA: every tensor equal to the trained one, and a
+    bit-equal forward on the batch's first cloud (with its x_cond, if any)
+    on the card."""
+    x, c = batch["x_start"][:1], batch.get("x_cond")
+    c = None if c is None else c[:1]
     t = torch.tensor([700.0], device=dev)
     trained = {True: state.ema.params, False: state.model.state_dict()}
+    for use_ema, params in trained.items():
+        ref = build_unet_from_config(cfg).eval()
+        ref.load_state_dict({k: v.cpu() for k, v in params.items()})
+        fresh = build_unet_from_config(loaded_cfg).eval()
+        load(fresh, path, use_ema)
+        same = all(torch.equal(a, b) for a, b in zip(fresh.state_dict().values(),
+                                                    ref.state_dict().values()))
+        ref.to(dev)
+        fresh.to(dev)
+        with torch.no_grad():
+            got, want = fresh(x, t, c), ref(x, t, c)
+        if not (same and torch.equal(got, want)):
+            raise AssertionError(f"{what} (use_ema={use_ema}): weights equal {same}, forward "
+                                 f"differs by {(got - want).abs().max()}")
+    log(f"{what}, with and without --use_ema: weights equal, forwards bit-equal (card, 1 x "
+        f"{x.shape[1]})")
+
+
+def check_checkpoint(state, cfg: dict, batch: dict, dev) -> dict:
+    """save_checkpoint -> denoise_object.load_weights (loaded_forwards_equal)."""
     with tempfile.TemporaryDirectory() as tmp:
-        path = save_checkpoint(tmp, state)
-        for use_ema, params in trained.items():
-            ref = build_unet_from_config(cfg).eval()
-            ref.load_state_dict({k: v.cpu() for k, v in params.items()})
-            fresh = build_unet_from_config(cfg).eval()
-            denoise_object.load_weights(fresh, path, use_ema=use_ema)
-            same = all(torch.equal(a, b) for a, b in zip(fresh.state_dict().values(),
-                                                        ref.state_dict().values()))
-            ref.to(dev)
-            fresh.to(dev)
-            with torch.no_grad():
-                got, want = fresh(x, t), ref(x, t)
-            if not (same and torch.equal(got, want)):
-                raise AssertionError(f"checkpoint round trip (use_ema={use_ema}): weights equal "
-                                     f"{same}, forward differs by {(got - want).abs().max()}")
-    log("checkpoint round trip: save_checkpoint -> denoise_object.load_weights, with and "
-        "without --use_ema: weights equal, forwards bit-equal (card, 1 x 2048)")
+        loaded_forwards_equal(state, cfg, cfg, save_checkpoint(tmp, state),
+                              denoise_object.load_weights, batch, dev,
+                              "checkpoint round trip: save_checkpoint -> "
+                              "denoise_object.load_weights")
     return {"bit_equal": True}
 
 
@@ -2154,27 +2262,27 @@ def sample_mesh(verts, faces, n: int, rng) -> np.ndarray:
     return t[:, 0] + u * (t[:, 1] - t[:, 0]) + v * (t[:, 2] - t[:, 0])
 
 
-def synthetic_room(root: Path, rng) -> tuple:
-    """A ScanNet++ scene as the room CLIs read it: data/scene0/scans/
-    iphone.ply (ROOM_POINTS points sampled from the mesh, gaussian noise
+def synthetic_room(root: Path, rng, scene: str = "scene0", points: int = ROOM_POINTS) -> tuple:
+    """A ScanNet++ scene as the room CLIs read it: data/<scene>/scans/
+    iphone.ply (``points`` points sampled from the mesh, gaussian noise
     and a fraction of outliers), scans/mesh_aligned_0.05.ply (the mesh,
     written with the port's write_ply) and features/dino_iphone.npy
     ([ROOM_FEATS, N] f32 from the seed, SNPP's layout). -> (scan path,
     data root)."""
-    scene = root / "data" / "scene0"
+    scene = root / "data" / scene
     (scene / "scans").mkdir(parents=True)
     (scene / "features").mkdir()
     verts, faces = room_mesh(rng)
     write_ply(str(scene / "scans" / "mesh_aligned_0.05.ply"), verts, faces=faces)
-    noisy = sample_mesh(verts, faces, ROOM_POINTS, rng)
+    noisy = sample_mesh(verts, faces, points, rng)
     noisy += rng.normal(size=noisy.shape) * ROOM_NOISE
-    sel = rng.choice(ROOM_POINTS, int(ROOM_OUTLIERS * ROOM_POINTS), replace=False)
+    sel = rng.choice(points, int(ROOM_OUTLIERS * points), replace=False)
     noisy[sel] += rng.normal(size=(len(sel), 3)) * (10 * ROOM_NOISE)
     scan = scene / "scans" / "iphone.ply"
     write_ply(str(scan), noisy.astype(np.float32))
     np.save(scene / "features" / "dino_iphone.npy",
-            rng.standard_normal((ROOM_FEATS, ROOM_POINTS), dtype=np.float32))
-    log(f"synthetic room: {ROOM_POINTS:,} points, mesh of {len(verts):,} vertices and "
+            rng.standard_normal((ROOM_FEATS, points), dtype=np.float32))
+    log(f"synthetic room {scene.name}: {points:,} points, mesh of {len(verts):,} vertices and "
         f"{len(faces):,} faces, {ROOM_FEATS} feature channels")
     return scan, root / "data"
 
@@ -2563,6 +2671,135 @@ def room(dev) -> dict:
             "bit_equal_runs": True, "evaluation": evaluation}
 
 
+# ---------------------------------------------------------------- phase 10
+ROOM_TRAIN_B = 4  # PVDL_SNPP's training.bs
+# the validation scene: at 50,000 points every sphere of radius 0.3 holds
+# fewer than 4096 mesh samples (5 x the scan's density), and
+# preprocess_batches skips all of them
+ROOM_VAL_POINTS = 100_000
+ROOM_RADIUS = 0.3  # preprocess_batches' --r
+
+
+def room_train_config(data_dir: Path, splits: Path, out_dir: Path) -> dict:
+    """PVDL_SNPP as shipped on the preprocessed batches, for TRAIN_STEPS
+    steps with one evaluation (VIZ_INTERVAL)."""
+    cfg = pvdl_snpp()
+    cfg["data"]["data_dir"] = str(data_dir)
+    cfg["data"]["splits_path"] = str(splits)
+    cfg["training"]["steps"] = TRAIN_STEPS
+    cfg["training"]["viz_interval"] = VIZ_INTERVAL
+    cfg["output_dir"] = str(out_dir)
+    return cfg
+
+
+def room_batches(root: Path) -> dict:
+    """The two synthetic scenes (train0: ROOM_POINTS, val0: ROOM_VAL_POINTS)
+    through python -m p2p_bridge_tpu_torch.preprocess_batches (its main,
+    two worker processes, --feature_type dino) and the split files; every
+    batch file of 4096 paired points with 384 fp16 feature channels."""
+    t0 = time.perf_counter()
+    synthetic_room(root, np.random.default_rng(10), "train0")
+    synthetic_room(root, np.random.default_rng(11), "val0", ROOM_VAL_POINTS)
+    splits = root / "splits"
+    splits.mkdir()
+    (splits / "snpp_train.txt").write_text("train0\n")
+    (splits / "snpp_val.txt").write_text("val0\n")
+    scenes_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    preprocess_batches.main(["--data_root", str(root / "data"), "--output_root",
+                             str(root / "batches"), "--npoints", str(ROOM_PATCH), "--r",
+                             str(ROOM_RADIUS), "--feature_type", "dino", "--workers", "2"])
+    seconds = time.perf_counter() - t0
+    files = {s: sorted((root / "batches" / s).glob("points_*.npz")) for s in ("train0", "val0")}
+    for path in files["train0"][:1] + files["val0"][:1]:
+        with np.load(path) as d:
+            shapes = {k: (d[k].shape, str(d[k].dtype)) for k in d.files}
+        if not (shapes["noisy"][0] == shapes["clean"][0] == (ROOM_PATCH, 6)
+                and shapes["features"] == ((ROOM_PATCH, ROOM_FEATS), "float16")):
+            raise AssertionError(f"{path}: {shapes}")
+    counts = {s: len(f) for s, f in files.items()}
+    log(f"preprocess_batches (npoints {ROOM_PATCH}, r {ROOM_RADIUS}, dino features, 2 workers): "
+        f"{counts} batches in {seconds:.1f} s (scenes written in {scenes_s:.1f} s); each "
+        f"[{ROOM_PATCH}, 6] clean and noisy, [{ROOM_PATCH}, {ROOM_FEATS}] float16 features")
+    if counts["train0"] < 4 * ROOM_TRAIN_B or counts["val0"] == 0:
+        raise AssertionError(f"preprocess_batches wrote {counts} batches")
+    return {"batches": counts, "seconds": seconds, "scenes_s": scenes_s,
+            "splits": splits, "val_scan": root / "data" / "val0" / "scans" / "iphone.ply"}
+
+
+def room_train_batch(cfg: dict, dev) -> dict:
+    """The first ROOM_TRAIN_B items of the training set as one batch
+    (get_data_batch: x_gt, x_start and x_cond), on ``dev``."""
+    loader, _ = get_dataloader(cfg)
+    items = [loader.dataset[i] for i in range(ROOM_TRAIN_B)]
+    batch = get_data_batch({k: np.stack([it[k] for it in items])
+                            for k in ("clean_points", "noisy_points", "noisy_features")}, cfg)
+    if batch["x_cond"] is None or batch["x_cond"].shape != (ROOM_TRAIN_B, ROOM_PATCH, ROOM_FEATS):
+        raise AssertionError("the room batch carries no 384-channel x_cond")
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def check_room_checkpoint(state, cfg: dict, batch: dict, val_scan: Path, dev) -> dict:
+    """The run directory the loop wrote (model.pt, and opt.yaml through
+    the training CLI's write_run_config) through denoise_room's loader
+    (load_config, load_weights; loaded_forwards_equal); then python -m
+    p2p_bridge_tpu_torch.denoise_room (through main) reads the run
+    directory and denoises the validation scan."""
+    run = Path(cfg["output_dir"])
+    write_run_config(cfg)
+    loaded_forwards_equal(state, cfg, room_cli.load_config(str(run), []), str(run),
+                          room_cli.load_weights, batch, dev,
+                          "room checkpoint: the loop's model.pt and opt.yaml through "
+                          "denoise_room's loader")
+    t0 = time.perf_counter()
+    out = room_cli.main(["--room_path", str(val_scan), "--model_path", str(run), "--steps", "2",
+                         "--k", "1", "--batch_size", str(ROOM_BATCH), "--device", "cuda",
+                         "--out_path", str(run / "val0_denoised.ply")])
+    wall = (time.perf_counter() - t0) * 1e3
+    pred = read_ply(out)["points"]
+    if not (pred.shape == (ROOM_VAL_POINTS, 3) and np.isfinite(pred).all()):
+        raise AssertionError(f"denoise_room with the trained run: {pred.shape}, finite "
+                             f"{np.isfinite(pred).all()}")
+    log(f"denoise_room (2 steps, k 1) on the {ROOM_VAL_POINTS:,}-point validation scan with "
+        f"the trained run directory in {wall:.0f} ms: finite")
+    return {"bit_equal": True, "denoise_room_ms": wall}
+
+
+def room_training(dev, root: Path) -> dict:
+    """Phase 10: PVDL_SNPP trained at full width on preprocess_batches'
+    output, with its backward kernels held at the room training shapes."""
+    t_phase = time.perf_counter()
+    data = room_batches(root)
+    cfg = room_train_config(root / "batches", data["splits"], root / "room_run")
+    with torch.device("meta"):
+        shapes = main_path_shapes(build_unet_from_config(pvdl_snpp()).plan, ROOM_PATCH)
+    log(f"room training shapes at B={ROOM_TRAIN_B}: {json.dumps(shapes)}")
+    results = {"avg_voxelize_backward": check_voxelize_backward(
+        np.random.default_rng(12), dev, shapes, ROOM_TRAIN_B),
+        "scatter_rows": check_scatter(np.random.default_rng(13), dev, shapes, ROOM_TRAIN_B)}
+    for dt, tally in results["scatter_rows"].items():
+        at_limit = tally.extra.get("at_limit", [])
+        if not (any(a.startswith("K3") and "32768 entries, 32768 rows" in a for a in at_limit)
+                and any(a.startswith("K4") and "32768 entries" in a for a in at_limit)):
+            raise AssertionError(f"scatter_rows {dt}: the calls at 2^15 were not all checked: "
+                                 f"{at_limit}")
+    cudnn = cudnn_backward_cost(dev, shapes, ROOM_TRAIN_B)
+    batch = room_train_batch(cfg, dev)
+    bits = check_train_gradient_bits(cfg, batch, dev)
+    torch.cuda.empty_cache()
+    state, run = train_phase(cfg, dev)
+    n = sum(p.numel() for p in state.model.parameters())
+    if n != 118_666_115 or state.model.dtype != torch.bfloat16:
+        raise AssertionError(f"PVDL_SNPP trained with {n} parameters in {state.model.dtype}")
+    checkpoint = check_room_checkpoint(state, cfg, batch, data["val_scan"], dev)
+    seconds = time.perf_counter() - t_phase
+    log(f"phase 10: {seconds:.1f} s")
+    return {"results": results, "preprocess": {k: v for k, v in data.items()
+                                               if k in ("batches", "seconds", "scenes_s")},
+            "gradient_bits": bits, "k1_backward_cudnn": cudnn, "run": run,
+            "checkpoint": checkpoint, "parameters": n, "seconds": seconds}
+
+
 # ---------------------------------------------------------------- phase 9
 EVAL_EPS, EVAL_ROUNDS = 0.001, 10000  # the object Evaluator's auction
 OBJECT_CELLS = [f"{res}_{noise}" for res in ("10000_poisson", "50000_poisson")
@@ -2802,6 +3039,8 @@ def main() -> None:
         torch.cuda.empty_cache()
         room_run = room(dev)
         torch.cuda.empty_cache()
+        room_train = room_training(dev, Path(work) / "rooms")
+        torch.cuda.empty_cache()
         object_run = objects(dev, Path(work) / "run", Path(work))
 
     entries = []
@@ -2812,6 +3051,7 @@ def main() -> None:
                    for d, modes in run.items() for m, r in modes.items()}
         by_path["bf16 train step"] = train_launches[name]
         by_path["bf16 room"] = room_run["launches"].get(name, 0)
+        by_path["bf16 room train step"] = room_train["run"]["launches"].get(name, 0)
         for mode, counts in object_run["launches"].items():
             by_path[f"bf16 evaluate_objects {mode}"] = counts.get(name, 0)
         path, timed = {
@@ -2829,6 +3069,9 @@ def main() -> None:
                  "f32": per_dtype["f32"].row(), "timed": timed}
         if name == "auction_emd":
             entry["evaluation"] = object_run["auction_eval"]
+        if name in room_train["results"]:
+            entry["room_train_shapes"] = {d: t.row() for d, t in
+                                          room_train["results"][name].items()}
         entries.append(entry)
     line = {"kernels": entries, "forward": forward, "launch_path_host_us": launch_costs,
             "denoise_50k_ms": {f"{d} {m}": r["ms"] for d, modes in run.items()
@@ -2839,6 +3082,8 @@ def main() -> None:
                       "determinism_audit": trained["determinism_audit"],
                       **{k: v for k, v in trained["run"].items() if k != "launches"}},
             "room": {k: v for k, v in room_run.items() if k != "launches"},
+            "room_train": {**{k: v for k, v in room_train.items() if k not in ("results", "run")},
+                           **{k: v for k, v in room_train["run"].items() if k != "launches"}},
             "objects": {k: v for k, v in object_run.items()
                         if k not in ("launches", "auction_eval")}}
     print(json.dumps(line), flush=True)

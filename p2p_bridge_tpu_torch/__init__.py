@@ -3,9 +3,9 @@
 The JAX package beside it is the reference. This package imports torch
 and nothing of jax or of ``p2p_bridge_tpu``: the framework-free code it
 needs (schedules, point-cloud I/O, the object normalisation, the
-checkpoint key map, the YAML reader, the PUNet data pipeline, the
-training CLI's arguments, the room runtime with its C++ source) is copied
-here, and tests hold each copy against its original.
+checkpoint key map, the YAML reader, the data pipelines and offline data
+tools, the training CLI's arguments, the room runtime with its C++
+source) is copied here, and tests hold each copy against its original.
 
 Layout:
   ops/      point ops; FPS, ball query + group, voxelize (and its
@@ -20,7 +20,9 @@ Layout:
             sampler and loss, the losses, checkpoints and the CLIs'
             loaders, the in-training and object evaluation
   parallel/ the training step: alignment, gradients, clip, AdamW, EMA
-  data/     the PUNet training data pipeline
+  data/     the PUNet, ScanNet++ and ARKitScenes datasets and loaders; the
+            offline tools: paired-batch preprocessing, RGB-D fusion,
+            image-feature lifting
   runtime/  the native host runtime of the room path (g++, ctypes)
   utils/    point-cloud file I/O, the CLI's YAML reader and arguments, EMA,
             the experiment tracker and Summary CSV, point-cloud figures
@@ -28,5 +30,6 @@ Layout:
   inference patch-based object denoising
   rooms     room-scale patch denoising
   train     the training loop and its CLI
-  denoise_object, denoise_room, evaluate_objects, evaluate_rooms: the CLIs
+  denoise_object, denoise_room, evaluate_objects, evaluate_rooms,
+  preprocess_batches, extract_image_features: the CLIs
 """

@@ -1,2 +1,4 @@
-"""The training data pipeline of the port: numpy copies of the JAX
-package's PUNet dataset, transforms, loaders and batch adapter."""
+"""The data pipeline of the port: numpy copies of the JAX package's PUNet
+dataset, ScanNet++ and ARKitScenes batch datasets, transforms, loaders and
+batch adapter, and of its offline tools (paired-batch preprocessing, RGB-D
+fusion, image-feature lifting)."""

@@ -12,8 +12,6 @@ dataloaders/dataloader.py:14-157) with a numpy loader:
   * infinite ``save_iter`` that bumps the epoch on wrap
     (dataloader.py:14-32).
 
-Only the PUNet object dataset is ported; the room datasets raise
-NotImplementedError.
 """
 
 from __future__ import annotations
@@ -247,35 +245,70 @@ def get_dataloader(cfg: dict, num_shards: int = 1, shard_index: int = 0):
     name = data["dataset"]
     training = cfg.get("training")
     seed = training.get("seed", 42) if training is not None else 42
-    if name != "PUNet":
-        raise NotImplementedError(f"dataset {name} is not ported yet (see ROADMAP.md)")
-    from .punet import get_dataset
+    if name == "PUNet":
+        from .punet import get_dataset
 
-    # data.fast_patches chooses patch-first (fast, same distribution,
-    # another RNG stream) or the literal full-cloud port
-    train_ds = get_dataset(
-        data["data_dir"],
-        split="train",
-        dataset="PUNet",
-        patch_size=data["npoints"],
-        aug_rotate=data.get("augment", True),
-        seed=seed,
-        fast=bool(data.get("fast_patches", True)),
-    )
-    val_ds = get_dataset(
-        data["data_dir"],
-        split="test",
-        dataset="PUNet",
-        patch_size=data["npoints"],
-        aug_rotate=False,
-        resolutions=["10000_poisson"],
-        seed=seed + 1,
-    )
+        # data.fast_patches chooses patch-first (fast, same distribution,
+        # another RNG stream) or the literal full-cloud port
+        train_ds = get_dataset(
+            data["data_dir"],
+            split="train",
+            dataset="PUNet",
+            patch_size=data["npoints"],
+            aug_rotate=data.get("augment", True),
+            seed=seed,
+            fast=bool(data.get("fast_patches", True)),
+        )
+        val_ds = get_dataset(
+            data["data_dir"],
+            split="test",
+            dataset="PUNet",
+            patch_size=data["npoints"],
+            aug_rotate=False,
+            resolutions=["10000_poisson"],
+            seed=seed + 1,
+        )
+    elif name == "ScanNetPP":
+        from .scannetpp import ScanNetPP
+
+        use_features = data.get("point_features", None) is not None
+        splits_path = data.get("splits_path", "splits")
+        train_ds = ScanNetPP(
+            data["data_dir"],
+            mode="training",
+            additional_features=use_features,
+            augment=data.get("augment", False),
+            splits_path=splits_path,
+            seed=seed,
+        )
+        val_ds = ScanNetPP(
+            data["data_dir"],
+            mode="validation",
+            splits_path=splits_path,
+            additional_features=use_features,
+            seed=seed + 1,
+        )
+    elif name == "ArKitPP":
+        from .arkitscenes import ArkitNPZ
+
+        train_ds = ArkitNPZ(
+            data["data_dir"], mode="training",
+            features=data.get("point_features", None),
+            augment=data.get("augment", False), seed=seed,
+        )
+        val_ds = ArkitNPZ(
+            data["data_dir"], mode="validation",
+            features=data.get("point_features", None), seed=seed + 1,
+        )
+    else:
+        raise NotImplementedError(f"dataset {name}")
 
     bs = training["bs"] if training is not None else cfg["sampling"]["bs"]
     # data.loader: "pool" (background-refreshed sample pool) or "epoch"
-    # (exact shuffled epochs, reference DataLoader semantics)
-    loader_kind = data.get("loader", "pool")
+    # (exact shuffled epochs, reference DataLoader semantics). Default: pool
+    # for PUNet (its per-item KD-tree queries would hold up the training
+    # loop), epoch elsewhere (npz reads are cheap)
+    loader_kind = data.get("loader", "pool" if name == "PUNet" else "epoch")
     if loader_kind == "pool":
         train_loader = PooledLoader(
             train_ds, bs, pool_size=int(data.get("pool_size", 2048)),

@@ -3,17 +3,23 @@ train.py's loop).
 
   python -m p2p_bridge_tpu_torch.train --config configs/PVDS_PUNet.yaml \
       --save_dir runs/ [--device cuda|cpu] [--a.b value ...]
+  python -m p2p_bridge_tpu_torch.train --config configs/PVDL_SNPP.yaml \
+      --save_dir runs/ --data.data_dir <batches> --data.splits_path <splits>
 
 The flags are those of the root train.py (``utils/args.py``) plus
 ``--device`` (default cuda). The merged configuration is written as
 ``opt.yaml`` into ``<save_dir>/<name>/`` and the checkpoint, a
-``torch.save`` dict that ``denoise_object`` reads, as ``model.pt`` beside
-it, every ``training.save_interval`` steps and at the end. Only the CLI
-reads and writes YAML; :func:`train` takes the configuration as a dict.
+``torch.save`` dict that ``denoise_object`` and ``denoise_room`` read, as
+``model.pt`` beside it, every ``training.save_interval`` steps and at the
+end. Only the CLI reads and writes YAML; :func:`train` takes the
+configuration as a dict.
 
-Each step draws a batch from the PUNet loader, aligns the clean patches to
-the noisy ones by auction EMD on the device (eps 0.01, 100 rounds), and
-runs :func:`parallel.train_step.train_step`. Every ``log_interval`` steps it
+Each step draws a batch from the configured dataset's loader (PUNet's
+pooled patches; the ScanNet++ and ARKitScenes batches that
+``preprocess_batches`` writes, in exact epochs, with their point features
+as ``x_cond``), aligns PUNet's clean patches to the noisy ones by auction
+EMD on the device (eps 0.01, 100 rounds; room pairs are aligned offline),
+and runs :func:`parallel.train_step.train_step`. Every ``log_interval`` steps it
 logs the loss and the parameter and gradient norms (with the pooled
 loader's produced / consumed counts) and hands them to the experiment
 tracker, which writes ``metrics.jsonl`` into the output directory. Every
@@ -184,6 +190,19 @@ def train(cfg: dict, device="cuda", observer: Optional[Observer] = None):
     return state
 
 
+def write_run_config(cfg: dict) -> str:
+    """Write the merged configuration as ``opt.yaml`` in
+    ``cfg["output_dir"]``, the file ``denoise_object`` and ``denoise_room``
+    read beside ``model.pt``; return its path."""
+    import yaml  # only the run directory's writer needs YAML
+
+    os.makedirs(cfg["output_dir"], exist_ok=True)
+    path = os.path.join(cfg["output_dir"], "opt.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f, sort_keys=False)
+    return path
+
+
 def main(argv=None):
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
     device_parser = argparse.ArgumentParser(add_help=False)
@@ -191,10 +210,7 @@ def main(argv=None):
                                help="torch device, e.g. cuda or cpu.")
     known, rest = device_parser.parse_known_args(argv)
     cfg = parse_args(rest)
-    import yaml  # the CLI alone writes YAML
-
-    with open(os.path.join(cfg["output_dir"], "opt.yaml"), "w") as f:
-        yaml.safe_dump(cfg, f, sort_keys=False)
+    write_run_config(cfg)
     logger.info("Training with config %s on %s", cfg.get("config"), known.device)
     return train(cfg, known.device)
 

@@ -3,6 +3,7 @@ the JAX package's original: the bridge schedule and sampler plan, the
 flax -> torch key map, point-cloud I/O, the object normalisation and the
 CLI's YAML reader."""
 
+import ast
 import copy
 import os
 import dataclasses
@@ -258,7 +259,7 @@ def loader_cfg(root, loader="epoch"):
 def test_loaders_equal_the_original(tmp_path):
     """NumpyLoader epochs through save_iter, the PooledLoader's first pool
     and draws (taken before its refresh thread starts), the validation
-    loader, and the dispatch for the other datasets."""
+    loader, and the refusal of a dataset neither package has."""
     root = punet_tree(tmp_path)
     port_train, port_val = port_loader.get_dataloader(loader_cfg(root))
     jax_train, jax_val = jax_loader.get_dataloader(jax_config.Config(loader_cfg(root)))
@@ -276,8 +277,8 @@ def test_loaders_equal_the_original(tmp_path):
     for _ in range(3):
         np.testing.assert_array_equal(port_pool._rng.choice(8, 2, replace=False),
                                       jax_pool._rng.choice(8, 2, replace=False))
-    with pytest.raises(NotImplementedError):
-        port_loader.get_dataloader(dict(loader_cfg(root), data={"dataset": "ScanNetPP"}))
+    with pytest.raises(NotImplementedError):  # the room datasets: tests/test_torch_room_data.py
+        port_loader.get_dataloader(dict(loader_cfg(root), data={"dataset": "Unknown"}))
 
 
 @pytest.mark.parametrize("dataset,rgb", [("PUNet", False), ("ScanNetPP", True), ("ScanNetPP", False)])
@@ -360,3 +361,48 @@ def test_room_config_dicts_equal_yaml(name):
     assert getattr(port_configs, name) == want
     assert port_configs.pvdl_snpp() == port_configs.PVDL_SNPP
     assert port_configs.pvdl_snpp() is not port_configs.PVDL_SNPP
+
+
+# ---------------------------------------------------------------- room data copies
+# module -> the functions whose code may differ from the original's, and why
+ROOM_DATA_COPIES = {
+    "scannetpp": set(),
+    "arkitscenes": set(),
+    "preprocess": set(),
+    "rgbd_fusion": set(),
+    # the port passes local_files_only: a missing checkpoint raises, nothing is fetched
+    "image_features": {"load_dino_extractor"},
+}
+
+
+def code_without_docstrings(path: Path) -> dict:
+    """{top-level name: ast dump of its code with every docstring removed}
+    of a module, plus its imports under "<imports>"."""
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if (isinstance(body, list) and body and isinstance(body[0], ast.Expr)
+                and isinstance(body[0].value, ast.Constant) and isinstance(body[0].value.value, str)):
+            node.body = body[1:] or [ast.Pass()]
+    out = {"<imports>": []}
+    for node in tree.body:
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            out["<imports>"].append(ast.dump(node))
+        elif isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            out[node.name] = ast.dump(node)
+        elif isinstance(node, ast.Assign):
+            out[ast.dump(node.targets[0])] = ast.dump(node)
+    return out
+
+
+@pytest.mark.parametrize("name", list(ROOM_DATA_COPIES))
+def test_room_data_copy_is_the_original_code(name):
+    """Each room-data module of the port is its original's code, name for
+    name, docstrings aside, with the listed exceptions; what the code
+    computes is held equal to the original's in tests/test_torch_room_data.py
+    and tests/test_torch_preprocess.py."""
+    port = code_without_docstrings(ROOT / "p2p_bridge_tpu_torch" / "data" / f"{name}.py")
+    orig = code_without_docstrings(ROOT / "p2p_bridge_tpu" / "data" / f"{name}.py")
+    assert port.keys() == orig.keys()
+    differ = {k for k in orig if port[k] != orig[k]}
+    assert differ == ROOM_DATA_COPIES[name]

@@ -44,7 +44,12 @@ MAIN_PATH = [
     # object evaluation, the training CLI's tracking
     "p2p_bridge_tpu_torch.metrics.emd_approx", "p2p_bridge_tpu_torch.utils.logging",
     "p2p_bridge_tpu_torch.utils.visualize", "p2p_bridge_tpu_torch.models.evaluation",
-    "p2p_bridge_tpu_torch.evaluate_objects", "chip_smoke",
+    "p2p_bridge_tpu_torch.evaluate_objects",
+    # room training and the offline data tools
+    "p2p_bridge_tpu_torch.data.scannetpp", "p2p_bridge_tpu_torch.data.arkitscenes",
+    "p2p_bridge_tpu_torch.data.preprocess", "p2p_bridge_tpu_torch.data.rgbd_fusion",
+    "p2p_bridge_tpu_torch.data.image_features", "p2p_bridge_tpu_torch.preprocess_batches",
+    "p2p_bridge_tpu_torch.extract_image_features", "chip_smoke",
 ]
 PORT_SOURCES = sorted((ROOT / "p2p_bridge_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "profile_denoise.py"]

@@ -43,7 +43,10 @@ def port_and_jax(cfg, n=256, seed=0):
         {"params": jax.random.key(0)}, jnp.zeros((1, n, 3)), jnp.zeros((1,)), None, True))
     tmodel = build_unet_from_config(cfg)
     init_parameters(tmodel, torch.Generator().manual_seed(seed))
-    variables = jax.tree.map(jnp.asarray, tensors_to_jax_tree(tmodel.state_dict(), template))
+    # copies: a numpy view of a parameter would let the port's in-place
+    # update race the JAX step that reads it (tests/test_torch_train.py)
+    variables = jax.tree.map(lambda a: jnp.asarray(np.array(a)),
+                             tensors_to_jax_tree(tmodel.state_dict(), template))
     return tmodel, fmodel, variables
 
 
