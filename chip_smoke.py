@@ -138,8 +138,11 @@ Phases, in order; any failure raises and the process exits non-zero:
      p2p_bridge_tpu_torch.preprocess_batches (its main, two spawned
      workers, r 0.3); K2b and scatter_rows (bf16 and f32) at every
      backward shape of a PVDL_SNPP training step at B = 4 held as in phase
-     7, the calls at exactly 2^15 entries or rows a cloud required among
-     them, and K1's cuDNN backward timed; two bf16 forward + backward
+     7, the calls at 2^15 entries a cloud (the limit of the one-block
+     sort the table build replaced) required among them, and scatter_rows
+     at skewed destinations, at 65,536 entries and at its limit of 2^20
+     (scatter_edge_cases), its table-build / row-pass split printed; K1's
+     cuDNN backward timed against its bound; two bf16 forward + backward
      passes of PVDL_SNPP on one room batch (dropout, x_cond) bit-equal in
      every parameter's gradient; PVDL_SNPP as shipped (118,666,115
      parameters, bf16, bs 4 x 4096, AdamW, clip 1.0, EMA, no alignment)
@@ -274,6 +277,7 @@ ROOM_TRAINING = tuple(k for k in TRAINING if k != "auction_emd")  # room pairs a
 SINGLE_FUNCTION = ("trilinear_devoxelize", "ball_query_group", "three_nn_interpolate",
                    "avg_voxelize_backward", "auction_emd")
 TRAIN_B = 32  # training.bs of PVDS_PUNet
+SCATTER_OLD_LIMIT = 1 << 15  # entries and rows a cloud of the one-block sort scatter_rows replaced
 TRAIN_STEPS = 31  # steps 10-29 timed, 20 counted, 30 profiled
 VIZ_INTERVAL = 30  # one in-training evaluation, after step 29 and before step 30
 WATCH_INTERVAL = 25  # one watch step (24): parameter and gradient histograms
@@ -327,6 +331,8 @@ def trace_events(prof) -> list:
 
 # kernel -> the most distinct device functions one call of it launched
 DEVICE_LAUNCHES: dict = {}
+# kernel -> its last device_ms result by device function
+DEVICE_SPLIT: dict = {}
 
 
 def device_ms(fn, kernel: str, calls: int = 10, attempts: int = 5) -> float:
@@ -364,6 +370,7 @@ def device_ms(fn, kernel: str, calls: int = 10, attempts: int = 5) -> float:
         return float("nan")
     DEVICE_LAUNCHES[kernel] = max(DEVICE_LAUNCHES.get(kernel, 0), len(split))
     times = {f: ms / n for f, (n, ms) in split.items()}
+    DEVICE_SPLIT[kernel] = times
     recorded = sum(n for n, _ in split.values()) / (calls * len(split))
     if len(times) > 1 or recorded < 1.0:
         log(f"  {kernel} device ms per call by function: "
@@ -1333,7 +1340,7 @@ KERNEL_FUNCTIONS = {
     "three_nn_interpolate": ("three_nn_interp_kernel",),
     "avg_voxelize_backward": ("gather_divide_kernel",),
     "auction_emd": ("auction_kernel",),
-    "scatter_rows": ("scatter_sort_kernel", "scatter_rows_kernel"),
+    "scatter_rows": ("scatter_table_kernel", "scatter_rows_kernel"),
 }
 
 
@@ -1464,6 +1471,7 @@ def train_config(data_dir: Path, out_dir: Path) -> dict:
     cfg["training"]["watch_gradients"] = True
     cfg["output_dir"] = str(out_dir)
     cfg["profile_dir"] = str(out_dir / "trace")
+    cfg["use_wandb"] = False  # the files only: wandb.init reaches wandb's servers
     return cfg
 
 
@@ -1557,45 +1565,114 @@ def scatter_cases(rng, dev, dt, shapes, b: int = TRAIN_B):
     return cases
 
 
-def check_scatter(rng, dev, shapes, b: int = TRAIN_B) -> dict:
+def scatter_edge_cases(rng, dev, dt, shapes):
+    """Kernel scatter_rows beyond one training step's calls, at B = 4:
+    skewed destinations (every entry to one row; ball query's padding, a
+    centre's K slots repeating its first index; one row's run across the
+    middle of the entries, where the cluster's slices meet, and a row fed
+    from every slice) and K3's backward past the one-block sort's limit
+    (N = 8192 at r = 32: 65,536 entries) and at the kernel's limit:
+    [(what, kernel wrapper, plain version, their arguments, entries a
+    cloud)]."""
+    B, cases = ROOM_TRAIN_B, []
+    n, m, k = 4096, 1024, 32
+    gather = (bq_ops._ball_query_group_backward_cuda,
+              lambda g, idx, n: bq_ops.ball_query_group_backward(g, idx, n).to(g.dtype))
+    one_row = torch.full((B, m, k), 7, dtype=torch.int32, device=dev)
+    padded = torch.randint(0, n, (B, m, k), device=dev, dtype=torch.int32)
+    found = torch.randint(1, 5, (B, m, 1), device=dev)
+    padded = torch.where(torch.arange(k, device=dev) < found, padded, padded[..., :1])
+    seam = torch.randint(0, n, (B, m * k), device=dev, dtype=torch.int32)
+    seam[:, m * k // 2 - 3000:m * k // 2 + 3000] = 5
+    seam[:, ::97] = n - 1
+    for what, idx in (("every entry to one row", one_row),
+                      ("ball query padding (1-4 hits a centre)", padded),
+                      ("one row across the slices' seam, one from every slice",
+                       seam.view(B, m, k))):
+        g = torch.randn(B, m, k, 64, device=dev).to(dt)
+        cases.append((f"K4 {what} {n}<-{m}x{k} C=64", *gather, (g, idx, n), m * k))
+    c = next(cout for pts, r, _, cout in shapes["pvconv"] if r == 32)
+    for b, pts in ((B, 8192), (1, scatter_ops.MAX_ENTRIES // 8)):
+        _, cont = vox_ops.normalize_coords_to_voxels(patches(rng, b, pts, dev), 32)
+        g = torch.randn(b, pts, c, device=dev).to(dt)
+        cases.append((f"K3 devoxelize N={pts} r=32 C={c} B={b}",
+                      devox_ops._devoxelize_backward_cuda,
+                      lambda g, cont, r: devox_ops.trilinear_devoxelize_backward(
+                          g, cont, r).to(g.dtype), (g, cont, 32), 8 * pts))
+    return cases
+
+
+def scatter_timed(name: str, dt, what: str, kernel, plain_fn, args) -> dict:
+    """One scatter_rows call: torch.equal to the plain version run on the
+    CPU from the same inputs and to a second call (else it raises); card
+    ms, device ms (and by device function: the table build and the row
+    pass) and host us a call."""
+    got, again = kernel(*args), kernel(*args)
+    want = plain_fn(*(a.cpu() if torch.is_tensor(a) else a for a in args))
+    torch.cuda.synchronize()
+    if not (got.dtype == dt and torch.equal(got.cpu(), want)):
+        bad = (got.cpu() != want).sum().item()
+        err = (got.cpu().float() - want.float()).abs().max().item()
+        raise AssertionError(f"scatter_rows {name} {what}: {bad} values differ from the "
+                             f"CPU plain version, by up to {err}")
+    if not torch.equal(got, again):
+        raise AssertionError(f"scatter_rows {name} {what}: two kernel calls differ")
+    ms = time_ms(lambda: kernel(*args))
+    dms = device_ms(lambda: kernel(*args), "scatter_rows")
+    split = {} if math.isnan(dms) else dict(DEVICE_SPLIT["scatter_rows"])
+    return {"ms": ms, "device_ms": dms, "split": split,
+            "host_us": host_us(lambda: kernel(*args), ms)}
+
+
+def split_text(split: dict) -> str:
+    return " + ".join(f"{f} {ms:.4f}" for f, ms in split.items()) or "not measured"
+
+
+def check_scatter(rng, dev, shapes, b: int = TRAIN_B, edges: bool = False) -> dict:
     """Kernel scatter_rows at every backward scatter of the training step
     of ``b`` clouds, bf16 and f32: torch.equal to the plain version run on
     the CPU from the same inputs and to a second call; timed beside the
     plain version on the card (index_add_) and one index_add_ of the
-    precomputed terms. The calls at the kernel's limit (2^15 entries or
-    rows a cloud) go into the row's "at_limit"."""
+    precomputed terms, with the device time split between the table build
+    and the row pass. The calls at the limit of the one-block sort the
+    table build replaced (2^15 entries or rows a cloud) go into the row's
+    "at_old_limit"; with ``edges`` the cases of scatter_edge_cases are
+    checked and timed too, into "edges" (not into the step's sums)."""
     out = {}
     for name, dt in DTYPES.items():
         tally = Tally(name, library=True)
+        by_function = tally.extra.setdefault("device_ms_by_function", {})
         for what, calls, kernel, plain_fn, args, rows, (flat, src), nbytes, ops in scatter_cases(
                 rng, dev, dt, shapes, b):
-            got, again = kernel(*args), kernel(*args)
-            want = plain_fn(*(a.cpu() if torch.is_tensor(a) else a for a in args))
-            torch.cuda.synchronize()
-            if not (got.dtype == dt and torch.equal(got.cpu(), want)):
-                bad = (got.cpu() != want).sum().item()
-                err = (got.cpu().float() - want.float()).abs().max().item()
-                raise AssertionError(f"scatter_rows {name} {what}: {bad} values differ from the "
-                                     f"CPU plain version, by up to {err}")
-            if not torch.equal(got, again):
-                raise AssertionError(f"scatter_rows {name} {what}: two kernel calls differ")
-            ms = time_ms(lambda: kernel(*args))
-            dms = device_ms(lambda: kernel(*args), "scatter_rows")
-            hus = host_us(lambda: kernel(*args), ms)
+            t = scatter_timed(name, dt, what, kernel, plain_fn, args)
             plain = time_ms(lambda: plain_fn(*args))
             acc = torch.zeros(b * rows, src.shape[-1], device=dev)
             lib = time_ms(lambda: acc.index_add_(0, flat, src))
-            bound = tally.add(calls, ms, plain, lib, nbytes, ops, 0.0, dms, hus)
+            bound = tally.add(calls, t["ms"], plain, lib, nbytes, ops, 0.0, t["device_ms"],
+                              t["host_us"])
+            for f, ms in t["split"].items():
+                by_function[f] = by_function.get(f, 0.0) + calls * ms
             entries = flat.numel() // b
-            if entries == scatter_ops.MAX_ENTRIES or rows == scatter_ops.MAX_ROWS:
-                tally.extra.setdefault("at_limit", []).append(
+            if SCATTER_OLD_LIMIT in (entries, rows):
+                tally.extra.setdefault("at_old_limit", []).append(
                     f"{what}: {entries} entries, {rows} rows a cloud")
             log(f"scatter_rows {name} {what} x{calls} B={b} ({entries} entries, {rows} rows a "
-                f"cloud): bit-equal to the CPU plain "
-                f"version, two calls equal; kernel {ms:.4f} ms (device {dms:.4f} ms, host "
-                f"{hus:.1f} us a call), plain (index_add_) {plain:.4f} ms, one index_add_ of "
-                f"the terms {lib:.4f} ms, bound {bound:.4g} ms")
+                f"cloud): bit-equal to the CPU plain version, two calls equal; kernel "
+                f"{t['ms']:.4f} ms (device {t['device_ms']:.4f} ms: {split_text(t['split'])}; "
+                f"host {t['host_us']:.1f} us a call), plain (index_add_) {plain:.4f} ms, one "
+                f"index_add_ of the terms {lib:.4f} ms, bound {bound:.4g} ms")
             del flat, src, acc
+        log(f"scatter_rows {name} per step at B={b}: device {tally.device_ms:.4f} ms "
+            f"({split_text(by_function)}), one index_add_ of the terms {tally.library_ms:.4f} "
+            f"ms, bound {tally.bound_ms:.4g} ms")
+        if edges:
+            for what, kernel, plain_fn, args, entries in scatter_edge_cases(rng, dev, dt, shapes):
+                t = scatter_timed(name, dt, what, kernel, plain_fn, args)
+                tally.extra.setdefault("edges", []).append({"what": what, "entries": entries, **t})
+                log(f"scatter_rows {name} {what} ({entries} entries a cloud): bit-equal to the "
+                    f"CPU plain version, two calls equal; kernel {t['ms']:.4f} ms (device "
+                    f"{t['device_ms']:.4f} ms: {split_text(t['split'])}; host "
+                    f"{t['host_us']:.1f} us a call)")
         out[name] = tally
     return out
 
@@ -1608,13 +1685,18 @@ def cudnn_backward_cost(dev, shapes, b: int = TRAIN_B) -> dict:
     equal over two calls. Beside the back-to-back times, the device time
     of the deterministic call from a trace: all its kernels (the recompute
     and the plain GroupNorm backward included), and cuDNN's alone, the
-    group the profiled training step reports."""
+    group the profiled training step reports. Its bound: the dgrad and
+    wgrad products (2 x 27 Cin Cout multiply-adds a voxel each) over the
+    bf16 peak."""
     convs = []
     for _, r, cin, cout in shapes["pvconv"]:
         convs += [(r, cin, cout, True), (r, cout, cout, False)]
     gen = torch.Generator(device=dev).manual_seed(7)
     total = {True: 0.0, False: 0.0}
     device = {"all": 0.0, "cudnn": 0.0}
+    ops = sum(calls * 2 * 2 * b * r ** 3 * 27 * cin * cout
+              for (r, cin, cout, _), calls in counted(convs))
+    bound = ops / PEAK_OPS_PER_S["bf16"] * 1e3
     for (r, cin, cout, act), calls in counted(convs):
         x, w, bias, gamma, beta = conv_inputs(gen, dev, torch.bfloat16, b, r, cin, cout, False)
         inputs = [t.requires_grad_() for t in (x, w, bias, gamma, beta)]
@@ -1644,9 +1726,10 @@ def cudnn_backward_cost(dev, shapes, b: int = TRAIN_B) -> dict:
         torch.cuda.empty_cache()
     log(f"K1 backward per training step: deterministic {total[True]:.2f} ms (device "
         f"{device['all']:.2f} ms, cuDNN's kernels {device['cudnn']:.2f}), default "
-        f"{total[False]:.2f} ms")
+        f"{total[False]:.2f} ms; bound (dgrad + wgrad, {ops:.4g} operations) {bound:.4f} ms")
     return {"deterministic_ms": total[True], "default_ms": total[False],
-            "deterministic_device_ms": device["all"], "cudnn_device_ms": device["cudnn"]}
+            "deterministic_device_ms": device["all"], "cudnn_device_ms": device["cudnn"],
+            "bound_ms": bound, "operations": ops}
 
 
 def traced_device_ms(fn, what: str, calls: int = 3) -> dict:
@@ -2689,6 +2772,7 @@ def room_train_config(data_dir: Path, splits: Path, out_dir: Path) -> dict:
     cfg["training"]["steps"] = TRAIN_STEPS
     cfg["training"]["viz_interval"] = VIZ_INTERVAL
     cfg["output_dir"] = str(out_dir)
+    cfg["use_wandb"] = False  # the files only: wandb.init reaches wandb's servers
     return cfg
 
 
@@ -2776,13 +2860,19 @@ def room_training(dev, root: Path) -> dict:
     log(f"room training shapes at B={ROOM_TRAIN_B}: {json.dumps(shapes)}")
     results = {"avg_voxelize_backward": check_voxelize_backward(
         np.random.default_rng(12), dev, shapes, ROOM_TRAIN_B),
-        "scatter_rows": check_scatter(np.random.default_rng(13), dev, shapes, ROOM_TRAIN_B)}
+        "scatter_rows": check_scatter(np.random.default_rng(13), dev, shapes, ROOM_TRAIN_B,
+                                      edges=True)}
     for dt, tally in results["scatter_rows"].items():
-        at_limit = tally.extra.get("at_limit", [])
-        if not (any(a.startswith("K3") and "32768 entries, 32768 rows" in a for a in at_limit)
-                and any(a.startswith("K4") and "32768 entries" in a for a in at_limit)):
-            raise AssertionError(f"scatter_rows {dt}: the calls at 2^15 were not all checked: "
-                                 f"{at_limit}")
+        at_old = tally.extra.get("at_old_limit", [])
+        past = [f"{e['what']}: {e['entries']} entries" for e in tally.extra.get("edges", [])]
+        if not (any(a.startswith("K3") and "32768 entries, 32768 rows" in a for a in at_old)
+                and any(a.startswith("K4") and "32768 entries" in a for a in at_old)
+                and any(a.startswith("K3") and "65536 entries" in a for a in past)
+                and any(a.startswith("K3") and f"{scatter_ops.MAX_ENTRIES} entries" in a
+                        for a in past)):
+            raise AssertionError(f"scatter_rows {dt}: the calls at the old limit (2^15), past "
+                                 f"it and at the new limit were not all checked: {at_old}, "
+                                 f"{past}")
     cudnn = cudnn_backward_cost(dev, shapes, ROOM_TRAIN_B)
     batch = room_train_batch(cfg, dev)
     bits = check_train_gradient_bits(cfg, batch, dev)

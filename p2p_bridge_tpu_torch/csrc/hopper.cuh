@@ -109,6 +109,15 @@ __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
+// The two halves of cluster_sync: arrive (this thread's earlier memory
+// operations released) and wait for every thread of the cluster to arrive.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
 // The shared::cluster address, in the shared memory of the cluster's CTA
 // `rank`, of the variable at `p` in this CTA's shared memory.
 __device__ __forceinline__ uint32_t cluster_map(const void* p, uint32_t rank) {
@@ -136,6 +145,20 @@ __device__ __forceinline__ void st_cluster_s32(uint32_t a, int v) {
 
 __device__ __forceinline__ void st_cluster_u64(uint32_t a, unsigned long long v) {
   asm volatile("st.shared::cluster.u64 [%0], %1;\n" ::"r"(a), "l"(v) : "memory");
+}
+
+// A plain load from a shared::cluster address (cluster_map), of a value
+// the owner wrote before the last cluster_sync.
+__device__ __forceinline__ int ld_cluster_s32(uint32_t a) {
+  int v;
+  asm volatile("ld.shared::cluster.s32 %0, [%1];\n" : "=r"(v) : "r"(a) : "memory");
+  return v;
+}
+
+// Integer add to a shared::cluster address; the sum is visible to the
+// owner after the next cluster_sync.
+__device__ __forceinline__ void red_add_cluster_u32(uint32_t a, uint32_t v) {
+  asm volatile("red.shared::cluster.add.u32 [%0], %1;\n" ::"r"(a), "r"(v) : "memory");
 }
 
 // Make this CTA's freshly initialised mbarriers visible to the cluster's

@@ -7,10 +7,17 @@ the entries whose destination is v, rounded once to the gradient's dtype.
 The plain versions (``index_add_`` in ``devoxelize.py``, ``ball_query.py``
 and ``interpolate.py``) add the entries one after another in entry order on
 the CPU (``tests/test_torch_scatter.py`` pins that order), and the kernel
-sorts each cloud's entries by destination and sums them in that order, so
-its output is bit-equal to the plain version's on the CPU and the same from
-run to run. The wrappers call :func:`scatter_rows_cuda` for a CUDA tensor
-only.
+sums each row's entries in that order, so its output is bit-equal to the
+plain version's on the CPU and the same from run to run.
+
+The kernel is two launches. The first builds each cloud's segment table
+(the entries sorted stably by destination, each row's first slot) with a
+radix sort on the destination, 8 bits a pass, in one thread block cluster
+of up to 16 CTAs a cloud; the second sums each row's segment, one thread
+per 16 bytes of the output. Its limits (``check_scatter_shape``): 2^20
+entries and 2^16 rows a cloud, no more clouds than a grid dimension takes,
+32-bit offsets. The wrappers call :func:`scatter_rows_cuda` for a CUDA
+tensor only.
 """
 
 from __future__ import annotations
@@ -20,16 +27,17 @@ import torch
 from .. import kernels
 
 GATHER, INTERP, DEVOX = 0, 1, 2  # K4, K6, K3
-MAX_ENTRIES = 1 << 15  # a cloud's sort keys fit one block's shared memory
-MAX_ROWS = 1 << 15
+MAX_ENTRIES = 1 << 20  # a cloud's entries (a 131,072-point cloud's K3 backward)
+MAX_ROWS = 1 << 16  # two 8-bit digit passes of the table's radix sort
 
 
 def check_scatter_shape(B: int, S: int, E: int, R: int, C: int) -> None:
-    """Raise unless the kernel takes this shape: 1 <= E <= 2^15 entries and
-    1 <= R <= 2^15 destination rows a cloud (15 + 15 bits of sort key),
-    1 <= B < 65536 clouds and S * C, R * C below 2^31 (32-bit offsets).
-    Every backward of the three configs' training shapes qualifies (at
-    most 8 x 4096 corners, 1024 x 32 gathered rows and r^3 = 32,768)."""
+    """Raise unless the kernel takes this shape: 1 <= E <= 2^20 entries and
+    1 <= R <= 2^16 destination rows a cloud, 1 <= B < 65536 clouds and S *
+    C, R * C below 2^31 (32-bit offsets). Every backward of the three
+    configs' training shapes qualifies (at most 8 x 4096 corners, 1024 x 32
+    gathered rows and r^3 = 32,768), and so does K3's backward of a
+    16,384-point patch (2^17 entries)."""
     if not (1 <= E <= MAX_ENTRIES and 1 <= R <= MAX_ROWS and 1 <= B < 2 ** 16
             and C >= 1 and max(S, R) * C < 2 ** 31):
         raise ValueError(f"scatter_rows kernel takes 1 <= E <= {MAX_ENTRIES} entries and "
@@ -59,8 +67,10 @@ def scatter_rows_cuda(mode: int, grad: torch.Tensor, rows: int, idx=None, weight
     if grad.data_ptr() % 16:  # read as 16-byte vectors
         grad = grad.clone()
     out = grad.new_empty((B, rows, C))
-    # the kernel's sorted entry order [B, E] and segment starts [B, rows + 1]
-    tables = grad.new_empty(B * (E + rows + 1), dtype=torch.int32)
+    # the table's scratch: (entry, destination) pairs between the sort's
+    # passes [B, E, 2], the sorted entry order [B, E], segment starts
+    # [B, rows + 1]; written before read, so not zeroed
+    tables = grad.new_empty(B * (3 * E + rows + 1), dtype=torch.int32)
     kernels.launch(
         "scatter_rows", "p2pb_scatter_rows", device, grad.data_ptr(),
         None if idx is None else idx.data_ptr(),

@@ -117,7 +117,7 @@ def train(cfg: dict, device="cuda", observer: Optional[Observer] = None):
     watch_gradients = training.get("watch_gradients", False)
     profile_dir = cfg.get("profile_dir")
     tracker = ExperimentTracker(output_dir, project=cfg.get("wandb_project", "P2P-Bridge"),
-                                config=cfg)
+                                config=cfg, use_wandb=cfg.get("use_wandb", True))
 
     train_iter = save_iter(train_loader)
     start_step = state.step

@@ -52,7 +52,7 @@ MAIN_PATH = [
     "p2p_bridge_tpu_torch.extract_image_features", "chip_smoke",
 ]
 PORT_SOURCES = sorted((ROOT / "p2p_bridge_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "profile_denoise.py"]
+    ROOT / "chip_smoke.py", ROOT / "profile_denoise.py", ROOT / "profile_scatter.py"]
 
 
 def clean_env(**extra):

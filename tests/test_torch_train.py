@@ -473,6 +473,34 @@ def test_training_loop_survives_a_failed_evaluation(tmp_path, monkeypatch, caplo
     assert len(warned) == 2 and "evaluation broke" in warned[0]
 
 
+def test_training_starts_no_wandb_where_the_config_says_so(tmp_path, monkeypatch, one_thread):
+    """``use_wandb: false`` keeps train() from starting wandb, whose init
+    reaches wandb's servers (and reports its errors to them); by default it
+    starts, as the JAX package's tracker does. chip_smoke.py's training
+    runs set it."""
+    import sys
+    import types
+
+    import chip_smoke
+    from p2p_bridge_tpu_torch import train as train_module
+
+    started = []
+
+    fake = types.ModuleType("wandb")
+    fake.init = lambda **kwargs: started.append(kwargs["project"])
+    fake.log = fake.Histogram = fake.Image = fake.finish = lambda *args, **kwargs: None
+    monkeypatch.setitem(sys.modules, "wandb", fake)
+    synthetic_tree(tmp_path / "data")
+    cfg = loop_cfg(tmp_path, "quiet", "--training.steps", "1")
+    cfg["use_wandb"] = False
+    train_module.train(cfg, "cpu")
+    assert started == []
+    train_module.train(loop_cfg(tmp_path, "tracked", "--training.steps", "1"), "cpu")
+    assert started == ["P2P-Bridge"]
+    assert chip_smoke.train_config(tmp_path, tmp_path)["use_wandb"] is False
+    assert chip_smoke.room_train_config(tmp_path, tmp_path, tmp_path)["use_wandb"] is False
+
+
 def test_a_watch_step_updates_as_a_plain_step(tiny_pair):
     """return_grads hands back this step's gradients before the clip and
     changes nothing: the clipped gradients, the parameters, the moments and
