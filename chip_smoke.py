@@ -154,19 +154,43 @@ Phases, in order; any failure raises and the process exits non-zero:
      through denoise_room's loader with and without the EMA, its forward
      bit-equal to the trained model's, and python -m
      p2p_bridge_tpu_torch.denoise_room with that run on the val scan.
+ 11. full attention, the bench, data parallelism (run last): PVDS_PUNet
+     at full width with attention_type "flash" (bf16 and an f32 twin; the
+     attention's parameters f32): the f32 forward card vs CPU at B = 1, the
+     bf16 forward against it, two bf16 forwards at B = 73 bit-equal, a 50k
+     bucketed denoise with every backbone kernel and the cluster FPS
+     launched; python -m p2p_bridge_tpu_torch.bench through its main (its
+     JSON line printed, every pipelined output torch.equal to the
+     synchronous one, the launch counts set to 0 before and read after,
+     0 < mfu <= 1, no synchronising call in its profiler window of
+     pipelined calls and the next call queued before the last kernel of the
+     one before ended); W = 1 over NCCL: a bf16 PVDS_PUNet step (bs 32,
+     dropout, K7) through the mesh torch.equal to the plain step in every
+     gradient, parameter, moment and EMA, and denoise_room of a synthetic
+     30,000-point scene with the mesh equal to the unsharded call; two
+     spawned ranks sharing the card over gloo (which gloo collectives take
+     CUDA tensors is printed): the f32 step at a global batch of 4 against
+     W = 1 and the sharded f32 room against one process, within the CPU
+     test's tolerances (tests/test_torch_distributed.py); and python -m
+     torch.distributed.run --nproc_per_node 2 -m p2p_bridge_tpu_torch.train
+     on phase 7's tree (gloo, both ranks on card 0): finite losses, one
+     checkpoint, saved by rank 0.
 The line before the last is a JSON object with each kernel's launches,
 errors, times (back to back, device, host per call) and bounds; the last
 line is {"ok": true, "device": {...}}. Phase 10's figures are under
 "room_train" on the line before the last, and each kernel's launches in a
-room training step under "bf16 room train step" in its launches_by_path.
+room training step under "bf16 room train step" in its launches_by_path;
+phase 11's under "phase11".
 """
 
 from __future__ import annotations
 
+import copy
 import csv
 import importlib
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -179,6 +203,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from p2p_bridge_tpu_torch import bench as port_bench
 from p2p_bridge_tpu_torch import kernels
 from p2p_bridge_tpu_torch import denoise_object
 from p2p_bridge_tpu_torch import denoise_room as room_cli
@@ -196,6 +221,8 @@ from p2p_bridge_tpu_torch.models import evaluation as object_evaluation
 from p2p_bridge_tpu_torch.models.model_loader import save_checkpoint
 from p2p_bridge_tpu_torch.models.p2pb import P2PBridge
 from p2p_bridge_tpu_torch.models.unet_pvc import build_unet_from_config, init_parameters
+from p2p_bridge_tpu_torch.parallel.mesh import (initialize_distributed, make_data_mesh,
+                                                shard_batch)
 from p2p_bridge_tpu_torch.parallel.train_step import init_train_state, train_step
 from p2p_bridge_tpu_torch.train import train, write_run_config
 from p2p_bridge_tpu_torch.ops import ball_query as bq_ops
@@ -210,6 +237,7 @@ from p2p_bridge_tpu_torch.ops.common import (pairwise_sqdist, pairwise_sqdist_ex
 from p2p_bridge_tpu_torch.utils.io import read_ply, read_xyz, write_ply
 from p2p_bridge_tpu_torch.utils.logging import read_summary as summary_csv
 
+REPO = Path(__file__).resolve().parent
 PATCHES = 73  # int(3 * 50_000 / 2048)
 PATCH = 2048
 RUNS = 5
@@ -1207,11 +1235,14 @@ def build_models(device):
     return model.to(device), twin.to(device)
 
 
-def check_forward(model, twin, dev) -> dict:
+def check_forward(model, twin, dev, cfg: dict = None, b: int = 2) -> dict:
+    """The f32 twin's forward of ``b`` patches on the card against the CPU,
+    the bf16 model's against the twin's (``cfg``: PVDS_PUNet as shipped by
+    default)."""
     rng = np.random.default_rng(1)
-    x = torch.from_numpy(np.stack([surface_cloud(rng, PATCH) for _ in range(2)]))
-    t = torch.from_numpy(np.array([700.0, 300.0], np.float32))
-    cfg = pvds_punet()
+    x = torch.from_numpy(np.stack([surface_cloud(rng, PATCH) for _ in range(b)]))
+    t = torch.from_numpy(np.array([700.0, 300.0], np.float32)[:b])
+    cfg = copy.deepcopy(cfg or pvds_punet())
     cfg["model"]["compute_dtype"] = "f32"
     cpu_model = build_unet_from_config(cfg).eval()
     cpu_model.load_state_dict({k: v.cpu() for k, v in twin.state_dict().items()})
@@ -1221,7 +1252,7 @@ def check_forward(model, twin, dev) -> dict:
         got16 = model(x.to(dev), t.to(dev)).cpu().numpy()
     err = float(np.abs(got32 - want).max())
     tol = FORWARD_TOL * max(1.0, float(np.abs(want).max()))
-    log(f"f32 forward [2, {PATCH}, 3] card vs CPU: max err {err:.3g} (tol {tol:.3g}), "
+    log(f"f32 forward [{b}, {PATCH}, 3] card vs CPU: max err {err:.3g} (tol {tol:.3g}), "
         f"max|out| {np.abs(want).max():.3g}")
     if not (np.isfinite(got32).all() and err <= tol):
         raise AssertionError(f"card forward differs from the CPU forward: {err} > {tol}")
@@ -3107,6 +3138,334 @@ def objects(dev, run: Path, root: Path) -> dict:
             "auction_eval": k7, "card_vs_cpu": card_cpu, "seconds": seconds}
 
 
+# ---------------------------------------------------------------- phase 11
+DIST_B = 4  # the global batch of the two-rank step: 2 clouds a rank
+DIST_ROOM_POINTS = 30_000  # 32 patches of 4096 at k = 4: one batch of 32
+DIST_TRAIN_STEPS = 3
+# tests/test_torch_distributed.py's f32 tolerances: the loss and the norms
+# relative, the gradients and Adam's moments absolute of the largest, the
+# sharded room prediction absolute
+DIST_STEP_REL = 1e-5
+DIST_GRAD_TOL = 5e-5
+DIST_ROOM_TOL = 1e-6
+
+
+def flash_attention(dev) -> dict:
+    """(a) PVDS_PUNet at full width with attention_type "flash" (random
+    weights from seed 0), bf16 as shipped and an f32 twin: the attention's
+    parameters f32, the f32 forward on the card against the CPU at B = 1,
+    the bf16 forward against the f32 one, two bf16 forwards at B = 73
+    bit-equal, one bucketed 50k denoise with every backbone kernel and the
+    cluster FPS launched."""
+    cfg = pvds_punet()
+    cfg["model"]["PVD"]["attention_type"] = "flash"
+    model = build_unet_from_config(cfg).eval()
+    init_parameters(model, torch.Generator().manual_seed(0))
+    att = model.global_att
+    if type(att).__name__ != "Attention" or {p.dtype for p in att.parameters()} != {torch.float32}:
+        raise AssertionError(f"global_att: {type(att).__name__}, parameters in "
+                             f"{ {p.dtype for p in att.parameters()} }")
+    twin_cfg = copy.deepcopy(cfg)
+    twin_cfg["model"]["compute_dtype"] = "f32"
+    twin = build_unet_from_config(twin_cfg).eval()
+    twin.load_state_dict(model.state_dict())
+    model.to(dev)
+    twin.to(dev)
+    log(f"PVDS_PUNet with full attention at the bottleneck: "
+        f"{sum(p.numel() for p in model.parameters()):,} parameters, bf16 and an f32 twin")
+    forward = check_forward(model, twin, dev, cfg, b=1)
+    forward["determinism"] = check_determinism(model, dev)
+    del twin
+    bridge = P2PBridge.from_config(cfg, model)
+    pcl = cloud_50k()
+    denoise(bridge, pcl, "bucketed", dev)  # warm-up
+    kernels.reset_launch_counts()
+    ms = denoise(bridge, pcl, "bucketed", dev)
+    launches = dict(kernels.launch_counts)
+    log(f"flash: denoise 50,000 points, bf16, bucketed: {ms:.1f} ms; launches {launches}")
+    idle = [k for k in SERVING + ("fps_cluster",) if launches.get(k, 0) == 0]
+    if idle:
+        raise AssertionError(f"kernels not launched on the flash-attention path: {idle}")
+    return {"forward": forward, "denoise_ms": ms, "launches": launches}
+
+
+def run_bench() -> dict:
+    """(b) python -m p2p_bridge_tpu_torch.bench through its main (it prints
+    its JSON line and holds every pipelined output torch.equal to the
+    synchronous one): the launch counts set to 0 before and read after,
+    every backbone kernel and the cluster FPS launched, 0 < mfu <= 1, no
+    synchronising call in its profiler window of pipelined calls, and the
+    second call queued before the first call's last kernel ended."""
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    line = port_bench.main([])
+    seconds = time.perf_counter() - t0
+    launches = dict(kernels.launch_counts)
+    log(f"bench: {seconds:.1f} s; launches {launches}")
+    idle = [k for k in SERVING + ("fps_cluster",) if launches.get(k, 0) == 0]
+    if idle:
+        raise AssertionError(f"kernels not launched by the bench: {idle}")
+    if not (0 < line["mfu"] <= 1 and 0 < line["device_mfu"] <= 1):
+        raise AssertionError(f"mfu {line['mfu']}, device_mfu {line['device_mfu']}")
+    if line["host_syncs"] or not line["overlap_ms"] > 0:
+        raise AssertionError(f"pipelined calls: {line['host_syncs']} synchronising calls, the "
+                             f"next call queued {line['overlap_ms']} ms before the last kernel "
+                             "ended")
+    return {"line": line, "launches": launches, "seconds": seconds}
+
+
+def dist_step_config(cfg: dict) -> dict:
+    """PVDS_PUNet's f32 twin without dropout: the two-rank comparison's
+    model (the CPU test's terms: f32, the masks off)."""
+    cfg = copy.deepcopy(cfg)
+    cfg["model"]["compute_dtype"] = "f32"
+    cfg["model"]["dropout"] = 0.0
+    return cfg
+
+
+def one_step(cfg: dict, batch: dict, dev, mesh=None) -> tuple:
+    """(model, state, metrics) of one train_step of ``cfg``'s model from
+    seed 0's weights, the generators reseeded, the K7 alignment on."""
+    model = build_unet_from_config(cfg).train()
+    init_parameters(model, torch.Generator().manual_seed(0))
+    model.to(dev)
+    state = init_train_state(model, cfg)
+    torch.cuda.manual_seed(12)
+    metrics = train_step(P2PBridge.from_config(cfg, model), state, batch,
+                         torch.Generator(dev).manual_seed(11), grad_clip=1.0,
+                         align_cfg={"eps": 0.01, "iters": 100}, return_grads=True, mesh=mesh)
+    return model, state, metrics
+
+
+def step_record(model, state, metrics) -> dict:
+    """A step's results on the CPU: the loss and the norms, the gradients
+    before the clip, the parameters, Adam's moments and the EMA after it."""
+    out = {k: metrics[k].detach().cpu() for k in ("loss", "grad_norm", "param_norm")}
+    for n, p in model.named_parameters():
+        opt = state.optimizer.state[p]
+        out.update({f"grad/{n}": metrics["grads"][n].cpu(), f"param/{n}": p.detach().cpu(),
+                    f"exp_avg/{n}": opt["exp_avg"].cpu(),
+                    f"exp_avg_sq/{n}": opt["exp_avg_sq"].cpu(),
+                    f"ema/{n}": state.ema.params[n].cpu()})
+    return out
+
+
+def step_differences(got: dict, want: dict, lr: float) -> dict:
+    """The largest difference of each kind, relative as the tolerances
+    read them; "update" is the worst ratio of a parameter's or EMA's
+    difference to what tests/test_torch_train.py allows it at learning
+    rate ``lr``."""
+    def worst(prefix):
+        keys = [k for k in want if k.startswith(prefix)]
+        scale = max(want[k].abs().max().item() for k in keys)
+        return max((got[k] - want[k]).abs().max().item() for k in keys) / scale
+
+    out = {k: abs(got[k].item() - want[k].item()) / abs(want[k].item())
+           for k in ("loss", "grad_norm", "param_norm")}
+    out.update({p[:-1]: worst(p) for p in ("grad/", "exp_avg/", "exp_avg_sq/")})
+    clip = min(1.0, 1.0 / (want["grad_norm"].item() + 1e-6))
+    gscale = max(want[k].abs().max().item() for k in want if k.startswith("grad/"))
+    ratio = 0.0
+    for k in want:
+        if k.startswith(("param/", "ema/")):
+            g = want["grad/" + k.split("/", 1)[1]].abs() * clip
+            allowed = lr * torch.clamp(1e-3 + 10 * DIST_GRAD_TOL * gscale * clip
+                                            / torch.clamp(g, min=1e-30), max=2.0 + 1e-3)
+            ratio = max(ratio, ((got[k] - want[k]).abs() / allowed).max().item())
+    out["update"] = ratio
+    return out
+
+
+def dist_room(points: int, root: Path) -> tuple:
+    """(points [N, 3] f32, features [N, C]) of a synthetic ScanNet++ scan."""
+    scan, _ = synthetic_room(root, np.random.default_rng(21), scene="dist", points=points)
+    feats = np.load(scan.parent.parent / "features" / "dino_iphone.npy").T
+    return read_ply(str(scan))["points"].astype(np.float32), np.ascontiguousarray(feats)
+
+
+def room_bridge(dev, dtype: str, head_scale: float = 1.0):
+    """PVDL_SNPP (random weights from seed 0) computing in ``dtype``, its
+    head scaled by ``head_scale``, on ``dev``."""
+    cfg = pvdl_snpp()
+    cfg["model"]["compute_dtype"] = dtype
+    model = build_unet_from_config(cfg).eval()
+    init_parameters(model, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        model.classifier[2].weight.mul_(head_scale)
+        model.classifier[2].bias.mul_(head_scale)
+    return P2PBridge.from_config(cfg, model.to(dev))
+
+
+def sharded_room(bridge, pts, feats, mesh=None) -> np.ndarray:
+    with torch.no_grad():
+        return rooms.denoise_room(bridge, pts, steps=ROOM_STEPS, k=ROOM_K,
+                                  patch_size=ROOM_PATCH, batch_size=ROOM_BATCH,
+                                  query_radius=0.3, room_features=feats, use_feat=True,
+                                  mesh=mesh)["denoised"]
+
+
+def gloo_rank(rank: int, world: int, store: str, root: str) -> None:
+    """One of two ranks sharing card 0 over gloo (a spawned process): the
+    f32 step on its half of the saved global batch and the f32 sharded room,
+    saved for the parent; and which gloo collectives take CUDA tensors."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    initialize_distributed("gloo", dev, init_method=f"file://{store}", world_size=world,
+                           rank=rank)
+    mesh = make_data_mesh(dev)
+    root = Path(root)
+    probe = {}
+    x = torch.full((4,), float(rank + 1), device=dev)
+    for name, call in (("all_reduce", lambda: torch.distributed.all_reduce(x.clone())),
+                       ("broadcast", lambda: torch.distributed.broadcast(x.clone(), 0)),
+                       ("all_gather", lambda: torch.distributed.all_gather(
+                           [torch.empty_like(x) for _ in range(world)], x))):
+        try:
+            call()
+            probe[name] = "takes CUDA tensors"
+        except RuntimeError as e:  # reported: the mesh's collectives would fail below
+            probe[name] = str(e).splitlines()[0][:120]
+    batch = torch.load(root / "dist_batch.pt")
+    local = {k: v.to(dev) for k, v in shard_batch(batch, mesh).items()}
+    cfg = dist_step_config(pvds_punet())
+    record = step_record(*one_step(cfg, local, dev, mesh))
+    pts, feats = dist_room(DIST_ROOM_POINTS, root / f"rank{rank}")
+    denoised = sharded_room(room_bridge(dev, "f32", 0.01), pts, feats, mesh)
+    torch.save({"step": record, "room": torch.from_numpy(denoised), "probe": probe},
+               root / f"gloo_rank{rank}.pt")
+    torch.distributed.destroy_process_group()
+
+
+def torchrun_train(data_dir: Path, root: Path) -> dict:
+    """python -m torch.distributed.run --nproc_per_node 2 -m
+    p2p_bridge_tpu_torch.train: two ranks sharing card 0 over gloo train
+    PVDS_PUNet as shipped (bf16, bs 32: 16 a rank) for DIST_TRAIN_STEPS
+    steps on phase 7's tree (data.pool_size 32, two batches of a rank);
+    every logged loss finite, one checkpoint at the last step, saved by
+    rank 0 alone."""
+    runs = root / "ddp_runs"
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           "2", "-m", "p2p_bridge_tpu_torch.train", "--config",
+           str(REPO / "configs" / "PVDS_PUNet.yaml"), "--save_dir", str(runs), "--name", "ddp",
+           "--device", "cuda:0", "--dist_backend", "gloo", "--data.data_dir", str(data_dir),
+           "--data.pool_size", "32", "--training.steps", str(DIST_TRAIN_STEPS),
+           "--training.log_interval", "1", "--training.save_interval", "1000",
+           "--use_wandb", "false"]
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    text = run.stdout + run.stderr
+    if run.returncode != 0:
+        raise AssertionError(f"torchrun training exited {run.returncode}:\n{text[-6000:]}")
+    losses = [float(v) for v in re.findall(r"loss:\s+(\S+)", text)]
+    saves = text.count("Saved final checkpoint")
+    ckpt = torch.load(runs / "ddp" / "model.pt", map_location="cpu", weights_only=True)
+    log(f"torchrun, 2 ranks on card 0 over gloo, PVDS_PUNet bf16 bs 32 (16 a rank): "
+        f"{DIST_TRAIN_STEPS} steps in {seconds:.1f} s, losses {losses}, checkpoint saves "
+        f"{saves}, checkpoint step {ckpt['step']}")
+    if not (len(losses) == DIST_TRAIN_STEPS and all(math.isfinite(v) for v in losses)):
+        raise AssertionError(f"torchrun training losses: {losses}\n{text[-4000:]}")
+    if saves != 1 or ckpt["step"] != DIST_TRAIN_STEPS:
+        raise AssertionError(f"{saves} checkpoint saves, step {ckpt['step']}")
+    return {"seconds": seconds, "losses": losses, "checkpoint_step": ckpt["step"]}
+
+
+def distributed(dev, data_dir: Path, root: Path) -> dict:
+    """(c) W = 1 over NCCL: a PVDS_PUNet train_step (bf16 as shipped, bs 32,
+    dropout, K7) through the mesh bit-equal to the plain step, and
+    denoise_room with the mesh bit-equal to the unsharded call; then two
+    spawned ranks sharing the card over gloo (f32, the CPU test's
+    tolerances) and torchrun training at W = 2."""
+    out = {}
+    cfg = train_config(data_dir, root / "unused")
+    batch = aligned_batch(cfg, dev)
+    initialize_distributed("nccl", dev, init_method=f"file://{root / 'nccl_store'}",
+                           world_size=1, rank=0)
+    try:
+        mesh = make_data_mesh(dev)
+        plain = step_record(*one_step(cfg, batch, dev))
+        meshed = step_record(*one_step(cfg, batch, dev, mesh))
+        differ = [k for k in plain if not torch.equal(plain[k], meshed[k])]
+        log(f"W = 1 over NCCL: a bf16 PVDS_PUNet step (bs {TRAIN_B}) through the mesh against "
+            f"the plain step: {'bit-equal' if not differ else f'differs in {differ[:5]}'} in "
+            f"{len(plain)} tensors (loss, norms, gradients, parameters, moments, EMA)")
+        if differ:
+            raise AssertionError(f"the W = 1 NCCL step differs from the plain step: {differ[:5]}")
+        pts, feats = dist_room(DIST_ROOM_POINTS, root)
+        bridge = room_bridge(dev, "bf16")
+        single = sharded_room(bridge, pts, feats)
+        sharded = sharded_room(bridge, pts, feats, mesh)
+        log(f"W = 1 over NCCL: denoise_room of {DIST_ROOM_POINTS:,} points (PVDL_SNPP bf16) "
+            f"with the mesh {'bit-equal to' if np.array_equal(single, sharded) else 'differs from'}"
+            " the unsharded call")
+        if not np.array_equal(single, sharded):
+            raise AssertionError("the W = 1 NCCL room differs by up to "
+                                 f"{np.abs(single - sharded).max()}")
+        del bridge
+        out["nccl_w1"] = {"step_bit_equal": True, "room_bit_equal": True}
+    finally:
+        torch.distributed.destroy_process_group()
+
+    global_batch = {k: v[:DIST_B].cpu() for k, v in batch.items()}
+    torch.save(global_batch, root / "dist_batch.pt")
+    scfg = dist_step_config(cfg)
+    want = step_record(*one_step(scfg, {k: v.to(dev) for k, v in global_batch.items()}, dev))
+    want_room = sharded_room(room_bridge(dev, "f32", 0.01), pts, feats)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ctx = torch.multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=gloo_rank, args=(r, 2, str(root / "gloo_store"), str(root)))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=600)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+    codes = [p.exitcode for p in procs]
+    if codes != [0, 0]:
+        raise AssertionError(f"the gloo ranks exited {codes}")
+    ranks = [torch.load(root / f"gloo_rank{r}.pt") for r in range(2)]
+    diffs = step_differences(ranks[0]["step"], want, float(scfg["training"]["optimizer"]["lr"]))
+    room_err = float(np.abs(ranks[0]["room"].numpy() - want_room).max())
+    same = (all(torch.equal(ranks[0]["step"][k], ranks[1]["step"][k]) for k in want)
+            and torch.equal(ranks[0]["room"], ranks[1]["room"]))
+    log(f"two ranks sharing the card over gloo ({time.perf_counter() - t0:.1f} s): "
+        f"gloo with CUDA tensors {ranks[0]['probe']}; the f32 step (B = {DIST_B}, 2 a rank) "
+        f"against W = 1: {({k: f'{v:.3g}' for k, v in diffs.items()})} (tolerances: loss and "
+        f"norms {DIST_STEP_REL}, gradients {DIST_GRAD_TOL}, moments {2 * DIST_GRAD_TOL}, "
+        f"update ratio 1); the sharded f32 room (head x 0.01) against W = 1: max abs "
+        f"{room_err:.3g} (tol {DIST_ROOM_TOL}); the ranks {'agree' if same else 'differ'}")
+    bad = [k for k in ("loss", "grad_norm", "param_norm") if diffs[k] > DIST_STEP_REL]
+    bad += [k for k in ("grad",) if diffs[k] > DIST_GRAD_TOL]
+    bad += [k for k in ("exp_avg", "exp_avg_sq") if diffs[k] > 2 * DIST_GRAD_TOL]
+    bad += ["update"] if diffs["update"] > 1.0 else []
+    bad += ["room"] if room_err > DIST_ROOM_TOL else []
+    bad += ["ranks"] if not same else []
+    if bad:
+        raise AssertionError(f"the two-rank gloo run misses its tolerances in {bad}")
+    out["gloo_w2"] = {"step": diffs, "room_max_abs": room_err, "probe": ranks[0]["probe"],
+                      "seconds": time.perf_counter() - t0}
+    out["torchrun_w2"] = torchrun_train(data_dir, root)
+    return out
+
+
+def phase11(dev, root: Path) -> dict:
+    """Phase 11: full attention, the bench, data parallelism."""
+    t0 = time.perf_counter()
+    out = {"flash": flash_attention(dev)}
+    torch.cuda.empty_cache()
+    out["bench"] = run_bench()
+    torch.cuda.empty_cache()
+    out["distributed"] = distributed(dev, root / "data", root / "dist")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 11: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> None:
     require_card()
     dev = torch.device("cuda", 0)
@@ -3132,6 +3491,9 @@ def main() -> None:
         room_train = room_training(dev, Path(work) / "rooms")
         torch.cuda.empty_cache()
         object_run = objects(dev, Path(work) / "run", Path(work))
+        torch.cuda.empty_cache()
+        (Path(work) / "dist").mkdir()
+        last = phase11(dev, Path(work))
 
     entries = []
     for name, (src, replaces) in KERNELS.items():
@@ -3175,7 +3537,8 @@ def main() -> None:
             "room_train": {**{k: v for k, v in room_train.items() if k not in ("results", "run")},
                            **{k: v for k, v in room_train["run"].items() if k != "launches"}},
             "objects": {k: v for k, v in object_run.items()
-                        if k not in ("launches", "auction_eval")}}
+                        if k not in ("launches", "auction_eval")},
+            "phase11": last}
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,7 +13,17 @@ features are ``<scene>/features/<feature_name>.npy``, [C, N] for ScanNet++
 (transposed on load) and [N, C] for ARKitScenes. The prediction goes to
 ``--out_path`` or ``<scene>/predictions/P2SB/<run>_<scan>_<steps of
 training>_<steps><_ema>.ply``, as the root CLI names it.
-``--shard_patches`` is not ported and raises.
+
+``--shard_patches`` shards each patch batch over the ranks of a torchrun
+launch, one process a card (NCCL; gloo on the CPU):
+
+  torchrun --nproc_per_node N -m p2p_bridge_tpu_torch.denoise_room \
+      --room_path ... --model_path ... --shard_patches
+
+Every rank builds the same patches, samples its ``batch_size / N`` rows of
+each batch on ``cuda:LOCAL_RANK`` (or ``--device``) and gathers the
+others'; rank 0 alone writes the prediction. ``--batch_size`` must divide
+by N.
 """
 
 from __future__ import annotations
@@ -28,6 +38,7 @@ import torch
 from .models.model_loader import load_config, load_weights
 from .models.p2pb import P2PBridge
 from .models.unet_pvc import build_unet_from_config, compute_dtype
+from .parallel.mesh import initialize_distributed, make_data_mesh
 from .rooms import denoise_room
 from .utils.device import resolve_device
 from .utils.io import load_point_cloud, write_ply
@@ -53,7 +64,7 @@ def parse_args(argv=None):
                              "patch before averaging.")
     parser.add_argument("--batch_size", type=int, default=32)
     parser.add_argument("--shard_patches", action="store_true",
-                        help="(not ported: raises)")
+                        help="Shard each patch batch over the ranks of a torchrun launch.")
     parser.add_argument("--local_rank", type=int, default=0)
     parser.add_argument("--gpu", type=str, default="", help="(accepted for CLI parity; see --device)")
     parser.add_argument("--distribution_type", default="none")
@@ -102,10 +113,20 @@ def output_path(args) -> str:
 def main(argv=None) -> str:
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
     args, overrides = parse_args(argv)
-    if args.shard_patches:
-        raise NotImplementedError("--shard_patches is not ported: see ROADMAP.md, Queue 1, "
-                                  "multi-GPU")
     device = resolve_device(args.device)
+    mesh = None
+    if args.shard_patches:
+        initialize_distributed(device=device)
+        mesh = make_data_mesh(device)
+        device = mesh.device
+    try:
+        return _denoise(args, overrides, device, mesh)
+    finally:
+        if mesh is not None and torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def _denoise(args, overrides, device, mesh) -> str:
     np.random.seed(args.seed)
     out_path = output_path(args)
     if os.path.exists(out_path) and not args.overwrite:
@@ -141,7 +162,10 @@ def main(argv=None) -> str:
         filter_outliers=args.filter_outliers,
         return_steps=args.intermediate,
         seed=args.seed,
+        mesh=mesh,
     )
+    if mesh is not None and not mesh.is_main:
+        return out_path
 
     os.makedirs(os.path.dirname(out_path), exist_ok=True)
     write_ply(out_path, out["denoised"], colors=room_colors)

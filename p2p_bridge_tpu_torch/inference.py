@@ -7,7 +7,7 @@ the reference's semantics) or bucketed (an equal FPS quota per patch).
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -78,7 +78,8 @@ def patch_based_denoise_batch(
     save_intermediate: bool = False,
     recombine_mode: str = "exact",
     device: Optional[torch.device] = None,
-) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+    as_numpy: bool = True,
+) -> Tuple[Union[np.ndarray, torch.Tensor], Optional[np.ndarray]]:
     """Denoise a batch of unit-sphere-normalised object clouds.
 
     Args:
@@ -86,21 +87,29 @@ def patch_based_denoise_batch(
       pcls: [O, N, 3].
       recombine_mode: "exact" or "bucketed".
       device: where to run (default: the device of the bridge's model).
+      as_numpy: pull the denoised clouds to the host (default). False
+        returns them as a tensor on ``device`` without waiting for the
+        device, so back-to-back calls overlap (the clouds go up from
+        pinned memory, and nothing on the path reads a device value).
     Returns:
-      (denoised [O, N, 3], steps [O, T, N, 3] or None)
+      (denoised [O, N, 3], steps [O, T, N, 3] numpy or None)
     """
     if recombine_mode not in ("exact", "bucketed"):
         raise ValueError(f"recombine_mode must be 'exact' or 'bucketed', got {recombine_mode!r}")
     if device is None:
         device = next(bridge.model.parameters()).device
+    device = torch.device(device)
     pcls = np.asarray(pcls, np.float32)
     O, N = int(pcls.shape[0]), int(pcls.shape[1])
     num_seeds = int(seed_k * N / patch_size)
 
+    host = torch.from_numpy(np.ascontiguousarray(pcls))
+    if device.type == "cuda":
+        host = host.pin_memory()
+    clouds = host.to(device, non_blocking=True)
     flats, chains = [], []
     for o in range(O):
-        pcl = torch.from_numpy(pcls[o][None]).to(device)
-        flat, chain = _denoise_one(bridge, pcl, patch_size, num_seeds, steps,
+        flat, chain = _denoise_one(bridge, clouds[o:o + 1], patch_size, num_seeds, steps,
                                    clip_denoise, save_intermediate)
         flats.append(flat)
         if chain is not None:
@@ -117,6 +126,8 @@ def patch_based_denoise_batch(
         stacked = torch.cat(chains, dim=0)  # [O*T, S*K, 3]
         T = chains[0].shape[0]
         steps_out = recombine(stacked).reshape(O, T, N, 3).cpu().numpy()
+    if not as_numpy:
+        return denoised, steps_out
     return denoised.cpu().numpy(), steps_out
 
 

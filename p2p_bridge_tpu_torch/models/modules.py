@@ -150,11 +150,44 @@ class LinearAttention(nn.Module):
 
 
 class Attention(nn.Module):
-    """Full softmax attention ("flash"): used by no shipped config."""
+    """Full softmax attention over [B, N, C] ("flash" in the configs).
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "attention_type 'flash' is not ported yet (see ROADMAP.md)")
+    As the JAX module, whose Dense layers have no dtype: the projections
+    compute in f32 whatever the model computes in (flax promotes a bf16
+    input with f32 parameters to f32), the logits and the softmax are f32,
+    the probabilities are cast to v's dtype (f32) for the second product,
+    and its result is cast back to the input's dtype before ``to_out``,
+    which returns f32. ``qk_norm`` scales q and k to unit L2 norm, times
+    sqrt(d) and the learned per-head gains ``q_gamma`` / ``k_gamma``
+    [h, 1, d]."""
+
+    def __init__(self, dim: int, heads: int = 4, dim_head: int = 32, qk_norm: bool = False):
+        super().__init__()
+        self.heads, self.dim_head, self.qk_norm = heads, dim_head, qk_norm
+        inner = heads * dim_head
+        self.to_q = Linear(dim, inner, bias=False)
+        self.to_kv = Linear(dim, 2 * inner, bias=False)
+        self.to_out = Linear(inner, dim, bias=False)
+        if qk_norm:
+            self.q_gamma = nn.Parameter(torch.ones(heads, 1, dim_head))
+            self.k_gamma = nn.Parameter(torch.ones(heads, 1, dim_head))
+
+    def forward(self, x):
+        B, N, _ = x.shape
+        h, d = self.heads, self.dim_head
+        q = self.to_q(x).reshape(B, N, h, d)
+        k, v = (t.reshape(B, N, h, d) for t in self.to_kv(x).chunk(2, dim=-1))
+        if self.qk_norm:
+            q = _rms_norm(q) * math.sqrt(d) * self.q_gamma.transpose(0, 1)[None]
+            k = _rms_norm(k) * math.sqrt(d) * self.k_gamma.transpose(0, 1)[None]
+        attn = torch.softmax(torch.einsum("bnhd,bmhd->bhnm", q, k) * d ** -0.5, dim=-1)
+        out = torch.einsum("bhnm,bmhd->bnhd", attn.to(v.dtype), v).to(x.dtype)
+        return self.to_out(out.reshape(B, N, h * d))
+
+
+def _rms_norm(x: torch.Tensor) -> torch.Tensor:
+    """x over its L2 norm on the last axis, the norm clamped at 1e-12."""
+    return x / torch.linalg.vector_norm(x, dim=-1, keepdim=True).clamp_min(1e-12)
 
 
 class SharedMLP(nn.Module):

@@ -13,7 +13,7 @@ tensors' device; dropout, in train mode, from the device's global RNG.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -25,6 +25,16 @@ from .schedules import BridgeSchedule, space_indices
 def _coef(values, steps: torch.Tensor) -> torch.Tensor:
     """values[steps] as [B, 1, 1] f32 on the device of ``steps``."""
     return torch.as_tensor(values, device=steps.device)[steps][:, None, None]
+
+
+def _draw_randn(like: torch.Tensor, generator: Optional[torch.Generator],
+                rows: Optional[Tuple[int, int]]) -> torch.Tensor:
+    """Standard normal noise of ``like``'s shape, drawn for the global
+    batch of ``rows`` = (offset, total) and sliced to ``like``'s rows."""
+    offset, total = rows or (0, like.shape[0])
+    noise = torch.randn((total,) + tuple(like.shape[1:]), generator=generator,
+                        device=like.device, dtype=like.dtype)
+    return noise[offset:offset + like.shape[0]]
 
 
 @dataclass
@@ -59,14 +69,14 @@ class P2PBridge:
             sampling_timesteps=d.get("sampling_timesteps", 10))
 
     def q_sample(self, steps: torch.Tensor, x0: torch.Tensor, x1: torch.Tensor,
-                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """Bridge interpolation q(x_t | x0, x1); adds noise unless ot_ode."""
+                 generator: Optional[torch.Generator] = None,
+                 rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+        """Bridge interpolation q(x_t | x0, x1); adds noise unless ot_ode
+        (drawn for the global batch of ``rows``, see :meth:`loss_fn`)."""
         s = self.schedule
         xt = _coef(s.mu_x0, steps) * x0 + _coef(s.mu_x1, steps) * x1
         if not self.ot_ode:
-            noise = torch.randn(xt.shape, generator=generator, device=xt.device,
-                                dtype=xt.dtype)
-            xt = xt + _coef(s.std_sb, steps) * noise
+            xt = xt + _coef(s.std_sb, steps) * _draw_randn(xt, generator, rows)
         return xt.detach()
 
     def compute_gt(self, steps: torch.Tensor, x0: torch.Tensor,
@@ -79,22 +89,29 @@ class P2PBridge:
     def loss_fn(self, x0: torch.Tensor, x1: torch.Tensor,
                 x_cond: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
-                steps: Optional[torch.Tensor] = None) -> torch.Tensor:
+                steps: Optional[torch.Tensor] = None,
+                rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
         """The training loss (scalar) of the clean x0 and noisy x1 [B, N, 3].
 
         ``steps`` [B] (timestep indices) are drawn from ``generator``
         uniformly in [0, timesteps) when not given; then the x1 noise
-        (``add_x1_noise``) and the bridge noise (unless ``ot_ode``). The
-        backbone runs as the caller set it (``model.train()`` for dropout)."""
+        (``add_x1_noise``) and the bridge noise (unless ``ot_ode``). With
+        ``rows`` = (offset, total) the batch is rows offset .. offset + B of
+        a global batch of ``total`` rows (one rank's share, data
+        parallelism): every draw is made for the global batch and this
+        batch's rows taken from it, so the ranks together draw what one
+        process would. The backbone runs as the caller set it
+        (``model.train()`` for dropout)."""
         B = x0.shape[0]
         dev = x0.device
         if steps is None:
-            steps = torch.randint(0, self.schedule.timesteps, (B,), generator=generator,
-                                  device=dev)
+            offset, total = rows or (0, B)
+            steps = torch.randint(0, self.schedule.timesteps, (total,), generator=generator,
+                                  device=dev)[offset:offset + B]
         steps = steps.to(dev).long()
         if self.add_x1_noise:
-            x1 = x1 + torch.randn(x1.shape, generator=generator, device=dev, dtype=x1.dtype)
-        xt = self.q_sample(steps, x0, x1, generator)
+            x1 = x1 + _draw_randn(x1, generator, rows)
+        xt = self.q_sample(steps, x0, x1, generator, rows)
         gt = self.compute_gt(steps, x0, xt)
         cond = x_cond
         if self.cond_x1:
@@ -152,8 +169,10 @@ class P2PBridge:
             xs.append(xt)
             preds.append(pred_x0)
 
+        # picked on the host: indexing a device tensor with a list copies the
+        # list to the device and waits for it
         log_idx = space_indices(plan.num_steps, min(log_count, plan.num_steps))
-        x_chain = torch.stack(xs[::-1], dim=1)[:, log_idx]
-        pred_chain = torch.stack(preds[::-1], dim=1)[:, log_idx]
+        x_chain = torch.stack([xs[-1 - i] for i in log_idx], dim=1)
+        pred_chain = torch.stack([preds[-1 - i] for i in log_idx], dim=1)
         return {"x_chain": x_chain, "pred_chain": pred_chain, "x_pred": xt,
                 "x_start": x_start}

@@ -82,6 +82,7 @@ class PVCNN2Unet(nn.Module):
             self.global_att = LinearAttention(plan.bottleneck_channels, heads=attention_heads,
                                               dtype=dtype)
         elif kind == "flash":
+            # no dtype, as the JAX module: full attention computes in f32
             self.global_att = Attention(plan.bottleneck_channels, heads=attention_heads)
 
         fp_layers = []
@@ -168,34 +169,39 @@ def compute_dtype(cfg) -> torch.dtype:
     return torch.bfloat16 if name == "bf16" else torch.float32
 
 
-def build_unet_from_config(cfg) -> PVCNN2Unet:
-    """The backbone of a reference-style config (nested dict), computing
-    in :func:`compute_dtype`."""
+def plan_from_config(cfg) -> PVCNN2Plan:
+    """The architecture plan of a reference-style config (nested dict)."""
     model_cfg = cfg["model"]
     pvd = model_cfg["PVD"]
-    input_dim = model_cfg.get("in_dim", 3)
     extra = pvd.get("extra_feature_channels", model_cfg.get("extra_feature_channels", 0))
-    f_embed = pvd.get("feat_embed_dim", extra)
-    plan = build_pvcnn2_plan(
+    return build_pvcnn2_plan(
         npoints=cfg["data"]["npoints"],
         channels=list(pvd["channels"]),
         n_sa_blocks=list(pvd["n_sa_blocks"]),
         n_fp_blocks=list(pvd["n_fp_blocks"]),
         radius=list(pvd["radius"]),
         voxel_resolutions=list(pvd["voxel_resolutions"]),
-        input_dim=input_dim,
-        extra_feature_channels=f_embed,
+        input_dim=model_cfg.get("in_dim", 3),
+        extra_feature_channels=pvd.get("feat_embed_dim", extra),
         embed_dim=model_cfg.get("time_embed_dim", 64),
         attentions=list(pvd["attentions"]),
         out_mlp=pvd.get("out_mlp", 128),
         centers=list(pvd["centers"]) if "centers" in pvd else None,
     )
+
+
+def build_unet_from_config(cfg) -> PVCNN2Unet:
+    """The backbone of a reference-style config (nested dict), computing
+    in :func:`compute_dtype`."""
+    model_cfg = cfg["model"]
+    pvd = model_cfg["PVD"]
+    extra = pvd.get("extra_feature_channels", model_cfg.get("extra_feature_channels", 0))
     return PVCNN2Unet(
-        plan=plan,
-        input_dim=input_dim,
+        plan=plan_from_config(cfg),
+        input_dim=model_cfg.get("in_dim", 3),
         out_dim=model_cfg.get("out_dim", 3),
         extra_feature_channels=extra,
-        feat_embed_dim=f_embed,
+        feat_embed_dim=pvd.get("feat_embed_dim", extra),
         embed_dim=model_cfg.get("time_embed_dim", 64),
         use_global_embedding=pvd.get("use_global_embedding", False),
         global_embedding_dim=pvd.get("global_embedding_dim", 1024),

@@ -1,1 +1,1 @@
-"""The training step of the port (one device)."""
+"""The training step of the port and its data mesh over torch.distributed."""

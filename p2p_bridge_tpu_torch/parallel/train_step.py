@@ -9,7 +9,8 @@ the gradient (optax ``add_decayed_weights`` before ``adam``), with a
 constant, StepLR (x0.9 every 10,000 steps, staircase) or ExponentialLR
 (per step) rate that gives optax's ``learning_rate(count)`` at update
 number ``count``. bf16 compute keeps f32 parameters and needs no loss
-scaling, as in the JAX package.
+scaling, as in the JAX package. Data parallelism over torch.distributed
+(``mesh``) averages the gradients over the ranks before the clip.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from torch import nn
 
 from ..metrics.emd_auction import align_clean_to_noisy
 from ..utils.ema import EmaState, ema_init, ema_update
+from .mesh import DataMesh
 
 
 def learning_rate_factor(cfg: dict) -> Callable[[int], float]:
@@ -75,13 +77,26 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(tensors))))
 
 
+def all_reduce_mean(grads, loss: torch.Tensor, mesh: DataMesh) -> torch.Tensor:
+    """Average the gradients (in place) and the loss over the ranks with one
+    all-reduce of one flat f32 buffer; returns the averaged loss."""
+    flat = torch.cat([g.reshape(-1) for g in grads] + [loss.float().reshape(1)])
+    mesh.all_reduce_mean_(flat)
+    offset = 0
+    for g in grads:
+        g.copy_(flat[offset:offset + g.numel()].view_as(g))
+        offset += g.numel()
+    return flat[offset]
+
+
 def train_step(bridge, state: TrainState, batch: Dict[str, torch.Tensor],
                generator: Optional[torch.Generator] = None,
                grad_clip: Optional[float] = 1.0, accumulation_steps: int = 1,
                ema_decay: float = 0.999, align_cfg: Optional[dict] = None,
                steps: Optional[torch.Tensor] = None,
                mark: Optional[Callable[[str], None]] = None,
-               return_grads: bool = False) -> Dict[str, torch.Tensor]:
+               return_grads: bool = False,
+               mesh: Optional[DataMesh] = None) -> Dict[str, torch.Tensor]:
     """One update of ``state`` (in place) from ``batch`` = {"x_gt",
     "x_start"[, "x_cond"]}, each [accumulation_steps * B, N, C] on the
     model's device. ``steps`` (the diffusion timesteps of every cloud, in
@@ -91,7 +106,16 @@ def train_step(bridge, state: TrainState, batch: Dict[str, torch.Tensor],
     "param_norm" (after the update)} as 0-d tensors; with
     ``return_grads`` also "grads", {name: a copy of the parameter's
     gradient before the clip}, taken from this step's backward (the
-    update is the same, bit for bit)."""
+    update is the same, bit for bit).
+
+    With a ``mesh`` of W ranks, ``batch`` is this rank's share of the
+    global batch (``mesh.shard_batch``; micro-batch k of every rank makes
+    micro-batch k of the global one), the random draws are the global
+    batch's (``P2PBridge.loss_fn``'s ``rows``), and after the micro-batches
+    one all-reduce of a flat f32 buffer, the gradients in parameter order
+    and then the loss, averages them over the ranks, before the norm and
+    the clip: the step is the global batch's, whatever W, up to the order
+    of the sums. ``steps``, when given, are this rank's."""
     model = state.model
     model.train()
     if align_cfg is not None:
@@ -106,12 +130,13 @@ def train_step(bridge, state: TrainState, batch: Dict[str, torch.Tensor],
     total = batch["x_start"].shape[0]
     micro = total // accumulation_steps
     loss_sum = 0.0
+    rows = None if mesh is None else (mesh.rank * micro, mesh.world_size * micro)
     for k in range(accumulation_steps):
         part = slice(k * micro, (k + 1) * micro)
         loss = bridge.loss_fn(batch["x_gt"][part], batch["x_start"][part],
                               None if batch.get("x_cond") is None else batch["x_cond"][part],
                               generator=generator,
-                              steps=None if steps is None else steps[part])
+                              steps=None if steps is None else steps[part], rows=rows)
         loss.backward()
         loss_sum = loss_sum + loss.detach()
     loss = loss_sum / accumulation_steps
@@ -121,6 +146,8 @@ def train_step(bridge, state: TrainState, batch: Dict[str, torch.Tensor],
     grads = [p.grad for p in params]
     if accumulation_steps > 1:
         torch._foreach_div_(grads, accumulation_steps)
+    if mesh is not None:
+        loss = all_reduce_mean(grads, loss, mesh)
     grad_norm = global_norm(grads)
     raw_grads = None
     if return_grads:

@@ -27,6 +27,7 @@ from scipy.spatial import cKDTree
 
 from .metrics.chamfer import chamfer_distance
 from .ops.fps import bucket_fps
+from .parallel.mesh import shard_batch
 from .runtime import accumulate_running_mean, finalize_running_mean, get_lib
 from .utils.device import resolve_device
 
@@ -142,6 +143,22 @@ def denoise_patch_batch(
     return denoised, chain
 
 
+def gather_patch_batch(mesh, denoised: np.ndarray, chain: Optional[np.ndarray]):
+    """Every rank's share of a patch batch, in rank order: the denoised
+    patches [b, S, 3] and the chain [T, b, S, 3] or the keep masks [b, S]
+    of :func:`denoise_patch_batch`, gathered through the mesh's device."""
+    def gather(a: np.ndarray) -> np.ndarray:
+        wire = np.ascontiguousarray(a.view(np.uint8) if a.dtype == bool else a)
+        out = mesh.all_gather(torch.from_numpy(wire).to(mesh.device)).cpu().numpy()
+        return out.view(bool) if a.dtype == bool else out
+
+    denoised = gather(denoised)
+    if chain is not None:
+        chain = (gather(chain) if chain.dtype == bool
+                 else np.moveaxis(gather(np.moveaxis(chain, 1, 0)), 0, 1))
+    return denoised, chain
+
+
 class RunningMean:
     """Overlap-averaged accumulation over the room, in the native runtime
     (the numpy fallback without a compiler)."""
@@ -208,13 +225,18 @@ def denoise_room(
     the filtered points' room indices out of the overlap average; it turns
     ``return_steps`` off, as in the JAX package. Without
     ``average_predictions`` the denoised patches are FPS-sampled back to N
-    points. ``mesh`` (sharding patch batches over several devices) is not
-    ported: passing one raises. With the bridge on a CUDA device the
-    native host runtime is required: its numpy fallback is for CPU hosts."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharding patch batches over devices (mesh) is not ported: see ROADMAP.md, "
-            "Queue 1, multi-GPU")
+    points. With the bridge on a CUDA device the native host runtime is
+    required: its numpy fallback is for CPU hosts.
+
+    ``mesh`` (a ``parallel.mesh.DataMesh``; every rank calls with the same
+    room and arguments): every rank builds the same patches, samples its
+    ``batch_size / W`` rows of each padded batch on its device, and the
+    predictions (and the chain or the keep masks) are gathered in rank
+    order, so every rank recomposes the same room as one process would.
+    ``batch_size`` must divide over the W ranks."""
+    if mesh is not None and batch_size % mesh.world_size:
+        raise ValueError(f"batch_size {batch_size} must divide over the "
+                         f"{mesh.world_size}-rank mesh")
     if next(bridge.model.parameters()).device.type == "cuda" and get_lib() is None:
         raise RuntimeError("the native host runtime did not build (g++): the room path "
                            "on a CUDA device does not run on the numpy fallback")
@@ -255,12 +277,16 @@ def denoise_room(
         pad = batch_size - len(sel)
         if pad > 0:
             sel = np.concatenate([sel, np.full(pad, sel[-1])])
+        if mesh is not None:
+            sel = shard_batch(sel, mesh)
         d, chain = denoise_patch_batch(
             bridge, xyz[sel], steps,
             rgb[sel] if rgb is not None else None,
             feats[sel] if feats is not None else None,
             use_rgb, use_feat, return_steps, filtering=filter_outliers,
         )
+        if mesh is not None:
+            d, chain = gather_patch_batch(mesh, d, chain)
         valid = e - s
         if filter_outliers:
             # chain holds the keep mask; subset each patch's room indices

@@ -7,7 +7,19 @@ train.py's loop).
       --save_dir runs/ --data.data_dir <batches> --data.splits_path <splits>
 
 The flags are those of the root train.py (``utils/args.py``) plus
-``--device`` (default cuda). The merged configuration is written as
+``--device`` (default cuda).
+
+Data parallel on N cards of one host, one process a card (NCCL):
+
+  torchrun --nproc_per_node N -m p2p_bridge_tpu_torch.train \
+      --config configs/PVDS_PUNet.yaml --save_dir runs/ [--dist_backend nccl|gloo]
+
+``training.bs`` stays the global batch: each rank loads ``bs / N`` rows
+(its shard of the data), the random draws are the global batch's and the
+gradients are averaged over the ranks before the clip
+(``parallel/train_step.py``, ``parallel/mesh.py``). Rank 0 alone logs,
+evaluates, writes ``metrics.jsonl`` and saves the checkpoint; the others
+wait for it at a barrier. The merged configuration is written as
 ``opt.yaml`` into ``<save_dir>/<name>/`` and the checkpoint, a
 ``torch.save`` dict that ``denoise_object`` and ``denoise_room`` read, as
 ``model.pt`` beside it, every ``training.save_interval`` steps and at the
@@ -50,6 +62,8 @@ from .models.evaluation import evaluate
 from .models.model_loader import restore_checkpoint, save_checkpoint
 from .models.p2pb import P2PBridge
 from .models.unet_pvc import build_unet_from_config, init_parameters
+from .parallel.mesh import (DataMesh, default_backend, initialize_distributed,
+                            make_data_mesh, replicated)
 from .parallel.train_step import init_train_state, train_step
 from .utils.args import parse_args, setup_output_subdirs
 from .utils.logging import ExperimentTracker
@@ -72,27 +86,36 @@ def _profiler(device: torch.device):
     return profile(activities=activities)
 
 
-def train(cfg: dict, device="cuda", observer: Optional[Observer] = None):
+def train(cfg: dict, device="cuda", observer: Optional[Observer] = None,
+          mesh: Optional[DataMesh] = None):
     """Run ``cfg["training"]["steps"]`` steps (from the checkpoint's step
     when ``cfg["model_path"]`` names one) and return the TrainState.
     Checkpoints go to ``cfg["output_dir"]``. ``observer(step, event,
     metrics)``, when given, is called with "begin" before each step's batch
     is drawn, "batch" once it is on the device, each phase of the step
     ("align", "forward_backward", "update") as it has been issued, and "end"
-    with the step's metrics."""
+    with the step's metrics. With a ``mesh`` over a process group this
+    process is one rank of a data-parallel run of the global batch
+    ``training.bs``, which must divide by the world size."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device cuda, but no CUDA device is available")
+    mesh = mesh or DataMesh(0, 1, device)
     training = cfg["training"]
+    if training["bs"] % mesh.world_size:
+        raise ValueError(f"training.bs {training['bs']} does not divide over "
+                         f"{mesh.world_size} ranks")
     seed = training.get("seed", 42)
     np.random.seed(seed)
-    torch.manual_seed(seed)  # dropout
-    generator = torch.Generator(device).manual_seed(seed)  # timesteps, noise
+    torch.manual_seed(seed + mesh.rank)  # dropout: each rank its own masks
+    generator = torch.Generator(device).manual_seed(seed)  # timesteps, noise: the global batch's
     output_dir = cfg["output_dir"]
     os.makedirs(output_dir, exist_ok=True)
     (outf_syn,) = setup_output_subdirs(output_dir, "output")
 
-    train_loader, val_loader = get_dataloader(cfg)
+    shard_cfg = dict(cfg, training=dict(training, bs=training["bs"] // mesh.world_size))
+    train_loader, val_loader = get_dataloader(shard_cfg, num_shards=mesh.world_size,
+                                              shard_index=mesh.rank)
     model = build_unet_from_config(cfg)
     init_parameters(model, torch.Generator().manual_seed(seed))
     model.to(device)
@@ -104,6 +127,8 @@ def train(cfg: dict, device="cuda", observer: Optional[Observer] = None):
     if cfg.get("model_path"):
         restore_checkpoint(cfg["model_path"], state, restart=cfg.get("restart", False))
         logger.info("Resumed from step %d", state.step)
+    replicated(state, mesh)
+    step_mesh = mesh if mesh.backend is not None else None
 
     align_cfg = {"eps": 0.01, "iters": 100} if cfg["data"]["dataset"] == "PUNet" else None
     clip_cfg = training.get("grad_clip") or {}
@@ -115,9 +140,11 @@ def train(cfg: dict, device="cuda", observer: Optional[Observer] = None):
     viz_interval = training.get("viz_interval", 10000)
     watch_interval = training.get("watch_interval", 2000)
     watch_gradients = training.get("watch_gradients", False)
-    profile_dir = cfg.get("profile_dir")
-    tracker = ExperimentTracker(output_dir, project=cfg.get("wandb_project", "P2P-Bridge"),
-                                config=cfg, use_wandb=cfg.get("use_wandb", True))
+    profile_dir = cfg.get("profile_dir") if mesh.is_main else None
+    tracker = None
+    if mesh.is_main:
+        tracker = ExperimentTracker(output_dir, project=cfg.get("wandb_project", "P2P-Bridge"),
+                                    config=cfg, use_wandb=cfg.get("use_wandb", True))
 
     train_iter = save_iter(train_loader)
     start_step = state.step
@@ -145,10 +172,11 @@ def train(cfg: dict, device="cuda", observer: Optional[Observer] = None):
             metrics = train_step(bridge, state, batch, generator, grad_clip=grad_clip,
                                  accumulation_steps=accum, ema_decay=ema_decay,
                                  align_cfg=align_cfg, mark=mark,
-                                 return_grads=is_watch_step and watch_gradients)
+                                 return_grads=is_watch_step and watch_gradients,
+                                 mesh=step_mesh)
             if observer:
                 observer(step, "end", metrics)
-            if step % log_interval == 0:
+            if step % log_interval == 0 and mesh.is_main:
                 loss = float(metrics["loss"])
                 dt = time.perf_counter() - t_last
                 t_last = time.perf_counter()
@@ -162,20 +190,27 @@ def train(cfg: dict, device="cuda", observer: Optional[Observer] = None):
                             log_interval, pool_note)
                 tracker.log({"loss": loss, "netpNorm": float(metrics["param_norm"]),
                              "netgradNorm": float(metrics["grad_norm"])}, step)
-            if is_watch_step:
+            if is_watch_step and mesh.is_main:
                 tracker.log_histograms(model, step + 1, prefix="param")
                 if "grads" in metrics:
                     tracker.log_histograms(metrics["grads"], step + 1, prefix="grad")
             if (step + 1) % save_interval == 0:
-                save_checkpoint(output_dir, state)
-                logger.info("Saved checkpoint to %s", output_dir)
+                if mesh.is_main:
+                    save_checkpoint(output_dir, state)
+                    logger.info("Saved checkpoint to %s", output_dir)
+                mesh.barrier()
             if (step + 1) % viz_interval == 0:
-                try:
-                    evaluate(bridge, val_loader, cfg, step + 1, out_dir=outf_syn, tracker=tracker,
-                             ema_params=state.ema.params if (state.ema is not None
-                                                             and cfg.get("use_ema")) else None)
-                except Exception as e:  # the evaluation must never stop training
-                    logger.warning("Could not evaluate model. Skipping. (%s)", e, exc_info=True)
+                if mesh.is_main:
+                    try:
+                        evaluate(bridge, val_loader, cfg, step + 1, out_dir=outf_syn,
+                                 tracker=tracker,
+                                 ema_params=state.ema.params if (state.ema is not None
+                                                                 and cfg.get("use_ema"))
+                                 else None)
+                    except Exception as e:  # the evaluation must never stop training
+                        logger.warning("Could not evaluate model. Skipping. (%s)", e,
+                                       exc_info=True)
+                mesh.barrier()
     finally:
         if prof is not None:
             prof.stop()
@@ -184,9 +219,12 @@ def train(cfg: dict, device="cuda", observer: Optional[Observer] = None):
 
     final = training["steps"]
     if final > start_step and final % save_interval != 0:
-        save_checkpoint(output_dir, state)
-        logger.info("Saved final checkpoint to %s", output_dir)
-    tracker.finish()
+        if mesh.is_main:
+            save_checkpoint(output_dir, state)
+            logger.info("Saved final checkpoint to %s", output_dir)
+        mesh.barrier()
+    if tracker is not None:
+        tracker.finish()
     return state
 
 
@@ -210,9 +248,18 @@ def main(argv=None):
                                help="torch device, e.g. cuda or cpu.")
     known, rest = device_parser.parse_known_args(argv)
     cfg = parse_args(rest)
-    write_run_config(cfg)
-    logger.info("Training with config %s on %s", cfg.get("config"), known.device)
-    return train(cfg, known.device)
+    cfg["dist_backend"] = cfg.get("dist_backend") or default_backend(known.device)
+    initialize_distributed(cfg["dist_backend"], known.device)
+    mesh = make_data_mesh(known.device)
+    try:
+        if mesh.is_main:
+            write_run_config(cfg)
+        logger.info("Training with config %s on %s (rank %d of %d)", cfg.get("config"),
+                    mesh.device, mesh.rank, mesh.world_size)
+        return train(cfg, mesh.device, mesh=mesh)
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -3,9 +3,11 @@ plain nested dicts; tests hold the two equal).
 
 The reference's surface: --config, --name, --save_dir, --model_path,
 --restart, --use_ema, free-form --a.b.c overrides, and the derived
-``output_dir`` / ``out_sampling``. The distributed flags are accepted for
-CLI parity. YAML is read through :mod:`.config`, which imports it inside
-its functions.
+``output_dir`` / ``out_sampling``. Of the distributed flags only
+``--dist_backend`` acts (torchrun's environment sets the ranks; the rest
+are recorded for CLI parity), and it defaults to the port's backend, not
+the JAX package's "xla". YAML is read through :mod:`.config`, which
+imports it inside its functions.
 """
 
 from __future__ import annotations
@@ -26,13 +28,20 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--wandb_entity", type=str, default="", help="wandb entity name")
     parser.add_argument("--model_path", type=str, default="", help="path to model (to continue training)")
     parser.add_argument("--restart", action="store_true", help="restart training from scratch")
-    # distributed flags (CLI parity)
-    parser.add_argument("--world_size", default=1, type=int, help="Number of distributed hosts.")
-    parser.add_argument("--master_address", default="localhost", type=str)
-    parser.add_argument("--master_port", default="6021", type=str)
-    parser.add_argument("--dist_backend", default="xla", type=str)
-    parser.add_argument("--distribution_type", default="single", choices=["multi", "single", None])
-    parser.add_argument("--node_rank", default=0, type=int)
+    # distributed flags: torchrun's environment sets the ranks (parallel/mesh.py)
+    parser.add_argument("--world_size", default=1, type=int,
+                        help="Recorded for parity; torchrun's WORLD_SIZE sets the ranks.")
+    parser.add_argument("--master_address", default="localhost", type=str,
+                        help="Recorded for parity; torchrun's MASTER_ADDR is the rendezvous.")
+    parser.add_argument("--master_port", default="6021", type=str,
+                        help="Recorded for parity; torchrun's MASTER_PORT is the rendezvous.")
+    parser.add_argument("--dist_backend", default=None, type=str,
+                        help="torch.distributed backend of a torchrun launch: nccl when "
+                             "--device is cuda, gloo on the CPU, by default.")
+    parser.add_argument("--distribution_type", default="single", choices=["multi", "single", None],
+                        help="Recorded for parity; torchrun's launch decides.")
+    parser.add_argument("--node_rank", default=0, type=int,
+                        help="Recorded for parity; torchrun's RANK sets the rank.")
     parser.add_argument("--use_ema", action="store_true", default=False,
                         help="Use exponential moving average of model parameters.")
     return parser

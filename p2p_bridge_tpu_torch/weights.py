@@ -30,7 +30,9 @@ import torch
 from torch import nn
 
 Path = Tuple[str, ...]
-_LEAF_TO_TORCH = {"kernel": "weight", "scale": "weight", "bias": "bias"}
+# leaf name -> torch parameter name; full attention's qk_norm gains keep theirs
+_LEAF_TO_TORCH = {"kernel": "weight", "scale": "weight", "bias": "bias",
+                  "q_gamma": "q_gamma", "k_gamma": "k_gamma"}
 
 
 def _torch_key(flax_path, conv_counts) -> str:
@@ -57,7 +59,8 @@ def _torch_key(flax_path, conv_counts) -> str:
             return f"{base}.0"
         return f"{base}.1.group_norm"
     if top == "global_att":
-        return f"global_att.{rest[0]}"
+        # its Dense layers, or the module itself for the qk_norm gains
+        return f"global_att.{rest[0]}" if rest else "global_att"
     if top == "classifier_mlp":
         if rest[0].startswith("Dense"):
             return "classifier.0.layers.0"

@@ -318,7 +318,10 @@ def test_train_args_equal_the_original(tmp_path, argv):
             .replace("SAVE", str(tmp_path / "save")) for a in argv]
     got = port_args.parse_args(list(argv))
     want = jax_args.parse_args(list(argv)).to_dict()
-    assert got == want
+    # one flag differs by design: the port's backend is torch.distributed's,
+    # chosen from the device when not given (parallel/mesh.default_backend)
+    assert want["dist_backend"] == "xla" and got["dist_backend"] is None
+    assert got == dict(want, dist_backend=None)
     assert os.path.isdir(got["output_dir"])
     assert port_args.setup_output_subdirs(got["output_dir"], "a", "b") == \
         jax_args.setup_output_subdirs(got["output_dir"], "a", "b")

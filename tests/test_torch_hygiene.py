@@ -49,7 +49,10 @@ MAIN_PATH = [
     "p2p_bridge_tpu_torch.data.scannetpp", "p2p_bridge_tpu_torch.data.arkitscenes",
     "p2p_bridge_tpu_torch.data.preprocess", "p2p_bridge_tpu_torch.data.rgbd_fusion",
     "p2p_bridge_tpu_torch.data.image_features", "p2p_bridge_tpu_torch.preprocess_batches",
-    "p2p_bridge_tpu_torch.extract_image_features", "chip_smoke",
+    "p2p_bridge_tpu_torch.extract_image_features",
+    # full attention, the bench and data parallelism
+    "p2p_bridge_tpu_torch.parallel.mesh", "p2p_bridge_tpu_torch.utils.flops",
+    "p2p_bridge_tpu_torch.bench", "chip_smoke",
 ]
 PORT_SOURCES = sorted((ROOT / "p2p_bridge_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "profile_denoise.py", ROOT / "profile_scatter.py"]

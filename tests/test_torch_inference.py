@@ -131,6 +131,26 @@ def test_intermediate_steps_shape(bridges):
         patch_based_denoise_batch(tb, pcls, patch_size=256, recombine_mode="nearest")
 
 
+@pytest.mark.parametrize("mode", ["exact", "bucketed"])
+def test_as_numpy_false_returns_the_same_clouds_as_a_tensor(mode):
+    """as_numpy=False (the pipelined form): the denoised clouds as a
+    tensor on the model's device, equal to the default call's array, and
+    the chain as numpy, as the JAX package returns them (a TINY port
+    model, no JAX side)."""
+    cfg = tiny(True)
+    model = build_unet_from_config(cfg).eval()
+    init_parameters(model, torch.Generator().manual_seed(0))
+    tb = P2PBridge.from_config(cfg, model)
+    pcls = noisy_sphere(1, 512)[None]
+    kw = dict(patch_size=256, steps=2, save_intermediate=True, recombine_mode=mode)
+    want, want_chain = patch_based_denoise_batch(tb, pcls, **kw)
+    got, chain = patch_based_denoise_batch(tb, pcls, as_numpy=False, **kw)
+    assert isinstance(got, torch.Tensor) and got.device == torch.device("cpu")
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert isinstance(chain, np.ndarray)
+    np.testing.assert_array_equal(chain, want_chain)
+
+
 @pytest.mark.parametrize("weights", ["npz", "pt"])
 def test_denoise_object_cli_on_cpu(tmp_path, weights):
     """The CLI loads opt.yaml + weights (JAX .npz or a reference-named torch

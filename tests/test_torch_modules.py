@@ -16,6 +16,7 @@ from p2p_bridge_tpu.models import pvcnn as jp
 from p2p_bridge_tpu.utils.torch_compat import _norm_key, _pvconv_key, _shared_mlp_key
 from p2p_bridge_tpu_torch.models import modules as tm
 from p2p_bridge_tpu_torch.models import pvcnn as tp
+from p2p_bridge_tpu_torch import weights
 from p2p_bridge_tpu_torch.weights import _to_torch_layout, flatten_params
 
 TOL = 1e-5
@@ -202,9 +203,37 @@ def test_sa_and_fp_modules_match_jax():
     close(got, apply(fm, params, *args))
 
 
-def test_flash_attention_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        tm.Attention(32, heads=2)
+def load_attention(params, **kw):
+    """The port's Attention holding flax ``params``, through the key map of
+    p2p_bridge_tpu_torch.weights (the gains keep their names and layout)."""
+    sd = {}
+    for path, leaf in flatten_params(params).items():
+        key = f"{weights._torch_key(('global_att',) + path[:-1], {})}." \
+              f"{weights._LEAF_TO_TORCH[path[-1]]}"
+        sd[key.removeprefix("global_att.")] = torch.tensor(_to_torch_layout(leaf, path[-1]))
+    port = tm.Attention(32, heads=2, **kw)
+    port.load_state_dict(sd, strict=True)
+    return port.eval()
+
+
+@pytest.mark.parametrize("qk_norm", [False, True], ids=["plain", "qk_norm"])
+def test_attention_matches_jax(qk_norm):
+    """f32 input; with qk_norm the gains are drawn away from their ones."""
+    x = arr(2, 50, 32)
+    fm = jm.Attention(dim=32, heads=2, qk_norm=qk_norm)
+    params = init(fm, x)
+    if qk_norm:
+        params["q_gamma"] = 1 + arr(2, 1, 32, seed=3, scale=0.3)
+        params["k_gamma"] = 1 + arr(2, 1, 32, seed=4, scale=0.3)
+    port = load_attention(params, qk_norm=qk_norm)
+    assert sorted(dict(port.named_parameters())) == sorted(
+        ["to_q.weight", "to_kv.weight", "to_out.weight"]
+        + (["q_gamma", "k_gamma"] if qk_norm else []))
+    with torch.no_grad():
+        got = port(torch.from_numpy(x))
+    want = apply(fm, params, x)
+    assert got.dtype == torch.float32 and want.dtype == np.float32
+    close(got, want)
 
 
 # ---------------------------------------------------------------- bf16
@@ -300,6 +329,23 @@ def test_se_and_linear_attention_bf16_match_jax():
     port = load(tm.LinearAttention(32, heads=2, dtype=BF16), params, lambda p: p[0])
     with torch.no_grad():
         close_bf16(port(torch.from_numpy(x).bfloat16()), apply(fm, params, jbf16(x)))
+
+
+@pytest.mark.parametrize("qk_norm", [False, True], ids=["plain", "qk_norm"])
+def test_attention_takes_bf16_and_computes_in_f32_as_jax(qk_norm):
+    """A bf16 input (the bf16 model's bottleneck): flax promotes it with
+    the f32 parameters, so both compute in f32, round the heads' output to
+    bf16 once before ``to_out`` and return f32. Held to the f32 tolerance:
+    a port that skipped that rounding would miss it by 2^-9 of the value."""
+    x = bf16_arr(2, 50, 32)
+    fm = jm.Attention(dim=32, heads=2, qk_norm=qk_norm)
+    params = init(fm, x)
+    port = load_attention(params, qk_norm=qk_norm)
+    with torch.no_grad():
+        got = port(torch.from_numpy(x).bfloat16())
+    want = apply(fm, params, jbf16(x))
+    assert got.dtype == torch.float32 and want.dtype == np.float32
+    close(got, want)
 
 
 def test_pnet2stage_bf16_matches_jax():

@@ -37,6 +37,7 @@ from p2p_bridge_tpu_torch import denoise_room as room_cli
 from p2p_bridge_tpu_torch import rooms
 from p2p_bridge_tpu_torch.models.p2pb import P2PBridge
 from p2p_bridge_tpu_torch.models.unet_pvc import build_unet_from_config, init_parameters
+from p2p_bridge_tpu_torch.parallel.mesh import DataMesh
 from p2p_bridge_tpu_torch.utils.io import read_ply, write_ply
 from p2p_bridge_tpu_torch.weights import load_jax_params
 
@@ -313,9 +314,11 @@ def jax_denoised_patches(fb, variables, pts, feats):
     return np.concatenate(out)
 
 
-def test_denoise_room_pads_the_last_batch_and_refuses_a_mesh(bridges, monkeypatch):
+def test_denoise_room_pads_the_last_batch_and_needs_a_mesh_that_divides_it(bridges,
+                                                                          monkeypatch):
     """Every batch the sampler sees has batch_size patches (the last one
-    padded with repeats), as in the JAX package; a mesh raises."""
+    padded with repeats), as in the JAX package; a mesh whose ranks do not
+    divide batch_size raises, as the JAX package's does."""
     _, _, tb, _ = bridges
     pts, _, feats = synthetic_room(10, 1500)
     shapes = []
@@ -328,8 +331,9 @@ def test_denoise_room_pads_the_last_batch_and_refuses_a_mesh(bridges, monkeypatc
     monkeypatch.setattr(tb, "sample", spy)
     rooms.denoise_room(tb, pts, **room_kwargs(room_features=feats))
     assert shapes and set(shapes) == {((BATCH, PATCH, 3), (BATCH, PATCH, FEATS))}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rooms.denoise_room(tb, pts, mesh=object(), **room_kwargs())
+    with pytest.raises(ValueError, match="divide"):
+        rooms.denoise_room(tb, pts, mesh=DataMesh(0, 3, torch.device("cpu"), "gloo"),
+                           **room_kwargs())
 
 
 
@@ -395,8 +399,6 @@ def test_denoise_room_cli_on_cpu(scene, bridges):
 def test_denoise_room_cli_refusals(scene, monkeypatch):
     scene_dir, run = scene
     room = str(scene_dir / "scans" / "iphone.ply")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        room_cli.main(["--room_path", room, "--model_path", str(run), "--shard_patches"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         room_cli.main(["--room_path", room, "--model_path", str(run)])

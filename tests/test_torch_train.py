@@ -137,30 +137,37 @@ def test_three_train_steps_match_jax(tiny_pair):
         jstate, m = step(jstate, key, {n: jnp.asarray(v) for n, v in batch.items()})
         got = pts.train_step(bridge, state, {n: torch.tensor(v) for n, v in batch.items()},
                              grad_clip=1.0, align_cfg=ALIGN, steps=torch.tensor(steps))
-        for name in ("loss", "grad_norm", "param_norm"):
-            np.testing.assert_allclose(float(got[name]), float(m[name]), rtol=STEP_REL,
-                                       err_msg=f"step {k} {name}")
-        clip = min(1.0, 1.0 / (float(m["grad_norm"]) + 1e-6))
-        want_g = {n: g * clip for n, g in jax_tree(m["grads"], tmodel).items()}
-        got_g = port_tree({n: p.grad for n, p in tmodel.named_parameters()}, tmodel)
-        scale = max(np.abs(g).max() for g in want_g.values())
-        for n, g in want_g.items():
-            np.testing.assert_allclose(got_g[n], g, atol=GRAD_TOL * scale, err_msg=n)
-        adam = jstate.opt_state[0]
-        for moment, tree in (("exp_avg", adam.mu), ("exp_avg_sq", adam.nu)):
-            want = jax_tree(tree, tmodel)
-            got_m = port_tree({n: state.optimizer.state[p][moment]
-                               for n, p in tmodel.named_parameters()}, tmodel)
-            mscale = max(np.abs(v).max() for v in want.values())
-            for n, v in want.items():
-                np.testing.assert_allclose(got_m[n], v, atol=2 * GRAD_TOL * mscale,
-                                           err_msg=f"{moment} {n}")
-        assert state.step == int(jstate.step) == k + 1
-        assert_same_update(port_tree(dict(tmodel.named_parameters()), tmodel),
-                           jax_tree(jstate.params, tmodel), want_g, "params")
-        assert state.ema.step == int(jstate.ema.step)
-        assert_same_update(port_tree(state.ema.params, tmodel), jax_tree(jstate.ema.params, tmodel),
-                           want_g, "ema")
+        assert_step_matches(got, m, jstate, state, tmodel, k)
+
+
+def assert_step_matches(got, m, jstate, state, tmodel, k):
+    """The port's step ``k`` (its metrics ``got`` and ``state``) against
+    the JAX step's (``m``, ``jstate``) from the same state: loss and
+    norms, the clipped gradients, Adam's moments, the parameters, the EMA."""
+    for name in ("loss", "grad_norm", "param_norm"):
+        np.testing.assert_allclose(float(got[name]), float(m[name]), rtol=STEP_REL,
+                                   err_msg=f"step {k} {name}")
+    clip = min(1.0, 1.0 / (float(m["grad_norm"]) + 1e-6))
+    want_g = {n: g * clip for n, g in jax_tree(m["grads"], tmodel).items()}
+    got_g = port_tree({n: p.grad for n, p in tmodel.named_parameters()}, tmodel)
+    scale = max(np.abs(g).max() for g in want_g.values())
+    for n, g in want_g.items():
+        np.testing.assert_allclose(got_g[n], g, atol=GRAD_TOL * scale, err_msg=n)
+    adam = jstate.opt_state[0]
+    for moment, tree in (("exp_avg", adam.mu), ("exp_avg_sq", adam.nu)):
+        want = jax_tree(tree, tmodel)
+        got_m = port_tree({n: state.optimizer.state[p][moment]
+                           for n, p in tmodel.named_parameters()}, tmodel)
+        mscale = max(np.abs(v).max() for v in want.values())
+        for n, v in want.items():
+            np.testing.assert_allclose(got_m[n], v, atol=2 * GRAD_TOL * mscale,
+                                       err_msg=f"{moment} {n}")
+    assert state.step == int(jstate.step) == k + 1
+    assert_same_update(port_tree(dict(tmodel.named_parameters()), tmodel),
+                       jax_tree(jstate.params, tmodel), want_g, "params")
+    assert state.ema.step == int(jstate.ema.step)
+    assert_same_update(port_tree(state.ema.params, tmodel), jax_tree(jstate.ema.params, tmodel),
+                       want_g, "ema")
 
 
 class JaxLinear:
