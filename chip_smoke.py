@@ -154,7 +154,7 @@ Phases, in order; any failure raises and the process exits non-zero:
      through denoise_room's loader with and without the EMA, its forward
      bit-equal to the trained model's, and python -m
      p2p_bridge_tpu_torch.denoise_room with that run on the val scan.
- 11. full attention, the bench, data parallelism (run last): PVDS_PUNet
+ 11. full attention, the bench, data parallelism (after phase 9): PVDS_PUNet
      at full width with attention_type "flash" (bf16 and an f32 twin; the
      attention's parameters f32): the f32 forward card vs CPU at B = 1, the
      bf16 forward against it, two bf16 forwards at B = 73 bit-equal, a 50k
@@ -175,12 +175,24 @@ Phases, in order; any failure raises and the process exits non-zero:
      torch.distributed.run --nproc_per_node 2 -m p2p_bridge_tpu_torch.train
      on phase 7's tree (gloo, both ranks on card 0): finite losses, one
      checkpoint, saved by rank 0.
+ 12. a training run carried through the file export_jax_checkpoint.py
+     writes for a JAX run (run last): phase 7's trained PVDS_PUNet
+     (model.pt, 31 steps) written in that layout (the weights, the EMA,
+     Adam's moments and counts in flax names and layouts, about 423 MB) and
+     opt.yaml beside it, imported on the card bit-equal in parameters, EMA,
+     moments, Adam's step tensors, rate and counts; ``train`` resumed for 3
+     steps (exact epochs) from the file, with the launch counts set to 0
+     before and read after (every training kernel launched), and from
+     model.pt: parameters and moments bit-equal, the file's EMA equal to
+     its parameters (the copy phase its restarted count gives); python -m
+     p2p_bridge_tpu_torch.denoise_object with the file (--use_ema) on a
+     10,000-point cloud, finite, of the input's shape.
 The line before the last is a JSON object with each kernel's launches,
 errors, times (back to back, device, host per call) and bounds; the last
 line is {"ok": true, "device": {...}}. Phase 10's figures are under
 "room_train" on the line before the last, and each kernel's launches in a
 room training step under "bf16 room train step" in its launches_by_path;
-phase 11's under "phase11".
+phase 11's under "phase11", phase 12's under "phase12".
 """
 
 from __future__ import annotations
@@ -218,7 +230,9 @@ from p2p_bridge_tpu_torch.metrics import emd_auction
 from p2p_bridge_tpu_torch.metrics.chamfer import chamfer_distance_large
 from p2p_bridge_tpu_torch.metrics.emd_auction import align_clean_to_noisy
 from p2p_bridge_tpu_torch.models import evaluation as object_evaluation
-from p2p_bridge_tpu_torch.models.model_loader import save_checkpoint
+from p2p_bridge_tpu_torch.models.model_loader import (jax_checkpoint_arrays, restore_checkpoint,
+                                                      restore_jax_checkpoint, save_checkpoint,
+                                                      save_jax_checkpoint)
 from p2p_bridge_tpu_torch.models.p2pb import P2PBridge
 from p2p_bridge_tpu_torch.models.unet_pvc import build_unet_from_config, init_parameters
 from p2p_bridge_tpu_torch.parallel.mesh import (initialize_distributed, make_data_mesh,
@@ -3466,6 +3480,142 @@ def phase11(dev, root: Path) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 12
+RESUME_STEPS = 3  # steps resumed from phase 7's step 31
+
+
+def resume_config(cfg: dict, out_dir: Path, model_path: str) -> dict:
+    """Phase 7's configuration resumed from ``model_path`` for RESUME_STEPS
+    steps into ``out_dir``, in exact epochs (the same batches in every
+    run), without the evaluation, the watch step and the profile."""
+    cfg = copy.deepcopy(cfg)
+    cfg.pop("profile_dir", None)
+    cfg["model_path"] = model_path
+    cfg["output_dir"] = str(out_dir)
+    cfg["data"]["loader"] = "epoch"
+    cfg["training"].update(steps=TRAIN_STEPS + RESUME_STEPS, viz_interval=10 ** 9,
+                           watch_interval=0, save_interval=10 ** 9)
+    return cfg
+
+
+def state_differences(a, b) -> dict:
+    """Which parts of two TrainStates differ in any bit: parameters, EMA,
+    each Adam state entry (its dtype and device too), the rate, the
+    schedule's count, the step."""
+    out = {"params": [], "ema": [], "adam": []}
+    for (name, p), q in zip(a.model.named_parameters(), b.model.parameters(), strict=True):
+        if not torch.equal(p, q):
+            out["params"].append(name)
+        if a.ema is not None and not torch.equal(a.ema.params[name], b.ema.params[name]):
+            out["ema"].append(name)
+        sa, sb = a.optimizer.state.get(p, {}), b.optimizer.state.get(q, {})
+        if sa.keys() != sb.keys() or any(
+                not torch.equal(sa[k], sb[k].to(sa[k].device)) or sa[k].dtype != sb[k].dtype
+                or sa[k].device != sb[k].device for k in sa):
+            out["adam"].append(name)
+    out["lr"] = a.optimizer.param_groups[0]["lr"] != b.optimizer.param_groups[0]["lr"]
+    out["schedule"] = a.schedule.last_epoch != b.schedule.last_epoch
+    out["step"] = a.step != b.step
+    return {k: v for k, v in out.items() if v}
+
+
+def trained_state(cfg: dict, path: Path, dev):
+    """A TrainState of ``cfg`` on the card restored from the port's
+    checkpoint ``path``."""
+    model = build_unet_from_config(cfg).to(dev)
+    return restore_checkpoint(str(path), init_train_state(model, cfg))
+
+
+def denoise_exported(npz: Path, root: Path) -> dict:
+    """python -m p2p_bridge_tpu_torch.denoise_object with the exported file
+    (--use_ema, 5 steps, exact recombination) on a 10,000-point cloud."""
+    cloud = surface_cloud(np.random.default_rng(12), 10_000)
+    src = root / "cloud.xyz"
+    np.savetxt(src, cloud, fmt="%.6f")
+    t0 = time.perf_counter()
+    out = denoise_object.main(["--data_path", str(src), "--model_path", str(npz), "--use_ema",
+                               "--steps", "5", "--device", "cuda"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    got = read_xyz(out)
+    if got.shape != cloud.shape or not np.isfinite(got).all():
+        raise AssertionError(f"denoise_object from {npz.name}: shape {got.shape}, finite "
+                             f"{bool(np.isfinite(got).all())}")
+    log(f"denoise_object --model_path {npz.name} --use_ema: {got.shape[0]} points, finite, "
+        f"{seconds:.1f} s")
+    return {"points": int(got.shape[0]), "finite": True, "s": seconds}
+
+
+def resumed_from_export(dev, root: Path) -> dict:
+    """Phase 12: phase 7's trained PVDS_PUNet (model.pt, 31 steps) written
+    in the layout export_jax_checkpoint.py writes for a JAX run, imported on
+    the card bit-equal, resumed for RESUME_STEPS steps through ``train``
+    from that file and from model.pt (parameters and moments bit-equal, the
+    file's EMA in its copy phase), and read by denoise_object."""
+    t_phase = time.perf_counter()
+    cfg = train_config(root / "data", root / "run")
+    pt = root / "run" / "model.pt"
+    work = root / "resume"
+    work.mkdir()
+    npz = work / "run.npz"
+    trained = trained_state(cfg, pt, dev)
+    t0 = time.perf_counter()
+    arrays = jax_checkpoint_arrays(trained, cfg)
+    save_jax_checkpoint(str(npz), arrays)
+    write_run_config(dict(cfg, output_dir=str(work)))
+    write_s = time.perf_counter() - t0
+    values = sum(int(a.size) for a in arrays.values() if a.dtype == np.float32)
+    t0 = time.perf_counter()
+    imported = init_train_state(build_unet_from_config(cfg).to(dev), cfg)
+    restore_jax_checkpoint(str(npz), imported)
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t0
+    differ = state_differences(trained, imported)
+    if differ or imported.step != TRAIN_STEPS or imported.ema.step != 0:
+        raise AssertionError(f"import of {npz.name} differs from the written state: {differ}, "
+                             f"step {imported.step}, EMA count {imported.ema.step}")
+    log(f"phase 12: phase 7's state (step {trained.step}) written as {npz.name}: "
+        f"{len(arrays)} arrays, {values:,} f32 values, {npz.stat().st_size / 1e6:.1f} MB in "
+        f"{write_s:.1f} s; imported on the card in {import_s:.1f} s, bit-equal in parameters, "
+        f"EMA, exp_avg, exp_avg_sq, Adam's step tensors, rate and counts (EMA count restarted)")
+    del trained, imported
+    torch.cuda.empty_cache()
+
+    resumed, launches, seconds = {}, None, {}
+    for name, path in (("npz", npz), ("model.pt", pt)):
+        rcfg = resume_config(cfg, work / name.replace(".", "_"), str(path))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if name == "npz":
+            kernels.reset_launch_counts()
+        resumed[name] = train(rcfg, dev)
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        if name == "npz":
+            launches = dict(kernels.launch_counts)
+    a, b = resumed["npz"], resumed["model.pt"]
+    differ = state_differences(a, b)
+    ema_is_params = all(torch.equal(a.ema.params[n], p) for n, p in a.model.named_parameters())
+    idle = [k for k in TRAINING if launches.get(k, 0) == 0]
+    if set(differ) - {"ema"} or not ema_is_params or idle or a.step != b.step:
+        raise AssertionError(f"resumed runs: differ in {sorted(differ)}, the file's EMA equal to "
+                             f"its parameters {ema_is_params}, kernels not launched {idle}")
+    log(f"phase 12: {RESUME_STEPS} steps resumed through train from {npz.name} "
+        f"({seconds['npz']:.1f} s) and from model.pt ({seconds['model.pt']:.1f} s): parameters, "
+        f"exp_avg, exp_avg_sq bit-equal; the file's EMA equals its parameters (count "
+        f"{a.ema.step}, copy phase), model.pt's EMA count {b.ema.step}; launches {launches}")
+    del resumed, a, b
+    torch.cuda.empty_cache()
+    denoised = denoise_exported(npz, work)
+    out = {"arrays": len(arrays), "f32_values": values, "file_bytes": npz.stat().st_size,
+           "write_s": write_s, "import_s": import_s, "import_bit_equal": True,
+           "resume_s": seconds, "resumed_bit_equal": ["params", "exp_avg", "exp_avg_sq", "step"],
+           "ema_copy_phase": True, "launches": launches, "denoise": denoised,
+           "seconds": time.perf_counter() - t_phase}
+    log(f"phase 12: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> None:
     require_card()
     dev = torch.device("cuda", 0)
@@ -3494,6 +3644,8 @@ def main() -> None:
         torch.cuda.empty_cache()
         (Path(work) / "dist").mkdir()
         last = phase11(dev, Path(work))
+        torch.cuda.empty_cache()
+        carried = resumed_from_export(dev, Path(work))
 
     entries = []
     for name, (src, replaces) in KERNELS.items():
@@ -3504,6 +3656,8 @@ def main() -> None:
         by_path["bf16 train step"] = train_launches[name]
         by_path["bf16 room"] = room_run["launches"].get(name, 0)
         by_path["bf16 room train step"] = room_train["run"]["launches"].get(name, 0)
+        by_path[f"bf16 train, {RESUME_STEPS} steps resumed from the exported file"] = \
+            carried["launches"].get(name, 0)
         for mode, counts in object_run["launches"].items():
             by_path[f"bf16 evaluate_objects {mode}"] = counts.get(name, 0)
         path, timed = {
@@ -3538,7 +3692,8 @@ def main() -> None:
                            **{k: v for k, v in room_train["run"].items() if k != "launches"}},
             "objects": {k: v for k, v in object_run.items()
                         if k not in ("launches", "auction_eval")},
-            "phase11": last}
+            "phase11": last,
+            "phase12": {k: v for k, v in carried.items() if k != "launches"}}
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,10 +6,11 @@
 The flags are those of the root denoise_object.py, plus ``--device``.
 ``--model_path`` names a torch state_dict in the reference's naming
 (``.pt``/``.pth``, or a checkpoint dict holding one under ``model`` /
-``ema``), an ``.npz`` of JAX params with flattened ``a/b/c`` keys, or a run
-directory that ``python -m p2p_bridge_tpu_torch.train`` wrote (its
-``model.pt``); the ``opt.yaml`` in that directory, or beside the weights,
-gives the configuration. Free ``--a.b value``
+``ema``), a JAX checkpoint exported by ``export_jax_checkpoint.py``
+(``.npz``; ``--use_ema`` takes its EMA), an ``.npz`` of JAX params with
+flattened ``a/b/c`` keys, or a run directory that ``python -m
+p2p_bridge_tpu_torch.train`` wrote (its ``model.pt``); the ``opt.yaml`` in
+that directory, or beside the weights, gives the configuration. Free ``--a.b value``
 arguments override configuration entries. The backbone computes in the
 configuration's dtype: bf16 where ``training.amp`` is set and
 ``model.compute_dtype`` is not (the shipped PVDS_PUNet), f32 with
@@ -40,7 +41,9 @@ def parse_args(argv=None):
     parser.add_argument("--data_path", type=str, required=True, help="Path to the object point cloud.")
     parser.add_argument("--output_path", type=str, default=None, help="Output file (.xyz). Defaults next to input.")
     parser.add_argument("--model_path", type=str, required=True,
-                        help="Weights: reference torch state_dict (.pt/.pth), JAX params (.npz) or a run directory.")
+                        help="Weights: reference torch state_dict (.pt/.pth), a JAX checkpoint "
+                             "exported by export_jax_checkpoint.py (.npz), JAX params (.npz) or a "
+                             "run directory.")
     parser.add_argument("--seed", type=int, default=42)
     parser.add_argument("--k", type=int, default=3, help="Patch oversampling factor.")
     parser.add_argument("--use_ema", action="store_true", help="Use EMA weights of a checkpoint dict.")

@@ -49,7 +49,9 @@ logger = logging.getLogger("p2pb")
 def parse_args(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--room_path", type=str, required=True, help="Path to the room point cloud.")
-    parser.add_argument("--model_path", type=str, required=True, help="Path to the model.")
+    parser.add_argument("--model_path", type=str, required=True,
+                        help="Path to the model: a run directory, its model.pt, or a JAX checkpoint "
+                             "exported by export_jax_checkpoint.py (.npz).")
     parser.add_argument("--seed", type=int, default=42)
     parser.add_argument("--use_ema", type=bool, default=True)
     parser.add_argument("--feature_name", type=str, default="dino_iphone")

@@ -42,7 +42,9 @@ def parse_args(argv=None):
     parser.add_argument("--output_root", type=str, default="./output_objects")
     parser.add_argument("--dataset_root", type=str, default="./data/objects/")
     parser.add_argument("--model_path", type=str, required=True,
-                        help="Weights: reference torch state_dict (.pt/.pth), JAX params (.npz) or a run directory.")
+                        help="Weights: reference torch state_dict (.pt/.pth), a JAX checkpoint "
+                             "exported by export_jax_checkpoint.py (.npz), JAX params (.npz) or a "
+                             "run directory.")
     parser.add_argument("--dataset", type=str, default="PUNet", choices=["PUNet", "PCNet"])
     parser.add_argument("--seed", type=int, default=42)
     parser.add_argument("--k", type=int, default=3, help="Patch oversampling factor.")

@@ -8,8 +8,10 @@ points and one block per cloud above, below :data:`CLUSTER_MIN_POINTS`
 points a cloud (the SA stages, the bucketed recombination), and
 ``fps_cluster``, one cluster of 16 blocks per cloud, from there on (the
 exact recombination, the seeding). Both give the plain version's indices.
-On a CPU tensor it runs the plain version. :func:`bucket_fps` is the room
-path's host FPS over numpy, on the native runtime.
+On a CPU tensor it runs the plain version.
+:func:`furthest_point_sample_and_gather` gathers the picked coordinates.
+:func:`bucket_fps` is the room path's host FPS over numpy, on the native
+runtime.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 
 from .. import kernels
 from ..runtime import bucket_fps_host
+from .common import batched_take
 
 
 def furthest_point_sample_plain(coords: torch.Tensor, num_samples: int) -> torch.Tensor:
@@ -87,6 +90,12 @@ def furthest_point_sample(coords: torch.Tensor, num_samples: int) -> torch.Tenso
     if kernels.on_card(coords):
         return _furthest_point_sample_cuda(coords, num_samples)
     return furthest_point_sample_plain(coords, num_samples)
+
+
+def furthest_point_sample_and_gather(coords: torch.Tensor, num_samples: int) -> torch.Tensor:
+    """FPS and the gather of the picked coordinates: [B, N, 3] -> [B, M, 3]
+    (on the card, K5 and one gather)."""
+    return batched_take(coords, furthest_point_sample(coords, num_samples))
 
 
 def bucket_fps(points, num_samples: int, seed: int = 0) -> np.ndarray:

@@ -7,7 +7,11 @@ train.py's loop).
       --save_dir runs/ --data.data_dir <batches> --data.splits_path <splits>
 
 The flags are those of the root train.py (``utils/args.py``) plus
-``--device`` (default cuda).
+``--device`` (default cuda). A training run of the JAX package resumes
+from the file ``export_jax_checkpoint.py`` wrote for it, with the
+``opt.yaml`` beside it:
+
+  python -m p2p_bridge_tpu_torch.train --model_path run.npz [--save_dir runs/]
 
 Data parallel on N cards of one host, one process a card (NCCL):
 
@@ -59,7 +63,8 @@ import torch
 from .data.batch import get_data_batch
 from .data.dataloader import get_dataloader, save_iter
 from .models.evaluation import evaluate
-from .models.model_loader import restore_checkpoint, save_checkpoint
+from .models.model_loader import (restore_checkpoint, restore_jax_checkpoint,
+                                  save_checkpoint)
 from .models.p2pb import P2PBridge
 from .models.unet_pvc import build_unet_from_config, init_parameters
 from .parallel.mesh import (DataMesh, default_backend, initialize_distributed,
@@ -89,7 +94,9 @@ def _profiler(device: torch.device):
 def train(cfg: dict, device="cuda", observer: Optional[Observer] = None,
           mesh: Optional[DataMesh] = None):
     """Run ``cfg["training"]["steps"]`` steps (from the checkpoint's step
-    when ``cfg["model_path"]`` names one) and return the TrainState.
+    when ``cfg["model_path"]`` names one: the port's model.pt or its run
+    directory, or a JAX checkpoint exported by export_jax_checkpoint.py,
+    .npz) and return the TrainState.
     Checkpoints go to ``cfg["output_dir"]``. ``observer(step, event,
     metrics)``, when given, is called with "begin" before each step's batch
     is drawn, "batch" once it is on the device, each phase of the step
@@ -125,7 +132,9 @@ def train(cfg: dict, device="cuda", observer: Optional[Observer] = None,
     use_ema = cfg["model"].get("ema", True)
     state = init_train_state(model, cfg, use_ema=use_ema)
     if cfg.get("model_path"):
-        restore_checkpoint(cfg["model_path"], state, restart=cfg.get("restart", False))
+        restore = (restore_jax_checkpoint if cfg["model_path"].endswith(".npz")
+                   else restore_checkpoint)
+        restore(cfg["model_path"], state, restart=cfg.get("restart", False))
         logger.info("Resumed from step %d", state.step)
     replicated(state, mesh)
     step_mesh = mesh if mesh.backend is not None else None

@@ -13,10 +13,16 @@ imports it inside its functions.
 from __future__ import annotations
 
 import argparse
+import json
 import os
 from typing import List, Optional
 
 from .config import apply_dot_overrides, load_yaml
+
+
+def args_to_string(cfg: dict) -> str:
+    """The configuration as indented JSON."""
+    return json.dumps(cfg, indent=4)
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -12,7 +12,13 @@ two equal on the PVDS_PUNet and TINY parameter trees.
   any per-parameter tensors keyed like the model's state_dict (weights,
   gradients, Adam moments, EMA): each leaf of the flax ``template`` tree
   gets the tensor of its torch key in flax layout, so two trainings
-  compare leaf by leaf.
+  compare leaf by leaf. ``flax_template(model)`` is that template built
+  from the port's own parameter names (``flax_path``, the inverse of the
+  name map), so the port writes flax trees where no JAX is installed.
+* ``flat_flax_arrays`` / ``flat_to_state_dict`` carry any such tensors to
+  and from flat ``{"a/b/c": array}`` dicts, the layout of an exported
+  checkpoint: weights, EMA and both Adam moments take the same names and
+  the same transposes.
 * ``load_torch_state_dict(model, sd)`` loads a reference checkpoint; its
   1x1 convolutions ([out, in, 1] or [out, in, 1, 1]) load into the port's
   Linear weights [out, in].
@@ -23,6 +29,7 @@ source entry is used.
 
 from __future__ import annotations
 
+import re
 from typing import Dict, Mapping, Tuple
 
 import numpy as np
@@ -165,12 +172,6 @@ def unflatten_params(flat: Mapping[str, np.ndarray], sep: str = "/") -> dict:
     return tree
 
 
-def load_npz(path: str) -> dict:
-    """JAX params saved with flattened ``a/b/c`` keys -> nested dicts."""
-    with np.load(path) as z:
-        return unflatten_params({k: z[k] for k in z.files})
-
-
 def _conv_counts(paths) -> dict:
     """PVConvs per SA/FP stage, as convert_torch_state_dict counts them."""
     counts = {"sa": {}, "fp": {}}
@@ -226,6 +227,127 @@ def tensors_to_jax_tree(tensors: Mapping[str, torch.Tensor], template: Mapping) 
             node = node.setdefault(part, {})
         node[path[-1]] = _to_flax_layout(value, path[-1])
     return {"params": tree} if wrapped else tree
+
+
+def _flax_norm(rest: str) -> Path:
+    """The flax names under a norm node whose torch suffix is ``rest``:
+    "" for a plain GroupNorm, ".norm" / ".emd" for AdaGN's children."""
+    return {"": (), ".norm": ("GroupNorm_0",), ".emd": ("Dense_0",)}[rest]
+
+
+def _flax_shared_mlp(rest: str) -> Path:
+    """``N[.norm|.emd]`` of a SharedMLP's ``layers`` -> its flax names."""
+    m = re.fullmatch(r"(\d+)(\.norm|\.emd)?", rest)
+    n, norm = int(m.group(1)), m.group(2) or ""
+    if n % 3 == 0:
+        return (f"Dense_{n // 3}",)
+    if n % 3 != 1:
+        raise KeyError(rest)
+    if norm:  # AdaGN_k with its own GroupNorm and Dense
+        return (f"AdaGN_{n // 3}",) + _flax_norm(norm)
+    return (f"GroupNorm_{n // 3}",)
+
+
+def _flax_pvconv(rest: str) -> Path:
+    """The rest of a PVConv's torch key -> its flax names."""
+    m = re.fullmatch(r"voxel_layers\.([0145])(\.norm|\.emd)?", rest)
+    if m:
+        node = {"0": "vconv1", "1": "vnorm1", "4": "vconv2", "5": "vnorm2"}[m.group(1)]
+        return (node,) + _flax_norm(m.group(2) or "")
+    m = re.fullmatch(r"voxel_layers\.6\.fc\.([02])", rest)
+    if m:
+        return ("SE_0", f"Dense_{int(m.group(1)) // 2}")
+    m = re.fullmatch(r"point_features\.layers\.([01])(\.norm|\.emd)?", rest)
+    if m:
+        if m.group(1) == "0":
+            return ("point_features", "Dense_0")
+        if m.group(2):
+            return ("point_features", "AdaGN_0") + _flax_norm(m.group(2))
+        return ("point_features", "GroupNorm_0")
+    m = re.fullmatch(r"attn\.(\w+)", rest)
+    if m:
+        return ("attn", m.group(1))
+    raise KeyError(rest)
+
+
+def _flax_module(prefix: str) -> Path:
+    """The flax module path of the port module ``prefix`` (a torch key
+    without its parameter name): the inverse of ``_torch_key``."""
+    fixed = {"embedf.0": ("embedf", "Dense_0"), "embedf.2": ("embedf", "Dense_1"),
+             "embed_feats.0": ("embed_feats_0",), "embed_feats.1": ("embed_feats_gn",),
+             "embed_feats.3": ("embed_feats_1",), "classifier.0.layers.0": ("classifier_mlp", "Dense_0"),
+             "classifier.0.layers.1": ("classifier_mlp", "GroupNorm_0"),
+             "classifier.2": ("classifier_out",), "global_att": ("global_att",)}
+    if prefix in fixed:
+        return fixed[prefix]
+    m = re.fullmatch(r"global_pnet\.mlp(\d+)\.shared_mlp_(\d+)\.mlp\.(0|1\.group_norm)", prefix)
+    if m:
+        node = "Dense" if m.group(3) == "0" else "GroupNorm"
+        return ("global_pnet", f"MyGroupNormMLP_{int(m.group(1)) - 1}", f"{node}_{m.group(2)}")
+    m = re.fullmatch(r"global_att\.(\w+)", prefix)
+    if m:
+        return ("global_att", m.group(1))
+    m = re.fullmatch(r"sa_layers\.(\d+)(?:\.(\d+))?\.(.+)", prefix)
+    if m:
+        i, rest = m.group(1), m.group(3)
+        if rest.startswith("mlps.0.layers."):
+            return (f"sa{i}_module", "mlp") + _flax_shared_mlp(rest[len("mlps.0.layers."):])
+        return (f"sa{i}_conv{m.group(2)}",) + _flax_pvconv(rest)
+    m = re.fullmatch(r"fp_layers\.(\d+)(?:\.(\d+))?\.(.+)", prefix)
+    if m:
+        j, k, rest = m.group(1), m.group(2), m.group(3)
+        if rest.startswith("mlp.layers.") and k in (None, "0"):
+            return (f"fp{j}_module", "mlp") + _flax_shared_mlp(rest[len("mlp.layers."):])
+        return (f"fp{j}_conv{int(k) - 1}",) + _flax_pvconv(rest)
+    raise KeyError(prefix)
+
+
+def flax_path(key: str, ndim: int) -> Path:
+    """The flax param path (inside the "params" collection) of the port
+    parameter ``key`` of rank ``ndim``."""
+    prefix, name = key.rsplit(".", 1)
+    if name == "weight":
+        leaf = "kernel" if ndim >= 2 else "scale"
+    elif name in ("bias", "q_gamma", "k_gamma"):
+        leaf = name
+    else:
+        raise KeyError(key)
+    try:
+        return _flax_module(prefix) + (leaf,)
+    except (KeyError, AttributeError) as e:
+        raise KeyError(f"no flax path for the port parameter {key}") from e
+
+
+def flax_template(model: nn.Module) -> dict:
+    """The flax param tree of ``model`` (no "params" wrapper), each leaf an
+    empty placeholder: a template for ``tensors_to_jax_tree``. Each path
+    is checked to map back to its own key."""
+    tree: dict = {}
+    paths = {key: flax_path(key, t.dim()) for key, t in model.state_dict().items()}
+    counts = _conv_counts(paths.values())
+    for key, path in paths.items():
+        back = f"{_torch_key(path[:-1], counts)}.{_LEAF_TO_TORCH[path[-1]]}"
+        if back != key:
+            raise KeyError(f"{key} -> {'/'.join(path)} -> {back}")
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = np.zeros(0, np.float32)
+    return tree
+
+
+def flat_flax_arrays(tensors: Mapping[str, torch.Tensor], template: Mapping) -> Dict[str, np.ndarray]:
+    """``tensors`` keyed like the model's state_dict -> {"a/b/c": f32 numpy
+    in flax layout} over the leaves of ``template`` (``flax_template``)."""
+    tree = tensors_to_jax_tree(tensors, template)
+    return {"/".join(path): leaf for path, leaf in flatten_params(tree).items()}
+
+
+def flat_to_state_dict(flat: Mapping[str, np.ndarray], model: nn.Module) -> Dict[str, torch.Tensor]:
+    """{"a/b/c": array} in flax layout -> {torch key: f32 tensor} covering
+    every entry of ``model``'s state_dict exactly once (strict, as
+    ``jax_params_to_state_dict``)."""
+    return jax_params_to_state_dict(unflatten_params(flat), model)
 
 
 def jax_params_to_state_dict(params: Mapping, model: nn.Module) -> Dict[str, torch.Tensor]:

@@ -80,7 +80,8 @@ def main_path_modules():
 
 
 def test_main_path_imports_no_jax_flax_or_yaml(main_path_modules):
-    assert [m for m in ("jax", "flax", "yaml") if m in main_path_modules] == []
+    banned = ("jax", "flax", "orbax", "optax", "yaml")
+    assert [m for m in main_path_modules if m.split(".")[0] in banned] == []
 
 
 def test_main_path_imports_no_pandas(main_path_modules):
@@ -117,7 +118,16 @@ def imported_modules(path: Path):
 def test_port_sources_never_import_jax():
     for path in PORT_SOURCES:
         for module in imported_modules(path):
-            assert module.split(".")[0] not in ("jax", "flax"), f"{path}: {module}"
+            assert module.split(".")[0] not in ("jax", "flax", "orbax", "optax"), \
+                f"{path}: {module}"
+
+
+def test_the_exporter_imports_nothing_of_the_port():
+    """export_jax_checkpoint.py runs where JAX runs: it reads the JAX
+    package and writes numpy, with nothing of p2p_bridge_tpu_torch."""
+    modules = list(imported_modules(ROOT / "export_jax_checkpoint.py"))
+    assert any(is_jax_package(m) for m in modules)
+    assert [m for m in modules if m.split(".")[0] == "p2p_bridge_tpu_torch"] == []
 
 
 def test_port_sources_never_import_the_jax_package():

@@ -15,17 +15,19 @@ import pytest
 import torch
 from test_torch_loss import port_and_jax, wide_tiny
 
+from export_jax_checkpoint import checkpoint_arrays
 from p2p_bridge_tpu.models.p2pb import P2PBridge as JaxBridge
 from p2p_bridge_tpu.models.schedules import BridgeSchedule as JaxSchedule
 from p2p_bridge_tpu.parallel import train_step as jts
 from p2p_bridge_tpu.utils.config import Config
 from p2p_bridge_tpu.utils.ema import EmaState as JaxEma
 from p2p_bridge_tpu.utils.ema import ema_update as jax_ema_update
+from p2p_bridge_tpu_torch.models.model_loader import restore_jax_checkpoint
 from p2p_bridge_tpu_torch.models.p2pb import P2PBridge
 from p2p_bridge_tpu_torch.models.schedules import BridgeSchedule
 from p2p_bridge_tpu_torch.parallel import train_step as pts
 from p2p_bridge_tpu_torch.utils.ema import ema_init, ema_update
-from p2p_bridge_tpu_torch.weights import jax_params_to_state_dict, load_jax_params
+from p2p_bridge_tpu_torch.weights import jax_params_to_state_dict
 
 ROOT = Path(__file__).resolve().parent.parent
 ALIGN = {"eps": 0.01, "iters": 100}
@@ -57,19 +59,13 @@ def jax_step_draws(bridge, key, step, batch_size, accum=1):
 
 def to_port(jstate, state, model):
     """Load the JAX TrainState (params, Adam moments and count, EMA, step)
-    into the port's TrainState."""
-    load_jax_params(model, jax.tree.map(np.asarray, jstate.params))
-    adam = jstate.opt_state[0]
-    mu = jax_params_to_state_dict(jax.tree.map(np.asarray, adam.mu), model)
-    nu = jax_params_to_state_dict(jax.tree.map(np.asarray, adam.nu), model)
-    for name, p in model.named_parameters():
-        state.optimizer.state[p] = {"step": torch.tensor(float(adam.count)),
-                                    "exp_avg": mu[name].clone(), "exp_avg_sq": nu[name].clone()}
-    ema = jax_params_to_state_dict(jax.tree.map(np.asarray, jstate.ema.params), model)
-    for name, e in state.ema.params.items():
-        e.copy_(ema[name])
+    into the port's TrainState: the exporter's layout of it, read by the
+    port's import. The JAX EMA's count is kept (these steps go on from one
+    state; a resume restarts it)."""
+    ckpt = {"params": jstate.params, "ema": jstate.ema.params, "opt_state": jstate.opt_state,
+            "step": jstate.step}
+    restore_jax_checkpoint(checkpoint_arrays(ckpt, "AdamW"), state)
     state.ema.step = int(jstate.ema.step)
-    state.step = int(jstate.step)
 
 
 def port_tree(tensors, model):
