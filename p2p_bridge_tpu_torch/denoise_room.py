@@ -24,6 +24,12 @@ Every rank builds the same patches, samples its ``batch_size / N`` rows of
 each batch on ``cuda:LOCAL_RANK`` (or ``--device``) and gathers the
 others'; rank 0 alone writes the prediction. ``--batch_size`` must divide
 by N.
+
+``--profile_dir DIR`` traces the room with ``torch.profiler`` (rank 0's)
+into ``DIR/trace_room.json``, written after the prediction: the room
+engine's spans (``rooms.seed``, ``rooms.patches``, ``rooms.split_fps``,
+``rooms.batches``, ``rooms.upload``) and ``sampler.step`` beside the
+kernels and copies they launched.
 """
 
 from __future__ import annotations
@@ -40,7 +46,7 @@ from .models.p2pb import P2PBridge
 from .models.unet_pvc import build_unet_from_config, compute_dtype
 from .parallel.mesh import initialize_distributed, make_data_mesh
 from .rooms import denoise_room
-from .utils.device import resolve_device
+from .utils.device import profiler, resolve_device
 from .utils.io import load_point_cloud, write_ply
 
 logger = logging.getLogger("p2pb")
@@ -71,6 +77,8 @@ def parse_args(argv=None):
     parser.add_argument("--gpu", type=str, default="", help="(accepted for CLI parity; see --device)")
     parser.add_argument("--distribution_type", default="none")
     parser.add_argument("--device", type=str, default="cuda", help="torch device, e.g. cuda or cpu.")
+    parser.add_argument("--profile_dir", type=str, default=None,
+                        help="Trace the room with torch.profiler into DIR/trace_room.json.")
     return parser.parse_known_args(argv)
 
 
@@ -148,24 +156,32 @@ def _denoise(args, overrides, device, mesh) -> str:
     logger.info("Detected dataset: %s, denoising in radius %.1f",
                 cfg["data"]["dataset"], query_radius)
 
-    out = denoise_room(
-        bridge,
-        np.asarray(room_points, np.float32),
-        steps=args.steps,
-        k=args.k,
-        patch_size=cfg["data"]["npoints"],
-        batch_size=args.batch_size,
-        query_radius=query_radius,
-        room_colors=room_colors,
-        room_features=room_feat,
-        use_rgb=cfg["data"].get("use_rgb_features", False),
-        use_feat=cfg["data"].get("point_features") == "dino" and room_feat is not None,
-        average_predictions=args.average_predictions,
-        filter_outliers=args.filter_outliers,
-        return_steps=args.intermediate,
-        seed=args.seed,
-        mesh=mesh,
-    )
+    prof = None
+    if args.profile_dir and (mesh is None or mesh.is_main):
+        prof = profiler(device)
+        prof.start()
+    try:
+        out = denoise_room(
+            bridge,
+            np.asarray(room_points, np.float32),
+            steps=args.steps,
+            k=args.k,
+            patch_size=cfg["data"]["npoints"],
+            batch_size=args.batch_size,
+            query_radius=query_radius,
+            room_colors=room_colors,
+            room_features=room_feat,
+            use_rgb=cfg["data"].get("use_rgb_features", False),
+            use_feat=cfg["data"].get("point_features") == "dino" and room_feat is not None,
+            average_predictions=args.average_predictions,
+            filter_outliers=args.filter_outliers,
+            return_steps=args.intermediate,
+            seed=args.seed,
+            mesh=mesh,
+        )
+    finally:
+        if prof is not None:
+            prof.stop()
     if mesh is not None and not mesh.is_main:
         return out_path
 
@@ -176,6 +192,11 @@ def _denoise(args, overrides, device, mesh) -> str:
         for i, step_cloud in enumerate(out["steps"]):
             write_ply(f"{out_path.rsplit('.', 1)[0]}_step_{i}.ply", step_cloud,
                       colors=room_colors)
+    if prof is not None:
+        os.makedirs(args.profile_dir, exist_ok=True)
+        trace = os.path.join(args.profile_dir, "trace_room.json")
+        prof.export_chrome_trace(trace)
+        logger.info("Wrote profiler trace to %s", trace)
     return out_path
 
 

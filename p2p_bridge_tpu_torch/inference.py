@@ -3,6 +3,8 @@
 FPS seeds -> kNN patches -> joint normalisation -> bridge sampling over all
 patches as one batch -> FPS back down to N points, exact (one global FPS,
 the reference's semantics) or bucketed (an equal FPS quota per patch).
+A call of ``patch_based_denoise_batch`` is the span ``inference.denoise``
+(``utils/spans.py``).
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import numpy as np
 import torch
 
 from .ops import batched_take, furthest_point_sample, knn
+from .utils.spans import span
 
 
 def normalize_unit_sphere(pcl: np.ndarray, center=None, scale=None):
@@ -96,39 +99,40 @@ def patch_based_denoise_batch(
     """
     if recombine_mode not in ("exact", "bucketed"):
         raise ValueError(f"recombine_mode must be 'exact' or 'bucketed', got {recombine_mode!r}")
-    if device is None:
-        device = next(bridge.model.parameters()).device
-    device = torch.device(device)
-    pcls = np.asarray(pcls, np.float32)
-    O, N = int(pcls.shape[0]), int(pcls.shape[1])
-    num_seeds = int(seed_k * N / patch_size)
+    with span("inference.denoise"):
+        if device is None:
+            device = next(bridge.model.parameters()).device
+        device = torch.device(device)
+        pcls = np.asarray(pcls, np.float32)
+        O, N = int(pcls.shape[0]), int(pcls.shape[1])
+        num_seeds = int(seed_k * N / patch_size)
 
-    host = torch.from_numpy(np.ascontiguousarray(pcls))
-    if device.type == "cuda":
-        host = host.pin_memory()
-    clouds = host.to(device, non_blocking=True)
-    flats, chains = [], []
-    for o in range(O):
-        flat, chain = _denoise_one(bridge, clouds[o:o + 1], patch_size, num_seeds, steps,
-                                   clip_denoise, save_intermediate)
-        flats.append(flat)
-        if chain is not None:
-            chains.append(chain)
+        host = torch.from_numpy(np.ascontiguousarray(pcls))
+        if device.type == "cuda":
+            host = host.pin_memory()
+        clouds = host.to(device, non_blocking=True)
+        flats, chains = [], []
+        for o in range(O):
+            flat, chain = _denoise_one(bridge, clouds[o:o + 1], patch_size, num_seeds, steps,
+                                       clip_denoise, save_intermediate)
+            flats.append(flat)
+            if chain is not None:
+                chains.append(chain)
 
-    def recombine(x):
-        if recombine_mode == "bucketed":
-            return recombine_bucketed(x, N, num_seeds, patch_size)
-        return recombine_exact(x, N)
+        def recombine(x):
+            if recombine_mode == "bucketed":
+                return recombine_bucketed(x, N, num_seeds, patch_size)
+            return recombine_exact(x, N)
 
-    denoised = recombine(torch.cat(flats, dim=0))
-    steps_out = None
-    if chains:
-        stacked = torch.cat(chains, dim=0)  # [O*T, S*K, 3]
-        T = chains[0].shape[0]
-        steps_out = recombine(stacked).reshape(O, T, N, 3).cpu().numpy()
-    if not as_numpy:
-        return denoised, steps_out
-    return denoised.cpu().numpy(), steps_out
+        denoised = recombine(torch.cat(flats, dim=0))
+        steps_out = None
+        if chains:
+            stacked = torch.cat(chains, dim=0)  # [O*T, S*K, 3]
+            T = chains[0].shape[0]
+            steps_out = recombine(stacked).reshape(O, T, N, 3).cpu().numpy()
+        if not as_numpy:
+            return denoised, steps_out
+        return denoised.cpu().numpy(), steps_out
 
 
 def patch_based_denoise(bridge, pcl_noisy: np.ndarray, patch_size: int = 2048,

@@ -14,6 +14,11 @@ step for step the JAX package's, so the two produce the same patches from
 the same room. ``bucket_fps`` ignores its seed there, and so here: the
 FPS split of a neighbourhood of n >= patch_size points yields
 ``n // patch_size + 1`` identical patches (kept, so the outputs agree).
+
+Spans (``utils/spans.py``, in a profiler's trace only): ``rooms.seed``
+(the seeding FPS and the KD-tree query), ``rooms.patches`` (a call of
+``create_patches``) holding one ``rooms.split_fps`` per split FPS,
+``rooms.batches`` (the batch loop) holding one ``rooms.upload`` per batch.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from .ops.fps import bucket_fps
 from .parallel.mesh import shard_batch
 from .runtime import accumulate_running_mean, finalize_running_mean, get_lib
 from .utils.device import resolve_device
+from .utils.spans import span
 
 logger = logging.getLogger("p2pb")
 
@@ -51,48 +57,50 @@ def create_patches(
 
     Returns (xyz [P, S, 3] f32, rgb, feats, idxs [P, S], cut_list [P]).
     """
-    rng = rng or np.random.default_rng(0)
-    xyz_list, rgb_list, feat_list, idx_list, cut_list = [], [], [], [], []
+    with span("rooms.patches"):
+        rng = rng or np.random.default_rng(0)
+        xyz_list, rgb_list, feat_list, idx_list, cut_list = [], [], [], [], []
 
-    for mapping in idxs_radius_patches:
-        patch_xyz = room_points[mapping]
-        patch_rgb = room_colors[mapping] if room_colors is not None else None
-        patch_feat = room_features[mapping] if room_features is not None else None
-        n = len(patch_xyz)
-        diff = patch_size - n
-        if n == 0:
-            continue
-        if diff > 0:
-            ridx = rng.integers(0, n, diff)
-            extra = patch_xyz[ridx]
-            noise_level = np.linalg.norm(
-                patch_xyz.max(axis=0) - patch_xyz.min(axis=0)
-            ) * 1e-2
-            extra = extra + rng.normal(0, noise_level, extra.shape)
-            xyz_list.append(np.concatenate([patch_xyz, extra]).astype(np.float32))
-            if patch_rgb is not None:
-                rgb_list.append(np.concatenate([patch_rgb, patch_rgb[ridx]]))
-            if patch_feat is not None:
-                feat_list.append(np.concatenate([patch_feat, patch_feat[ridx]]))
-            idx_list.append(np.concatenate([mapping, mapping[ridx]]))
-            cut_list.append(n)  # the padded tail is left out of the recomposition
-        else:
-            fraction = n // patch_size + 1
-            for f in range(fraction):
-                sub = bucket_fps(patch_xyz, patch_size, seed=f)
-                xyz_list.append(patch_xyz[sub].astype(np.float32))
+        for mapping in idxs_radius_patches:
+            patch_xyz = room_points[mapping]
+            patch_rgb = room_colors[mapping] if room_colors is not None else None
+            patch_feat = room_features[mapping] if room_features is not None else None
+            n = len(patch_xyz)
+            diff = patch_size - n
+            if n == 0:
+                continue
+            if diff > 0:
+                ridx = rng.integers(0, n, diff)
+                extra = patch_xyz[ridx]
+                noise_level = np.linalg.norm(
+                    patch_xyz.max(axis=0) - patch_xyz.min(axis=0)
+                ) * 1e-2
+                extra = extra + rng.normal(0, noise_level, extra.shape)
+                xyz_list.append(np.concatenate([patch_xyz, extra]).astype(np.float32))
                 if patch_rgb is not None:
-                    rgb_list.append(patch_rgb[sub])
+                    rgb_list.append(np.concatenate([patch_rgb, patch_rgb[ridx]]))
                 if patch_feat is not None:
-                    feat_list.append(patch_feat[sub])
-                idx_list.append(mapping[sub])
-                cut_list.append(patch_size)
+                    feat_list.append(np.concatenate([patch_feat, patch_feat[ridx]]))
+                idx_list.append(np.concatenate([mapping, mapping[ridx]]))
+                cut_list.append(n)  # the padded tail is left out of the recomposition
+            else:
+                fraction = n // patch_size + 1
+                for f in range(fraction):
+                    with span("rooms.split_fps"):
+                        sub = bucket_fps(patch_xyz, patch_size, seed=f)
+                    xyz_list.append(patch_xyz[sub].astype(np.float32))
+                    if patch_rgb is not None:
+                        rgb_list.append(patch_rgb[sub])
+                    if patch_feat is not None:
+                        feat_list.append(patch_feat[sub])
+                    idx_list.append(mapping[sub])
+                    cut_list.append(patch_size)
 
-    xyz = np.stack(xyz_list)
-    rgb = np.stack(rgb_list).astype(np.float32) if rgb_list else None
-    feats = np.stack(feat_list).astype(np.float32) if feat_list else None
-    idxs = np.stack(idx_list)
-    return xyz, rgb, feats, idxs, np.asarray(cut_list)
+        xyz = np.stack(xyz_list)
+        rgb = np.stack(rgb_list).astype(np.float32) if rgb_list else None
+        feats = np.stack(feat_list).astype(np.float32) if feat_list else None
+        idxs = np.stack(idx_list)
+        return xyz, rgb, feats, idxs, np.asarray(cut_list)
 
 
 def denoise_patch_batch(
@@ -125,8 +133,9 @@ def denoise_patch_batch(
     if use_feat and patch_feat is not None:
         x_cond = patch_feat if x_cond is None else np.concatenate([x_cond, patch_feat], -1)
 
-    xb = torch.from_numpy(patch).to(device)
-    cb = None if x_cond is None else torch.from_numpy(np.ascontiguousarray(x_cond)).to(device)
+    with span("rooms.upload"):
+        xb = torch.from_numpy(patch).to(device)
+        cb = None if x_cond is None else torch.from_numpy(np.ascontiguousarray(x_cond)).to(device)
     out = bridge.sample(xb, cb, steps=steps, log_count=steps)
     x_pred = out["x_pred"].cpu().numpy()
     if filtering:
@@ -253,11 +262,12 @@ def denoise_room(
     logger.info("Room: %d points, %d seed patches, radius %.2f",
                 len(room_points), n_seeds, query_radius)
 
-    seed_idx = bucket_fps(room_points, n_seeds, seed=seed)
-    centers = room_points[seed_idx]
-    tree = cKDTree(room_points)
-    idxs_radius = tree.query_ball_point(centers, r=query_radius, workers=-1)
-    idxs_radius = [np.asarray(i, np.int64) for i in idxs_radius]
+    with span("rooms.seed"):
+        seed_idx = bucket_fps(room_points, n_seeds, seed=seed)
+        centers = room_points[seed_idx]
+        tree = cKDTree(room_points)
+        idxs_radius = tree.query_ball_point(centers, r=query_radius, workers=-1)
+        idxs_radius = [np.asarray(i, np.int64) for i in idxs_radius]
 
     xyz, rgb, feats, idxs, cuts = create_patches(
         room_points, patch_size, idxs_radius, room_colors, room_features, rng
@@ -271,46 +281,47 @@ def denoise_room(
     P = len(xyz)
     # pad the LAST batch up to batch_size with repeats: one shape for every
     # batch; the surplus rows are ignored
-    for s in range(0, P, batch_size):
-        e = min(s + batch_size, P)
-        sel = np.arange(s, e)
-        pad = batch_size - len(sel)
-        if pad > 0:
-            sel = np.concatenate([sel, np.full(pad, sel[-1])])
-        if mesh is not None:
-            sel = shard_batch(sel, mesh)
-        d, chain = denoise_patch_batch(
-            bridge, xyz[sel], steps,
-            rgb[sel] if rgb is not None else None,
-            feats[sel] if feats is not None else None,
-            use_rgb, use_feat, return_steps, filtering=filter_outliers,
-        )
-        if mesh is not None:
-            d, chain = gather_patch_batch(mesh, d, chain)
-        valid = e - s
-        if filter_outliers:
-            # chain holds the keep mask; subset each patch's room indices
-            # to the kept points
-            keep = chain
-            kept_idxs = np.stack([idxs[s + i][keep[i]] for i in range(valid)])
-            # the padding duplicates sit at the patch tail and boolean
-            # masking keeps order, so the kept real points are the mask's
-            # count over the first cut positions
-            kept_cuts = np.asarray(
-                [int(keep[i, : cuts[s + i]].sum()) for i in range(valid)]
+    with span("rooms.batches"):
+        for s in range(0, P, batch_size):
+            e = min(s + batch_size, P)
+            sel = np.arange(s, e)
+            pad = batch_size - len(sel)
+            if pad > 0:
+                sel = np.concatenate([sel, np.full(pad, sel[-1])])
+            if mesh is not None:
+                sel = shard_batch(sel, mesh)
+            d, chain = denoise_patch_batch(
+                bridge, xyz[sel], steps,
+                rgb[sel] if rgb is not None else None,
+                feats[sel] if feats is not None else None,
+                use_rgb, use_feat, return_steps, filtering=filter_outliers,
             )
+            if mesh is not None:
+                d, chain = gather_patch_batch(mesh, d, chain)
+            valid = e - s
+            if filter_outliers:
+                # chain holds the keep mask; subset each patch's room indices
+                # to the kept points
+                keep = chain
+                kept_idxs = np.stack([idxs[s + i][keep[i]] for i in range(valid)])
+                # the padding duplicates sit at the patch tail and boolean
+                # masking keeps order, so the kept real points are the mask's
+                # count over the first cut positions
+                kept_cuts = np.asarray(
+                    [int(keep[i, : cuts[s + i]].sum()) for i in range(valid)]
+                )
+                if average_predictions:
+                    accum.update(d[:valid], kept_idxs, kept_cuts)
+                else:
+                    collected.append(d[:valid].reshape(-1, 3))
+                continue
             if average_predictions:
-                accum.update(d[:valid], kept_idxs, kept_cuts)
+                accum.update(d[:valid], idxs[s:e], cuts[s:e])
+                if return_steps:
+                    for t in range(len(chain)):
+                        accum_steps[t].update(chain[t][:valid], idxs[s:e], cuts[s:e])
             else:
                 collected.append(d[:valid].reshape(-1, 3))
-            continue
-        if average_predictions:
-            accum.update(d[:valid], idxs[s:e], cuts[s:e])
-            if return_steps:
-                for t in range(len(chain)):
-                    accum_steps[t].update(chain[t][:valid], idxs[s:e], cuts[s:e])
-        else:
-            collected.append(d[:valid].reshape(-1, 3))
 
     out: Dict[str, np.ndarray] = {}
     if average_predictions:

@@ -71,6 +71,7 @@ from .parallel.mesh import (DataMesh, default_backend, initialize_distributed,
                             make_data_mesh, replicated)
 from .parallel.train_step import init_train_state, train_step
 from .utils.args import parse_args, setup_output_subdirs
+from .utils.device import profiler
 from .utils.logging import ExperimentTracker
 
 logger = logging.getLogger("p2pb")
@@ -80,15 +81,6 @@ Observer = Callable[[int, str, Optional[dict]], None]
 
 def _to_device(batch: dict, device) -> dict:
     return {k: torch.from_numpy(v).to(device) for k, v in batch.items() if v is not None}
-
-
-def _profiler(device: torch.device):
-    from torch.profiler import ProfilerActivity, profile
-
-    activities = [ProfilerActivity.CPU]
-    if device.type == "cuda":
-        activities.append(ProfilerActivity.CUDA)
-    return profile(activities=activities)
 
 
 def train(cfg: dict, device="cuda", observer: Optional[Observer] = None,
@@ -162,7 +154,7 @@ def train(cfg: dict, device="cuda", observer: Optional[Observer] = None,
     try:
         for step in range(start_step, training["steps"]):
             if profile_dir and step == start_step + 10:
-                prof = _profiler(device)
+                prof = profiler(device)
                 prof.start()
             if prof is not None and step == start_step + 15:
                 prof.stop()

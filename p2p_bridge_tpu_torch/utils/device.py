@@ -1,4 +1,4 @@
-"""The device a host-facing entry point runs on."""
+"""The device a host-facing entry point runs on, and its profiler."""
 
 from __future__ import annotations
 
@@ -13,3 +13,14 @@ def resolve_device(device) -> torch.device:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device} asked for, but no CUDA device is available")
     return device
+
+
+def profiler(device: torch.device):
+    """A torch.profiler recording the host and, on a card, the device; the
+    caller starts, stops and exports it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    return profile(activities=activities)
