@@ -2674,17 +2674,20 @@ def denoise_room_cli(scan: Path, run: Path) -> tuple:
     return read_ply(out)["points"], launches, clock, wall
 
 
-def profile_room_batch(clock: RoomClock, dev) -> dict:
+def profile_room_batch(clock: RoomClock, scan: Path, dev) -> dict:
     """torch.profiler over one more batch of ROOM_BATCH patches of the run
-    (ROOM_STEPS steps): device time by kernel group, the idle share and
-    the launches of the batch."""
+    (ROOM_STEPS steps), conditioned as denoise_room conditions it (the
+    scan's features on the card, the batch's rows gathered there): device
+    time by kernel group, the idle share and the launches of the batch."""
     from torch.profiler import ProfilerActivity, profile
 
-    xyz, _, feats, _, _ = clock.patches
+    xyz, idxs = clock.patches[0], clock.patches[3]
+    feats = np.load(scan.parent.parent / "features" / "dino_iphone.npy").T
+    cond = (rooms.RoomConditioning(dev, feats), idxs[:ROOM_BATCH])
     sel = slice(0, ROOM_BATCH)
 
     def batch():
-        rooms.denoise_patch_batch(clock.bridge, xyz[sel], ROOM_STEPS, None, feats[sel], False, True)
+        rooms.denoise_patch_batch(clock.bridge, xyz[sel], ROOM_STEPS, cond=cond)
 
     batch()
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
@@ -2787,7 +2790,7 @@ def room(dev) -> dict:
             f"host split (ms) {({k: round(v, 1) for k, v in split.items()})}; second run: "
             f"denoise_room {again.ms['denoise_room']:.0f} ms, batch median "
             f"{np.median(again.batch_ms):.1f}; two runs bit-equal")
-        profile = profile_room_batch(clock, dev)
+        profile = profile_room_batch(clock, scan, dev)
         evaluation = evaluate_room(data_root, first, scan.parent / "mesh_aligned_0.05.ply")
     return {"forward": forward, "conv3d_gn": conv, "kernel_max_abs_err": kernel_errs,
             "launches": launches, "patches": n_patches,

@@ -6,7 +6,8 @@
     exactly ``patch_size`` points,
   * bridge sampling of ``batch_size`` patches at a time on the bridge's
     device, the last batch padded with repeats so every batch has one
-    shape,
+    shape; the conditioning channels (colours, features) are copied to the
+    device once a room and each batch's rows gathered there,
   * overlap-averaged recomposition in the native host runtime.
 
 The host work (seeding, patching, normalisation, recomposition) is numpy,
@@ -18,7 +19,9 @@ FPS split of a neighbourhood of n >= patch_size points yields
 Spans (``utils/spans.py``, in a profiler's trace only): ``rooms.seed``
 (the seeding FPS and the KD-tree query), ``rooms.patches`` (a call of
 ``create_patches``) holding one ``rooms.split_fps`` per split FPS,
-``rooms.batches`` (the batch loop) holding one ``rooms.upload`` per batch.
+``rooms.batches`` (the batch loop) holding one ``rooms.features`` (the
+room's conditioning copied to the device, where a call has any) and one
+``rooms.upload`` per batch.
 """
 
 from __future__ import annotations
@@ -113,9 +116,15 @@ def denoise_patch_batch(
     use_feat: bool = False,
     return_steps: bool = False,
     filtering: bool = False,
+    cond: Optional[Tuple["RoomConditioning", np.ndarray]] = None,
 ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
     """Normalise (numpy, on the host), sample (on the device of the
     bridge's model) and denormalise a [B, S, 3] patch batch.
+
+    The conditioning is [rgb | feat] of ``patch_rgb`` / ``patch_feat``
+    (numpy [B, S, C], as ``use_rgb`` / ``use_feat`` select) or, with
+    ``cond`` = (a room's :class:`RoomConditioning`, the batch's [B, S] room
+    indices), the rows of the room's channels gathered on the device.
 
     filtering=True drops the 1% of denoised points of each patch farthest
     from the normalised input patch (``remove_outliers``, on the device)
@@ -135,7 +144,10 @@ def denoise_patch_batch(
 
     with span("rooms.upload"):
         xb = torch.from_numpy(patch).to(device)
-        cb = None if x_cond is None else torch.from_numpy(np.ascontiguousarray(x_cond)).to(device)
+        if cond is not None:
+            cb = cond[0].gather(torch.from_numpy(cond[1]).to(device))
+        else:
+            cb = None if x_cond is None else torch.from_numpy(np.ascontiguousarray(x_cond)).to(device)
     out = bridge.sample(xb, cb, steps=steps, log_count=steps)
     x_pred = out["x_pred"].cpu().numpy()
     if filtering:
@@ -166,6 +178,34 @@ def gather_patch_batch(mesh, denoised: np.ndarray, chain: Optional[np.ndarray]):
         chain = (gather(chain) if chain.dtype == bool
                  else np.moveaxis(gather(np.moveaxis(chain, 1, 0)), 0, 1))
     return denoised, chain
+
+
+def device_rows(a: np.ndarray, device) -> torch.Tensor:
+    """[N, C] ``a`` as a contiguous [N, C] tensor on ``device``, in its own
+    dtype, its bytes copied in the order they lie in memory: an F-ordered
+    array (ScanNet++'s [C, N] features seen through ``.T``) goes up as its
+    C-ordered transpose and is transposed on the device."""
+    if a.flags.f_contiguous and not a.flags.c_contiguous:
+        return torch.from_numpy(a.T).to(device).T.contiguous()
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+class RoomConditioning:
+    """A room's conditioning channels (colours, features: [N, C] each, in
+    that order) copied to the device once, in their stored dtype.
+    ``gather`` gives a batch's [B, S, C] float32 conditioning [rgb | feat]
+    from its [B, S] room indices on the device, bit for bit the host's
+    ``[rgb[idxs].astype(np.float32) | feat[idxs].astype(np.float32)]``."""
+
+    def __init__(self, device, *channels: np.ndarray):
+        with span("rooms.features"):
+            self.tables = [device_rows(a, device) for a in channels]
+
+    def gather(self, rows: torch.Tensor) -> torch.Tensor:
+        flat = rows.reshape(-1)
+        parts = [t.index_select(0, flat).float() for t in self.tables]
+        cond = parts[0] if len(parts) == 1 else torch.cat(parts, -1)
+        return cond.reshape(*rows.shape, -1)
 
 
 class RunningMean:
@@ -246,7 +286,8 @@ def denoise_room(
     if mesh is not None and batch_size % mesh.world_size:
         raise ValueError(f"batch_size {batch_size} must divide over the "
                          f"{mesh.world_size}-rank mesh")
-    if next(bridge.model.parameters()).device.type == "cuda" and get_lib() is None:
+    device = next(bridge.model.parameters()).device
+    if device.type == "cuda" and get_lib() is None:
         raise RuntimeError("the native host runtime did not build (g++): the room path "
                            "on a CUDA device does not run on the numpy fallback")
     if return_steps and filter_outliers:
@@ -269,10 +310,12 @@ def denoise_room(
         idxs_radius = tree.query_ball_point(centers, r=query_radius, workers=-1)
         idxs_radius = [np.asarray(i, np.int64) for i in idxs_radius]
 
-    xyz, rgb, feats, idxs, cuts = create_patches(
-        room_points, patch_size, idxs_radius, room_colors, room_features, rng
-    )
+    # the patches' coordinates and room indices only: the conditioning is
+    # gathered by those indices on the device, batch by batch
+    xyz, _, _, idxs, cuts = create_patches(room_points, patch_size, idxs_radius, rng=rng)
     logger.info("Created %d fixed-size patches", len(xyz))
+    channels = [a for a, used in ((room_colors, use_rgb), (room_features, use_feat))
+                if used and a is not None]
 
     accum = RunningMean(room_points) if average_predictions else None
     accum_steps = [RunningMean(room_points) for _ in range(steps)] if return_steps else None
@@ -282,6 +325,7 @@ def denoise_room(
     # pad the LAST batch up to batch_size with repeats: one shape for every
     # batch; the surplus rows are ignored
     with span("rooms.batches"):
+        conditioning = RoomConditioning(device, *channels) if channels else None
         for s in range(0, P, batch_size):
             e = min(s + batch_size, P)
             sel = np.arange(s, e)
@@ -291,10 +335,8 @@ def denoise_room(
             if mesh is not None:
                 sel = shard_batch(sel, mesh)
             d, chain = denoise_patch_batch(
-                bridge, xyz[sel], steps,
-                rgb[sel] if rgb is not None else None,
-                feats[sel] if feats is not None else None,
-                use_rgb, use_feat, return_steps, filtering=filter_outliers,
+                bridge, xyz[sel], steps, return_steps=return_steps, filtering=filter_outliers,
+                cond=None if conditioning is None else (conditioning, idxs[sel]),
             )
             if mesh is not None:
                 d, chain = gather_patch_batch(mesh, d, chain)

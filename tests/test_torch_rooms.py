@@ -17,6 +17,7 @@ discontinuous too: the two may drop different points only at near ties,
 and the points whose kept entries agree are compared.
 """
 
+import copy
 import os
 
 import jax
@@ -37,7 +38,7 @@ from p2p_bridge_tpu_torch import denoise_room as room_cli
 from p2p_bridge_tpu_torch import rooms
 from p2p_bridge_tpu_torch.models.p2pb import P2PBridge
 from p2p_bridge_tpu_torch.models.unet_pvc import build_unet_from_config, init_parameters
-from p2p_bridge_tpu_torch.parallel.mesh import DataMesh
+from p2p_bridge_tpu_torch.parallel.mesh import DataMesh, shard_batch
 from p2p_bridge_tpu_torch.utils.io import read_ply, write_ply
 from p2p_bridge_tpu_torch.weights import load_jax_params
 
@@ -335,6 +336,134 @@ def test_denoise_room_pads_the_last_batch_and_needs_a_mesh_that_divides_it(bridg
         rooms.denoise_room(tb, pts, mesh=DataMesh(0, 3, torch.device("cpu"), "gloo"),
                            **room_kwargs())
 
+
+
+# ---------------------------------------------- the conditioning on the device
+# (room colours, room features, use_rgb, use_feat) of synthetic_room(10, 3000):
+# 50 patches, padded and split, the last batch of 4 padded
+def conditioning_case(name):
+    pts, colors, feats = synthetic_room(10, 3000)
+    f_order = np.ascontiguousarray(feats.T).T  # ScanNet++'s [C, N] file through .T
+    return pts, {
+        "f_order_f32": (None, f_order, False, True),
+        "c_order_f32": (None, feats, False, True),
+        "f16": (None, feats.astype(np.float16), False, True),
+        "rgb_and_feat": (colors, f_order, True, True),
+        # a column slice of [xyz | rgb], neither C- nor F-ordered; features not used
+        "rgb_only": (np.concatenate([pts, colors], 1)[:, 3:], feats, True, False),
+        "none": (colors, feats, False, False),
+    }[name]
+
+
+@pytest.fixture
+def sampled(bridges, monkeypatch):
+    """Spies on the port's room path, with the backbone left out (the
+    sampler returns its start): {"cond": each sample call's conditioning
+    (numpy, or None), "patches": each create_patches call's (args, kwargs,
+    a copy of its generator), "uploads": each device_rows call's array}."""
+    _, _, tb, _ = bridges
+    out = {"cond": [], "patches": [], "uploads": []}
+
+    def sample(x, cond=None, **kw):
+        out["cond"].append(None if cond is None else cond.numpy())
+        return {"x_pred": x}
+
+    def create_patches(*args, fn=rooms.create_patches, **kwargs):
+        out["patches"].append((args, kwargs, copy.deepcopy(kwargs.get("rng"))))
+        return fn(*args, **kwargs)
+
+    def device_rows(a, *args, fn=rooms.device_rows):
+        out["uploads"].append(a)
+        return fn(a, *args)
+
+    monkeypatch.setattr(tb, "sample", sample)
+    monkeypatch.setattr(rooms, "create_patches", create_patches)
+    monkeypatch.setattr(rooms, "device_rows", device_rows)
+    return out
+
+
+def host_conditioning(pts, patches_call, colors, feats, use_rgb, use_feat, mesh=None):
+    """Each batch's conditioning as the host gathered it before it moved to
+    the device: create_patches (the JAX package's, which the port's equals)
+    with the room's colours and features, each padded batch's rows
+    [rgb | feat] as denoise_patch_batch concatenated them (this rank's rows
+    with a mesh)."""
+    args, _, rng = patches_call
+    _, rgb, f, idxs, _ = jax_rooms.create_patches(pts, args[1], args[2], colors, feats, rng)
+    out = []
+    for s in range(0, len(idxs), BATCH):
+        sel = np.minimum(np.arange(s, s + BATCH), min(s + BATCH, len(idxs)) - 1)
+        if mesh is not None:
+            sel = shard_batch(sel, mesh)
+        parts = [a[sel] for a, used in ((rgb, use_rgb), (f, use_feat)) if used and a is not None]
+        out.append(np.concatenate(parts, -1) if parts else None)
+    return out, len(idxs)
+
+
+@pytest.mark.parametrize("case", ["f_order_f32", "c_order_f32", "f16", "rgb_and_feat",
+                                  "rgb_only", "none"])
+def test_every_batch_is_conditioned_as_the_host_gathered_it(sampled, bridges, case):
+    """F- and C-ordered f32 features, f16 features, colours with features,
+    colours alone (a strided view) and no conditioning: every batch the
+    sampler sees, the padded last one too, holds the rows the host gather
+    gave, bit for bit and in float32. create_patches gets no conditioning,
+    and each used channel is copied to the device once a room."""
+    _, _, tb, _ = bridges
+    pts, (colors, feats, use_rgb, use_feat) = conditioning_case(case)
+    kw = room_kwargs(room_colors=colors, room_features=feats)
+    kw.update(use_rgb=use_rgb, use_feat=use_feat)
+    for _ in range(2):  # two rooms
+        rooms.denoise_room(tb, pts, **kw)
+    assert len(sampled["patches"]) == 2
+    for args, kwargs, _ in sampled["patches"]:
+        assert len(args) == 3 and set(kwargs) == {"rng"}
+    want, n_patches = host_conditioning(pts, sampled["patches"][0], colors, feats,
+                                        use_rgb, use_feat)
+    assert n_patches % BATCH  # the last batch is padded
+    assert len(sampled["cond"]) == 2 * len(want)
+    for got, w in zip(sampled["cond"], want + want):
+        if w is None:
+            assert got is None
+        else:
+            assert got.dtype == w.dtype == np.float32
+            np.testing.assert_array_equal(got, w)
+    used = [a for a, u in ((colors, use_rgb), (feats, use_feat)) if u]
+    assert len(sampled["uploads"]) == 2 * len(used)
+    for got, w in zip(sampled["uploads"], used + used):
+        assert got is w
+
+
+@pytest.mark.parametrize("rank", [0, 1])
+def test_a_mesh_rank_is_conditioned_with_its_rows(sampled, bridges, rank, monkeypatch):
+    """A rank of a 2-rank gloo mesh samples its half of every padded batch,
+    conditioned with those rows' features (the gather of the predictions
+    stood in for: the predictions are not compared here)."""
+    _, _, tb, _ = bridges
+    pts, (_, feats, _, _) = conditioning_case("f_order_f32")
+    mesh = DataMesh(rank, 2, torch.device("cpu"), "gloo")
+    monkeypatch.setattr(rooms, "gather_patch_batch",
+                        lambda mesh, d, chain: (np.concatenate([d, d]), chain))
+    rooms.denoise_room(tb, pts, mesh=mesh, **room_kwargs(room_features=feats))
+    want, _ = host_conditioning(pts, sampled["patches"][0], None, feats, False, True, mesh)
+    assert len(sampled["cond"]) == len(want) and len(sampled["uploads"]) == 1
+    for got, w in zip(sampled["cond"], want):
+        assert got.shape == (BATCH // 2, PATCH, FEATS)
+        np.testing.assert_array_equal(got, w)
+
+
+def test_denoise_patch_batch_takes_the_conditioning_from_the_device_or_the_host(bridges):
+    """The same batch conditioned by the host's numpy rows and by a room's
+    RoomConditioning with the batch's indices: the same sample."""
+    _, _, tb, _ = bridges
+    pts, colors, feats = synthetic_room(13, 2000)
+    idxs = np.random.default_rng(14).choice(2000, (BATCH, PATCH))
+    f16 = feats.astype(np.float16)
+    with torch.no_grad():
+        host = rooms.denoise_patch_batch(tb, pts[idxs], 1, None, f16[idxs].astype(np.float32),
+                                         False, True)[0]
+        cond = rooms.RoomConditioning(torch.device("cpu"), f16)
+        device = rooms.denoise_patch_batch(tb, pts[idxs], 1, cond=(cond, idxs))[0]
+    np.testing.assert_array_equal(device, host)
 
 
 def test_denoise_room_on_cuda_requires_the_native_runtime(monkeypatch):

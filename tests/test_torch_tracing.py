@@ -5,7 +5,8 @@ through the attribute their callers look up.
 
 Runs use a tiny backbone (random weights from a seed): a 2,000-point room
 dense enough that some neighbourhoods are split by the host FPS and some
-padded, and one 600-point object cloud, each with 2 sampling steps.
+padded, the same room without its conditioning, and one 600-point object
+cloud, each with 2 sampling steps.
 """
 
 import importlib
@@ -32,7 +33,8 @@ TINY_PVD = {"global_embedding_dim": 64, "feat_embed_dim": 8, "attention_heads": 
             "channels": [8, 8, 16, 16, 32], "voxel_resolutions": [8, 4, 4, 4],
             "n_sa_blocks": [1, 1, 1, 1], "n_fp_blocks": [1, 1, 1, 1],
             "radius": [0.2, 0.4, 0.8, 1.2], "out_mlp": 16}
-ROOM_SPANS = ("rooms.seed", "rooms.patches", "rooms.split_fps", "rooms.batches", "rooms.upload")
+ROOM_SPANS = ("rooms.seed", "rooms.patches", "rooms.split_fps", "rooms.batches", "rooms.upload",
+              "rooms.features")
 SPANS = ROOM_SPANS + ("inference.denoise", "sampler.step")
 # the functions a benchmark wraps where their callers look them up, and the
 # run that calls each
@@ -74,8 +76,10 @@ def one_thread():
 
 @pytest.fixture(scope="module")
 def runs():
-    """{"room": run(), "object": run()}: each tiny run, returning its output."""
+    """{"room": run(), "object": run(), "bare_room": run()}: each tiny run,
+    returning its output; the bare room has no conditioning."""
     room_bridge = tiny_bridge(tiny_config(pvdl_snpp(), FEATS))
+    bare_bridge = tiny_bridge(tiny_config(pvdl_snpp(), 0))
     object_bridge = tiny_bridge(tiny_config(pvds_punet(), 0))
     pts, feats = tiny_room()
     cloud = np.random.default_rng(6).normal(size=(1, 600, 3)).astype(np.float32) * 0.5
@@ -89,7 +93,11 @@ def runs():
         return inference.patch_based_denoise_batch(object_bridge, cloud, patch_size=PATCH,
                                                    steps=STEPS, recombine_mode="exact")[0]
 
-    return {"room": room, "object": obj}
+    def bare_room():
+        return rooms.denoise_room(bare_bridge, pts, steps=STEPS, k=1, patch_size=PATCH,
+                                  batch_size=BATCH, query_radius=0.3, seed=3)["denoised"]
+
+    return {"room": room, "object": obj, "bare_room": bare_room}
 
 
 @pytest.fixture(scope="module")
@@ -146,7 +154,8 @@ def test_a_profiled_room_and_call_hold_every_span_and_no_other(traced):
 
 @pytest.mark.parametrize("run, inner, outer", [
     ("room", "rooms.split_fps", "rooms.patches"), ("room", "rooms.upload", "rooms.batches"),
-    ("room", "sampler.step", "rooms.batches"), ("object", "sampler.step", "inference.denoise")])
+    ("room", "sampler.step", "rooms.batches"), ("object", "sampler.step", "inference.denoise"),
+    ("room", "rooms.features", "rooms.batches")])
 def test_spans_nest(traced, run, inner, outer):
     ranges = traced[0][run][1]
     outers = [(a, b) for n, a, b in ranges if n == outer]
@@ -166,6 +175,18 @@ def test_one_step_span_a_sampling_step_and_one_upload_a_batch(traced):
     assert names.count("rooms.batches") == names.count("rooms.seed") == 1
     assert names.count("rooms.split_fps") >= 1 and names.count("rooms.patches") == 1
     assert out["object"][2] == 1 and names.count("inference.denoise") == 0
+
+
+def test_one_features_span_a_conditioned_room_and_none_without(traced):
+    """The room's conditioning goes to the device once a room, before its
+    first batch; a room with none opens no such span."""
+    out, _ = traced
+    ranges = out["room"][1]
+    features = [a for n, a, _ in ranges if n == "rooms.features"]
+    assert len(features) == 1
+    assert features[0] < min(a for n, a, _ in ranges if n == "rooms.upload")
+    bare = {n for n, _, _ in out["bare_room"][1]}
+    assert bare == (set(ROOM_SPANS) - {"rooms.features"}) | {"sampler.step"}
 
 
 @pytest.mark.parametrize("run", ["room", "object"])
