@@ -52,6 +52,12 @@ Phases, in order; any failure raises and the process exits non-zero:
      with weights, also at a ragged N with a C of no whole 16 bytes, at
      M = 1 and 2 and on integer clouds whose picks tie exactly, with one
      device function launched per call;
+     the point branch's fused GroupNorm (group_norm_act) at every distinct
+     (shape, groups) of a PVDS_PUNet forward at B = 73 and a PVDL_SNPP
+     forward at B = 32, as the forwards call it, in bf16 and f32, shared
+     and per-cloud affine, with and without swish: within gn_bound of its
+     plain formulation's f32 result (one rounding, and the two sides' f32
+     statistics), two calls bit-equal; timed at each PVDS_PUNet call;
      then the host cost of K2b's wrapper, of its launch and of the pieces
      of the launch path, this one's and the earlier one's;
   4. build PVDS_PUNet at full width as shipped (bf16, training.amp) and an
@@ -230,6 +236,7 @@ from p2p_bridge_tpu_torch.metrics import emd_auction
 from p2p_bridge_tpu_torch.metrics.chamfer import chamfer_distance_large
 from p2p_bridge_tpu_torch.metrics.emd_auction import align_clean_to_noisy
 from p2p_bridge_tpu_torch.models import evaluation as object_evaluation
+from p2p_bridge_tpu_torch.models import modules
 from p2p_bridge_tpu_torch.models.model_loader import (jax_checkpoint_arrays, restore_checkpoint,
                                                       restore_jax_checkpoint, save_checkpoint,
                                                       save_jax_checkpoint)
@@ -243,6 +250,7 @@ from p2p_bridge_tpu_torch.ops import ball_query as bq_ops
 from p2p_bridge_tpu_torch.ops import conv3d_gn as conv_ops
 from p2p_bridge_tpu_torch.ops import devoxelize as devox_ops
 from p2p_bridge_tpu_torch.ops import fps as fps_ops
+from p2p_bridge_tpu_torch.ops import group_norm as gn_ops
 from p2p_bridge_tpu_torch.ops import interpolate as interp_ops
 from p2p_bridge_tpu_torch.ops import scatter as scatter_ops
 from p2p_bridge_tpu_torch.ops import voxelize as vox_ops
@@ -310,10 +318,15 @@ KERNELS = {
                      "p2p_bridge_tpu/ops/devoxelize.py:179 _devox_bwd and :274 "
                      "_devox_mean_bwd, ops/fused_group.py:47 _fused_tpu_bwd, "
                      "ops/interpolate.py:108 _nn_interp_fused_bwd (XLA, no Pallas kernel)"),
+    # no Pallas kernel: XLA fuses the point branch's GroupNorm / AdaGN + swish
+    "group_norm_act": ("p2p_bridge_tpu_torch/csrc/group_norm.cu",
+                       "p2p_bridge_tpu/models/modules.py GroupNorm, AdaGN, SharedMLP, "
+                       "MyGroupNormMLP (XLA, no Pallas kernel)"),
 }
 SERVING = ("fps", "ball_query_group", "avg_voxelize", "conv3d_gn", "trilinear_devoxelize",
-           "three_nn_interpolate")  # the kernels of every denoising path's backbone
-TRAINING = tuple(k for k in KERNELS if k != "fps_cluster")  # a training step's
+           "three_nn_interpolate", "group_norm_act")  # the kernels of every denoising path's backbone
+# a training step's: the fused point-branch norm runs only where no gradient is wanted
+TRAINING = tuple(k for k in KERNELS if k not in ("fps_cluster", "group_norm_act"))
 ROOM_TRAINING = tuple(k for k in TRAINING if k != "auction_emd")  # room pairs are aligned offline
 # the kernels of one device function a launch, whose records a profile's share counts
 SINGLE_FUNCTION = ("trilinear_devoxelize", "ball_query_group", "three_nn_interpolate",
@@ -1145,6 +1158,174 @@ def check_interpolate(rng, dev, shapes) -> dict:
     return out
 
 
+def group_norm_calls(model, *inputs) -> list:
+    """[((shape, groups, per-cloud affine, swish, out dtype), calls)] of the
+    group_norm_act calls of one forward of ``model`` under no_grad."""
+    calls = []
+    real = modules.group_norm_act
+
+    def record(x, gamma, beta, groups, eps=1e-5, act=False, out_dtype=None):
+        calls.append((tuple(x.shape), groups, gamma.dim() == 2, act, out_dtype or x.dtype))
+        return real(x, gamma, beta, groups, eps, act, out_dtype)
+
+    modules.group_norm_act = record
+    try:
+        with torch.no_grad():
+            model(*inputs)
+    finally:
+        modules.group_norm_act = real
+    return counted(calls)
+
+
+def main_path_norms(dev) -> dict:
+    """{config: group_norm_calls of one bf16 forward}: PVDS_PUNet at B =
+    PATCHES x PATCH points, PVDL_SNPP at B = ROOM_BATCH x ROOM_PATCH with
+    ROOM_FEATS feature channels (random weights and inputs)."""
+    out = {}
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for name, cfg, b, n, feats in (("PVDS_PUNet", pvds_punet(), PATCHES, PATCH, 0),
+                                   ("PVDL_SNPP", pvdl_snpp(), ROOM_BATCH, ROOM_PATCH, ROOM_FEATS)):
+        model = build_unet_from_config(cfg).eval().to(dev)
+        x = torch.rand(b, n, 3, device=dev, generator=gen) - 0.5
+        t = torch.full((b,), 500.0, device=dev)
+        cond = (torch.randn(b, n, feats, device=dev, generator=gen),) if feats else ()
+        out[name] = group_norm_calls(model, x, t, *cond)
+        log(f"group_norm_act calls of one bf16 {name} forward at B={b}: "
+            f"{sum(c for _, c in out[name])} ({len(out[name])} distinct)")
+        del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def gn_bound(args, groups, act, want, out_dtype, eps: float = 1e-5) -> torch.Tensor:
+    """Per element, how far the fused kernel may lie from its plain
+    formulation's f32 result ``want`` on the inputs ``args`` (x, gamma,
+    beta).
+
+    The kernel rounds its f32 result once: half an ulp of the output type,
+    at most one ulp of ``want``'s binade for bf16 and 2^-23 |want| for f32.
+    Its statistics (double) and the plain formulation's (f32 sums of n
+    values of a group) differ by the f32 terms of conv_bf16_bound's
+    analysis: L(n) = 2 log2(n) 2^-24 for a sum, dm = L(n) mean|x| for the
+    mean, dr = L(n) (E[x^2] + 2 |m| mean|x|) / (2 (v + eps)) relative for
+    rstd, and 4 2^-24 of the affine's terms for its roundings; swish
+    multiplies them by at most its slope:
+
+      |got - want| <= s (|gamma| rstd dm + |gamma (x - m)| rstd dr
+                         + 4 2^-24 (|gamma (x - m)| rstd + |beta|)) + last rounding
+    """
+    x, gamma, beta = args
+    B, C = x.shape[0], x.shape[-1]
+    xg = x.double().reshape(B, -1, groups, C // groups)
+    n = xg.shape[1] * xg.shape[3]
+    rounds = 2.0 * math.log2(max(n, 2)) * 2.0 ** -24
+    m = xg.mean(dim=(1, 3), keepdim=True)
+    sq = (xg * xg).mean(dim=(1, 3), keepdim=True)
+    var = (sq - m * m).clamp_min(0.0)
+    rstd = torch.rsqrt(var + eps)
+    mean_abs = xg.abs().mean(dim=(1, 3), keepdim=True)
+    dm = rounds * mean_abs
+    dr = rounds * (sq + 2 * m.abs() * mean_abs) / (2 * (var + eps))
+    g = gamma.double().expand(B, C).reshape(B, 1, groups, C // groups).abs()
+    bt = beta.double().expand(B, C).reshape(B, 1, groups, C // groups).abs()
+    centred = (xg - m).abs() * rstd * g
+    dz = g * rstd * dm + centred * dr + 4 * 2.0 ** -24 * (centred + bt)
+    last = ulp_bf16(want) if out_dtype == torch.bfloat16 else 2.0 ** -23 * want.abs()
+    return ((SWISH_MAX_SLOPE if act else 1.0) * dz).reshape(want.shape).float() + last
+
+
+def group_norm_error(args, groups, act, out_dtype) -> tuple:
+    """The kernel against the plain formulation on the same inputs, within
+    gn_bound of its f32 result, and a second call bit-equal; -> (max abs
+    error, the largest ratio of error to bound)."""
+    got = gn_ops.group_norm_act(*args, groups, 1e-5, act, out_dtype)
+    again = gn_ops.group_norm_act(*args, groups, 1e-5, act, out_dtype)
+    want = gn_ops.group_norm_act_plain(*args, groups, 1e-5, act, torch.float32)
+    torch.cuda.synchronize()
+    if not (got.dtype == out_dtype and got.shape == want.shape and torch.equal(got, again)):
+        raise AssertionError(f"group_norm_act: {got.dtype} {tuple(got.shape)}, two calls equal "
+                             f"{torch.equal(got, again)}")
+    diff = (got.float() - want).abs()
+    return diff.max().item(), (diff / gn_bound(args, groups, act, want, out_dtype)).max().item()
+
+
+def gn_inputs(gen, dev, shape, dt, per_cloud):
+    """x (mean 0.5, unit spread, in dt), gamma near 1, beta near 0, [B, C]
+    per cloud or [C] shared, f32."""
+    B, C = shape[0], shape[-1]
+    x = (torch.randn(shape, device=dev, generator=gen) + 0.5).to(dt)
+    affine = (B, C) if per_cloud else (C,)
+    gamma = 1 + 0.1 * torch.randn(affine, device=dev, generator=gen)
+    beta = 0.1 * torch.randn(affine, device=dev, generator=gen)
+    return x, gamma, beta
+
+
+def check_group_norm(dev) -> dict:
+    """The fused point-branch GroupNorm against its plain formulation at
+    every distinct (shape, groups) of a PVDS_PUNet forward at B = 73 and a
+    PVDL_SNPP forward at B = 32, in bf16 and f32, shared and per-cloud
+    affine, with and without swish; then timed at each PVDS_PUNet call as
+    the forward makes it (bf16, and the f32 twin's), beside the plain
+    formulation. Bound: x read twice, y written once and the affine tables
+    read, over 3.35 TB/s (12 f32 operations a value do not bind)."""
+    calls = main_path_norms(dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    worst, errs = {"bf16": 0.0, "f32": 0.0}, {"bf16": 0.0, "f32": 0.0}
+    for name, recorded in calls.items():
+        for (shape, groups) in dict.fromkeys((s, g) for (s, g, _, _, _), _ in recorded):
+            for dname, dt in DTYPES.items():
+                for per_cloud in (False, True):
+                    x, gamma, beta = gn_inputs(gen, dev, shape, dt, per_cloud)
+                    for act in (False, True):
+                        for out_dtype in dict.fromkeys((dt, torch.float32)):
+                            err, ratio = group_norm_error((x, gamma, beta), groups, act,
+                                                          out_dtype)
+                            if not ratio <= 1.0:
+                                raise AssertionError(
+                                    f"group_norm_act {name} {dname} {shape} / {groups} per-cloud "
+                                    f"{per_cloud} act {act} -> {out_dtype}: {ratio:.3f} of its "
+                                    "bound")
+                            worst[dname] = max(worst[dname], ratio)
+                            errs[dname] = max(errs[dname], err)
+                    del x
+            log(f"group_norm_act {name} {shape} / {groups}: bf16 and f32, shared and per-cloud, "
+                f"with and without swish, within gn_bound (largest ratio to it so far "
+                f"{worst['bf16']:.3f} bf16, {worst['f32']:.3f} f32)")
+        torch.cuda.empty_cache()
+    out = {}
+    for dname, dt in DTYPES.items():
+        tally = Tally(dname, library=False)
+        for (shape, groups, per_cloud, act, out_dtype), n in calls["PVDS_PUNet"]:
+            out_dtype = out_dtype if dt == torch.bfloat16 else torch.float32
+            x, gamma, beta = gn_inputs(gen, dev, shape, dt, per_cloud)
+
+            def kernel():
+                return gn_ops.group_norm_act(x, gamma, beta, groups, 1e-5, act, out_dtype)
+
+            def plain():
+                return gn_ops.group_norm_act_plain(x, gamma, beta, groups, 1e-5, act, out_dtype)
+
+            ms = time_ms(kernel)
+            dms = device_ms(kernel, "group_norm_act")
+            hus = host_us(kernel, ms)
+            plain_ms = time_ms(plain)
+            values = x.numel()
+            # x read once and y written once: the kernel's second read of x
+            # (its apply pass) is its own cost, not the bound's
+            nbytes = values * (x.element_size() + esize(out_dtype)) + 2 * gamma.numel() * 4
+            bound = tally.add(n, ms, plain_ms, None, nbytes, 12.0 * values, 0.0, dms, hus)
+            log(f"group_norm_act {dname} {shape} / {groups} x{n} ({'per-cloud' if per_cloud else 'shared'}"
+                f", swish {act}, -> {out_dtype}): kernel {ms:.4f} ms (device {dms:.4f} ms, host "
+                f"{hus:.1f} us a call; {bound / ms:.3f} of the bound {bound:.4f} ms), plain "
+                f"{plain_ms:.4f} ms")
+            del x
+        tally.err = errs[dname]
+        tally.extra["max_ratio_to_bound"] = worst[dname]
+        out[dname] = tally
+    torch.cuda.empty_cache()
+    return out
+
+
 def check_kernels(dev, plan) -> dict:
     rng = np.random.default_rng(0)
     shapes = main_path_shapes(plan, PATCH)
@@ -1156,6 +1337,7 @@ def check_kernels(dev, plan) -> dict:
         "conv3d_gn": check_conv3d_gn(rng, dev, shapes),
         "trilinear_devoxelize": check_devoxelize(rng, dev, shapes),
         "three_nn_interpolate": check_interpolate(rng, dev, shapes),
+        "group_norm_act": check_group_norm(dev),
     }
     for name, per_dtype in results.items():
         for dtype, tally in per_dtype.items():
@@ -1386,6 +1568,7 @@ KERNEL_FUNCTIONS = {
     "avg_voxelize_backward": ("gather_divide_kernel",),
     "auction_emd": ("auction_kernel",),
     "scatter_rows": ("scatter_table_kernel", "scatter_rows_kernel"),
+    "group_norm_act": ("point_gn_partials_kernel", "point_gn_apply_kernel"),
 }
 
 

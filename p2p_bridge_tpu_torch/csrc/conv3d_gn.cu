@@ -91,10 +91,13 @@
 //    warp's by shuffles, then a fixed order over the warps), no atomics.
 // Then gn_stats_kernel reduces the partials in double and the apply pass
 // normalises, applies the affine and the swish in f32 and stores T, in
-// place (the bf16 pass with 16-byte vectors of 8 channels).
+// place (the bf16 pass with 16-byte vectors of 8 channels). Both take their
+// arithmetic from group_norm.cuh, which the point branch's GroupNorm
+// (group_norm.cu) shares.
 #include <climits>
 
 #include "common.cuh"
+#include "group_norm.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -459,23 +462,14 @@ __global__ void gn_stats_kernel(const double* __restrict__ partials, int BG,
                                 float* __restrict__ stats) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= BG) return;
-  const double* pp = partials + (size_t)t * T * 2;
-  double s = 0.0, s2 = 0.0;
-  for (int i = 0; i < T; ++i) {
-    s += pp[2 * i];
-    s2 += pp[2 * i + 1];
-  }
-  const double m = s / count;
-  const double v = s2 / count - m * m;
-  stats[2 * t] = (float)m;
-  stats[2 * t + 1] = (float)(1.0 / sqrt(v + (double)eps));
+  const float2 ms = p2pb::gn_moments(partials + (size_t)t * T * 2, T, count, eps);
+  stats[2 * t] = ms.x;
+  stats[2 * t + 1] = ms.y;
 }
 
 __device__ __forceinline__ float normalise(float v, const float* st, float g,
                                            float be, int act) {
-  v = (v - st[0]) * st[1];
-  v = v * g + be;
-  return act ? v * (1.0f / (1.0f + expf(-v))) : v;
+  return p2pb::gn_normalise(v, st[0], st[1], g, be, act);
 }
 
 // f32, in place; blockIdx.y is the cloud
@@ -713,7 +707,8 @@ P2PB_API long long p2pb_conv3d_gn_scratch_bytes(int B, int R, int Cout,
   return scratch_bytes(B, R, Cout, groups, bf16);
 }
 
-// gamma/beta hold [C] (affine_per_cloud = 0) or [B, C] (= 1).
+// gamma/beta hold [C] (affine_stride = 0) or [B, C] with rows affine_stride
+// >= C floats apart (a column slice of a wider table).
 // Both: Cout % 32 == 0, a GroupNorm group of whole slots (Cout / groups a
 // multiple of n_tile(Cout, bf16) / 8), R a power of two >= 8, x and w
 // 16-byte aligned.
@@ -724,7 +719,7 @@ P2PB_API long long p2pb_conv3d_gn_scratch_bytes(int B, int R, int Cout,
 // every tap transposed: K-major B tiles).
 P2PB_API int p2pb_conv3d_gn(const void* x, const void* w, const void* bias,
                             const void* gamma, const void* beta,
-                            int affine_per_cloud, int B, int R, int Cin,
+                            int affine_stride, int B, int R, int Cin,
                             int Cout, int groups, float eps, int act, int bf16,
                             void* y, void* scratch, int device, void* stream) {
   P2PB_ON_DEVICE(device);
@@ -734,7 +729,7 @@ P2PB_API int p2pb_conv3d_gn(const void* x, const void* w, const void* bias,
   float* stats = (float*)(partials + (size_t)B * groups * T * 2);
   const int n = n_tile(Cout, bf16);
   if (Cout % 32 || Cout % groups || (Cout / groups) % (n / SLOTS) || R < 8 || (R & (R - 1)) ||
-      Cin % (bf16 ? 32 : 4))
+      Cin % (bf16 ? 32 : 4) || (affine_stride && affine_stride < Cout))
     return (int)cudaErrorInvalidValue;
   const float* bs = (const float*)bias;
   int err;
@@ -765,16 +760,15 @@ P2PB_API int p2pb_conv3d_gn(const void* x, const void* w, const void* bias,
       partials, BG, T, (double)V * (Cout / groups), eps, stats);
   err = (int)cudaGetLastError();
   if (err) return err;
-  const int stride = affine_per_cloud ? Cout : 0;
   if (bf16) {
     const int VC8 = V * Cout / 8;
     gn_apply_bf16_kernel<<<dim3((VC8 + 255) / 256, B), 256, 0, s>>>(
-        (p2pb::bf16*)y, stats, (const float*)gamma, (const float*)beta, stride, VC8,
+        (p2pb::bf16*)y, stats, (const float*)gamma, (const float*)beta, affine_stride, VC8,
         Cout, groups, act);
   } else {
     const int VC = V * Cout;
     gn_apply_kernel<<<dim3((VC + 255) / 256, B), 256, 0, s>>>(
-        (float*)y, stats, (const float*)gamma, (const float*)beta, stride, VC, Cout,
+        (float*)y, stats, (const float*)gamma, (const float*)beta, affine_stride, VC, Cout,
         groups, act);
   }
   return (int)cudaGetLastError();

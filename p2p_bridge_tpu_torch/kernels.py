@@ -32,8 +32,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("fps.cu", "ball_query_group.cu", "voxelize.cu", "conv3d_gn.cu",
-           "devoxelize.cu", "interpolate.cu", "auction.cu", "scatter_rows.cu")
-HEADERS = ("common.cuh", "hopper.cuh")
+           "devoxelize.cu", "interpolate.cu", "auction.cu", "scatter_rows.cu", "group_norm.cu")
+HEADERS = ("common.cuh", "hopper.cuh", "group_norm.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
@@ -43,7 +43,8 @@ BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "p2p_bridge_tpu_
 # kernel name -> number of launches since the last reset
 launch_counts = {"fps": 0, "fps_cluster": 0, "ball_query_group": 0, "avg_voxelize": 0,
                  "conv3d_gn": 0, "trilinear_devoxelize": 0, "three_nn_interpolate": 0,
-                 "avg_voxelize_backward": 0, "auction_emd": 0, "scatter_rows": 0}
+                 "avg_voxelize_backward": 0, "auction_emd": 0, "scatter_rows": 0,
+                 "group_norm_act": 0}
 
 _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _SIGNATURES = {
@@ -64,6 +65,7 @@ _SIGNATURES = {
     "p2pb_trilinear_devoxelize": (_I, (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P)),
     "p2pb_three_nn_interpolate": (_I, (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P)),
     "p2pb_scatter_rows": (_I, (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P)),
+    "p2pb_group_norm_act": (_I, (_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P, _P, _I, _P)),
     "p2pb_error_string": (ctypes.c_char_p, (_I,)),
 }
 DATA = (torch.float32, torch.bfloat16)  # the element types of a kernel's data
@@ -165,6 +167,28 @@ def check(*specs) -> int:
                 or (t.dtype not in dtype if type(dtype) is tuple else t.dtype != dtype)):
             _reject(name, t, dtype, shape, device)
     return first.get_device()
+
+
+def affine_operand(t: torch.Tensor) -> torch.Tensor:
+    """A GroupNorm affine table as the kernels read it (:func:`affine_stride`):
+    ``t`` itself where its channels are adjacent and its rows apart, else a
+    contiguous copy."""
+    if t.stride(-1) == 1 and (t.dim() == 1 or t.shape[0] == 1 or t.stride(0) >= t.shape[-1]):
+        return t
+    return t.contiguous()
+
+
+def affine_stride(name: str, t: torch.Tensor, B: int, C: int, device) -> int:
+    """The row stride the kernels take for an f32 GroupNorm affine: 0 for a
+    shared [C], the distance between rows for a per-cloud [B, C] whose
+    channels are adjacent (a contiguous table, or a column slice of a wider
+    one: ``models.modules.AffineBank``). Raises for any other tensor."""
+    per_cloud = t.dim() == 2
+    shape = (B, C) if per_cloud else (C,)
+    if (t.device != device or t.dtype != torch.float32 or t.shape != shape
+            or t.stride(-1) != 1 or (per_cloud and B > 1 and t.stride(0) < C)):
+        _reject(name, t, torch.float32, shape, device)
+    return max(t.stride(0), C) if per_cloud else 0
 
 
 def _reject(name, t, dtype, shape, device) -> None:

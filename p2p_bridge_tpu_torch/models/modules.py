@@ -11,6 +11,17 @@ f32; a ``Linear`` casts its input, weight and bias to ``dtype`` and
 returns ``dtype`` (bf16 products accumulate in f32); a ``GroupNorm``
 takes its statistics in f32 and returns ``dtype``, or f32 when ``dtype``
 is None (flax's GroupNorm without a dtype).
+
+Each GroupNorm / AdaGN / MyGroupNorm of the point branch and the swish
+after it run through :func:`norm_act`: one ``group_norm_act`` call (looked
+up here at call time) wherever ``fuses`` holds, on the card with no
+gradient wanted. There the result is rounded once; elsewhere (the CPU,
+autograd) the modules' own composition runs, which rounds the norm to
+``dtype`` before AdaGN's modulation and swish (``ops/group_norm.py``).
+
+Inside ``utils.frozen.frozen_weights()`` (the sampler's steps) a Linear
+casts its weight and bias once, not at every call, and on the card the
+AdaGNs take their affines from the model's :class:`AffineBank`.
 """
 
 from __future__ import annotations
@@ -21,6 +32,10 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .. import kernels
+from ..ops.group_norm import fuses, group_norm_act, group_norm_stats
+from ..utils.frozen import active, once
 
 
 def swish(x: torch.Tensor) -> torch.Tensor:
@@ -61,18 +76,8 @@ class Linear(nn.Linear):
 
     def forward(self, x):
         dt = self.compute_dtype
-        bias = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), bias)
-
-
-def group_norm_stats(x: torch.Tensor, groups: int, eps: float) -> torch.Tensor:
-    """Normalise x [B, ..., C] per (batch, group) over every other axis, in
-    f32, variance E[x^2] - E[x]^2 clamped at 0 (flax.linen.GroupNorm)."""
-    B, C = x.shape[0], x.shape[-1]
-    xg = x.float().reshape(B, -1, groups, C // groups)
-    m = xg.mean(dim=(1, 3), keepdim=True)
-    v = ((xg * xg).mean(dim=(1, 3), keepdim=True) - m * m).clamp_min(0.0)
-    return ((xg - m) * torch.rsqrt(v + eps)).reshape(x.shape)
+        bias = None if self.bias is None else once(self.bias, dt, lambda b: b.to(dt))
+        return F.linear(x.to(dt), once(self.weight, dt, lambda w: w.to(dt)), bias)
 
 
 class GroupNorm(nn.GroupNorm):
@@ -99,10 +104,14 @@ class AdaGN(nn.Module):
         super().__init__()
         self.norm = GroupNorm(groups, channels, eps=1e-5, dtype=dtype)
         self.emd = Linear(cond_dim, 2 * channels, dtype=dtype)
+        self.bank = None  # the model's AffineBank, where it has one
 
     def affine(self, cond: torch.Tensor):
         """The per-cloud [B, C] f32 affine on the raw group normalisation:
-        norm(x) * (scale * factor) + (bias * factor + shift)."""
+        norm(x) * (scale * factor) + (bias * factor + shift); on the card
+        inside ``frozen_weights()`` a view of the model's AffineBank."""
+        if self.bank is not None and active() and kernels.on_card(cond):
+            return self.bank.affine(self, cond)
         fb = self.emd(cond).float()
         factor, shift = fb.chunk(2, dim=-1)
         return self.norm.weight[None] * factor, self.norm.bias[None] * factor + shift
@@ -112,6 +121,69 @@ class AdaGN(nn.Module):
         shape = (x.shape[0],) + (1,) * (x.dim() - 2) + (-1,)
         factor, shift = fb.view(shape[:-1] + (2 * self.norm.num_channels,)).chunk(2, dim=-1)
         return self.norm(x) * factor + shift
+
+
+class AffineBank:
+    """The AdaGNs of one model (one compute dtype, one conditioning width):
+    all their affines of a conditioning from one product with their stacked
+    emd weights, in AdaGN.affine's operations (the emd output rounded to
+    the compute dtype, the fold in f32). Each AdaGN's [B, C] is a column
+    view of two [B, sum C] tables, which the kernels read by their row
+    stride. Used on the card inside ``frozen_weights()``, where the stacked
+    weights are made once a sampler call and the tables once a step."""
+
+    def __init__(self, adagns):
+        self.adagns = list(adagns)
+        self.columns, c = {}, 0
+        for m in self.adagns:
+            self.columns[id(m)] = (c, c + m.norm.num_channels)
+            c += m.norm.num_channels
+
+    def _stacked(self, _):
+        """(emd weight and bias, the factor rows first, in the compute dtype;
+        the norms' scales and biases)."""
+        ms, dt = self.adagns, self.adagns[0].emd.compute_dtype
+        w = [m.emd.weight.chunk(2) for m in ms]
+        b = [m.emd.bias.chunk(2) for m in ms]
+        return (torch.cat([f for f, _ in w] + [s for _, s in w]).to(dt),
+                torch.cat([f for f, _ in b] + [s for _, s in b]).to(dt),
+                torch.cat([m.norm.weight for m in ms]), torch.cat([m.norm.bias for m in ms]))
+
+    def _tables(self, cond):
+        weight, bias, scale, shift = once(self.adagns[0].emd.weight, self, self._stacked)
+        factor, add = F.linear(cond.to(weight.dtype), weight, bias).float().chunk(2, dim=-1)
+        return scale[None] * factor, shift[None] * factor + add
+
+    def affine(self, m: AdaGN, cond: torch.Tensor):
+        gamma, beta = once(cond, self, self._tables)
+        a, b = self.columns[id(m)]
+        return gamma[:, a:b], beta[:, a:b]
+
+
+def norm_act(norm: nn.Module, x: torch.Tensor,
+             cond: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """swish(``norm`` of x), ``norm`` a GroupNorm, an AdaGN of ``cond`` or a
+    MyGroupNorm (its first ``keep`` channels normalised): one
+    ``group_norm_act`` call where it fuses (AdaGN's modulation folded into a
+    per-cloud affine, one rounding), else the modules' own composition."""
+    if isinstance(norm, MyGroupNorm):
+        keep = norm.keep
+        if keep == x.shape[-1]:
+            return norm_act(norm.group_norm, x)
+        if not keep:
+            return swish(x)
+        gn = norm.group_norm
+        if fuses(x, gn):
+            return torch.cat([norm_act(gn, x[..., :keep]), swish(x[..., keep:])], -1)
+        # one swish over the whole row: the CPU's sigmoid of a strided slice
+        # may differ in the last bit
+        return swish(torch.cat([gn(x[..., :keep]), x[..., keep:]], -1))
+    ada = isinstance(norm, AdaGN)
+    gn = norm.norm if ada else norm
+    if fuses(x, norm, *((cond,) if ada else ())):
+        gamma, beta = norm.affine(cond) if ada else (gn.weight, gn.bias)
+        return group_norm_act(x, gamma, beta, gn.num_groups, gn.eps, True, gn.compute_dtype)
+    return swish(norm(x, cond) if ada else norm(x))
 
 
 class SE(nn.Module):
@@ -207,16 +279,14 @@ class SharedMLP(nn.Module):
 
     def forward(self, x, cond: Optional[torch.Tensor] = None):
         for i in range(0, len(self.layers), 3):
-            x = self.layers[i](x)
-            norm = self.layers[i + 1]
-            x = norm(x, cond) if isinstance(norm, AdaGN) else norm(x)
-            x = swish(x)
+            x = norm_act(self.layers[i + 1], self.layers[i](x), cond)
         return x
 
 
 class MyGroupNorm(nn.Module):
     """GroupNorm(min_groups) over the first C - C % min_groups channels;
-    the rest pass through (identity when C < min_groups)."""
+    the rest pass through (identity when C < min_groups). Applied with the
+    swish after it by :func:`norm_act`."""
 
     def __init__(self, channels: int, min_groups: int = 32,
                  dtype: torch.dtype = torch.float32):
@@ -224,13 +294,6 @@ class MyGroupNorm(nn.Module):
         self.keep = channels - channels % min_groups
         if self.keep:
             self.group_norm = GroupNorm(min_groups, self.keep, eps=1e-5, dtype=dtype)
-
-    def forward(self, x):
-        if not self.keep:
-            return x
-        if self.keep == x.shape[-1]:
-            return self.group_norm(x)
-        return torch.cat([self.group_norm(x[..., :self.keep]), x[..., self.keep:]], -1)
 
 
 class _MyGroupNormLayer(nn.Module):
@@ -240,7 +303,8 @@ class _MyGroupNormLayer(nn.Module):
                                  MyGroupNorm(out_channels, dtype=dtype), Swish())
 
     def forward(self, x):
-        return self.mlp(x)
+        linear, norm, _ = self.mlp
+        return norm_act(norm, linear(x))
 
 
 class MyGroupNormMLP(nn.Module):

@@ -18,6 +18,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from ..utils.frozen import frozen_weights
 from ..utils.spans import span
 from .loss import get_loss
 from .schedules import BridgeSchedule, space_indices
@@ -155,22 +156,24 @@ class P2PBridge:
         B = x1.shape[0]
         xt = x1
         xs, preds = [], []
-        for i in range(plan.num_steps):
-            with span("sampler.step"):
-                nl = torch.full((B,), float(plan.noise_level_n[i]), device=xt.device)
-                net_out = self.model(xt, nl, cond)
-                if self.objective == "pred_noise":
-                    pred_x0 = self.pred_x0_from_eps(float(plan.std_fwd_n[i]), xt, net_out,
-                                                    clip_denoise)
-                else:
-                    pred_x0 = net_out
-                xt = float(plan.post_mu_x0[i]) * pred_x0 + float(plan.post_mu_xn[i]) * xt
-                if not self.ot_ode:
-                    noise = torch.randn(xt.shape, generator=generator, device=xt.device,
-                                        dtype=xt.dtype)
-                    xt = xt + float(plan.noise_mask[i] * plan.post_std[i]) * noise
-                xs.append(xt)
-                preds.append(pred_x0)
+        # the weights' casts and layouts made once for every step
+        with frozen_weights():
+            for i in range(plan.num_steps):
+                with span("sampler.step"):
+                    nl = torch.full((B,), float(plan.noise_level_n[i]), device=xt.device)
+                    net_out = self.model(xt, nl, cond)
+                    if self.objective == "pred_noise":
+                        pred_x0 = self.pred_x0_from_eps(float(plan.std_fwd_n[i]), xt, net_out,
+                                                        clip_denoise)
+                    else:
+                        pred_x0 = net_out
+                    xt = float(plan.post_mu_x0[i]) * pred_x0 + float(plan.post_mu_xn[i]) * xt
+                    if not self.ot_ode:
+                        noise = torch.randn(xt.shape, generator=generator, device=xt.device,
+                                            dtype=xt.dtype)
+                        xt = xt + float(plan.noise_mask[i] * plan.post_std[i]) * noise
+                    xs.append(xt)
+                    preds.append(pred_x0)
 
         # picked on the host: indexing a device tensor with a list copies the
         # list to the device and waits for it

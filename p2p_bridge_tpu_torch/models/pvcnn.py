@@ -35,6 +35,7 @@ from ..ops import (
     trilinear_devoxelize_with_mean,
 )
 from ..ops.conv3d_gn import conv3d_gn
+from ..utils.frozen import once
 from .modules import SE, AdaGN, GroupNorm, LinearAttention, SharedMLP, Swish
 
 
@@ -259,14 +260,17 @@ class PVConv(nn.Module):
             gamma, beta = norm.affine(cond)
         else:
             gamma, beta = norm.weight, norm.bias
-        weight = conv.weight.permute(2, 3, 4, 1, 0).to(self.dtype)  # [3, 3, 3, Cin, Cout]
+        weight = once(conv.weight, self.dtype,  # [3, 3, 3, Cin, Cout]
+                      lambda w: w.permute(2, 3, 4, 1, 0).to(self.dtype).contiguous())
         return conv3d_gn(x, weight, conv.bias, gamma, beta, groups=8, eps=1e-5, act=act)
 
     def forward(self, features, coords, cond=None):
         r = self.spec.resolution
         vl = self.voxel_layers
         features = features.to(self.dtype)
-        vox, cont = normalize_coords_to_voxels(coords, r)
+        # an FP stage's convs see the coordinates and resolution of the SA
+        # stage's: normalised once a step (utils/frozen.py)
+        vox, cont = once(coords, ("voxels", r), lambda c: normalize_coords_to_voxels(c, r))
         grid = avg_voxelize(features.contiguous(), vox, r)
         h = self._conv_gn(grid, vl[0], vl[1], cond, act=True)
         h = vl[3](h)

@@ -19,6 +19,7 @@ from torch import nn
 
 from .modules import (
     AdaGN,
+    AffineBank,
     Attention,
     GroupNorm,
     Linear,
@@ -26,6 +27,7 @@ from .modules import (
     Pnet2Stage,
     SharedMLP,
     Swish,
+    norm_act,
     time_embed_mlp,
     timestep_embedding,
 )
@@ -98,6 +100,11 @@ class PVCNN2Unet(nn.Module):
         self.classifier = nn.Sequential(
             SharedMLP(head_in, (plan.out_mlp,), dtype=dtype), nn.Dropout(dropout),
             nn.Linear(plan.out_mlp, out_dim))
+        adagns = [m for m in self.modules() if isinstance(m, AdaGN)]
+        if adagns:  # every AdaGN's affine of the one global embedding at once
+            bank = AffineBank(adagns)
+            for m in adagns:
+                m.bank = bank
 
     @staticmethod
     def _split(layer, module_type):
@@ -122,7 +129,8 @@ class PVCNN2Unet(nn.Module):
         features = x[..., self.input_dim:]
         if self.embed_feats is not None:
             src = coords if self.extra_feature_channels == 0 else features
-            features = self.embed_feats(src)
+            linear, norm, _, out = self.embed_feats
+            features = out(norm_act(norm, linear(src)))
 
         cond = self.global_pnet(coords) if self.use_global_embedding else None
         temb = self.embedf(timestep_embedding(t, self.embed_dim))

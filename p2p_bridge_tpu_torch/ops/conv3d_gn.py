@@ -21,10 +21,13 @@ any Pallas kernel.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
 from .. import kernels
+from ..utils.frozen import once
 
 
 def apply_group_norm(y: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -61,19 +64,7 @@ def conv3d_gn_plain(x, weight, bias, gamma, beta, groups=8, eps=1e-5, act=False)
     return y.to(x.dtype)
 
 
-def pad_channels(x, weight, multiple=32):
-    """x [..., Cin] and weight [3, 3, 3, Cin, Cout] with zero channels added
-    up to a multiple of ``multiple``: 32 for the bf16 kernel (whole
-    k-chunks; TMA rows of 64 or 128 bytes), 4 for the f32 kernel (16-byte
-    rows for its copies). The convolution is the same: the added products
-    are 0."""
-    pad = -x.shape[-1] % multiple
-    if pad == 0:
-        return x, weight
-    return F.pad(x, (0, pad)), F.pad(weight, (0, 0, 0, pad))
-
-
-# input channels of each kernel's rows: a multiple of this (pad_channels)
+# input channels of each kernel's rows: a multiple of this (kernel_operands)
 CIN_MULTIPLE = {torch.bfloat16: 32, torch.float32: 4}
 
 
@@ -101,14 +92,30 @@ def check_tile_shape(R: int, cout: int, groups: int, dtype: torch.dtype) -> None
 
 def kernel_operands(x, weight):
     """x and weight as K1's kernel for their dtype takes them: Cin padded
-    with zero channels to CIN_MULTIPLE (:func:`pad_channels`); the f32
+    with zero channels (and zero weight rows) to CIN_MULTIPLE: 32 for the
+    bf16 kernel (whole k-chunks; TMA rows of 64 or 128 bytes), 4 for the f32
+    kernel (16-byte rows for its copies), which leaves the convolution as it
+    was (the added products are 0); the f32
     kernel keeps the DHWIO weight [3, 3, 3, Cin, Cout], the bf16 kernel
     takes it as [dx, dz, dy, Cout, Cin] (per (dx, dz) and k-chunk one TMA
     box holds the K-major weight tiles of the three dy taps)."""
-    x, weight = pad_channels(x, weight, CIN_MULTIPLE[x.dtype])
-    if x.dtype == torch.bfloat16:
+    return kernel_input(x), kernel_weight(weight, x.dtype)
+
+
+def kernel_input(x):
+    """The x half of :func:`kernel_operands`."""
+    pad = -x.shape[-1] % CIN_MULTIPLE[x.dtype]
+    return F.pad(x, (0, pad)) if pad else x
+
+
+def kernel_weight(weight, dtype):
+    """The weight half of :func:`kernel_operands`, for x of ``dtype``."""
+    pad = -weight.shape[3] % CIN_MULTIPLE[dtype]
+    if pad:
+        weight = F.pad(weight, (0, 0, 0, pad))
+    if dtype == torch.bfloat16:
         weight = weight.permute(0, 2, 1, 4, 3).contiguous()
-    return x, weight
+    return weight
 
 
 def conv3d_gn_reference(x, weight, bias, gamma, beta, groups=8, eps=1e-5, act=False):
@@ -119,21 +126,29 @@ def conv3d_gn_reference(x, weight, bias, gamma, beta, groups=8, eps=1e-5, act=Fa
     return apply_group_norm(y.permute(0, 2, 3, 4, 1), gamma, beta, groups, eps, act)
 
 
+@functools.lru_cache(maxsize=None)
+def scratch_bytes(B: int, R: int, cout: int, groups: int, bf16: int) -> int:
+    """The scratch K1 needs for this shape (its C entry's answer, asked once)."""
+    return kernels.entry_points()["p2pb_conv3d_gn_scratch_bytes"](B, R, cout, groups, bf16)
+
+
 def _conv3d_gn_cuda(x, weight, bias, gamma, beta, groups, eps, act):
     B, R = x.shape[0], x.shape[1]
     cin, cout = weight.shape[3], weight.shape[4]
-    affine_shape = (B, cout) if gamma.dim() == 2 else (cout,)
     device = kernels.check(("x", x, kernels.DATA, (B, R, R, R, cin)),
                            ("weight", weight, x.dtype, (3, 3, 3, cin, cout)),
-                           ("bias", bias, torch.float32, (cout,)),
-                           ("gamma", gamma, torch.float32, affine_shape),
-                           ("beta", beta, torch.float32, affine_shape))
+                           ("bias", bias, torch.float32, (cout,)))
+    stride = kernels.affine_stride("gamma", gamma, B, cout, x.device)
+    if kernels.affine_stride("beta", beta, B, cout, x.device) != stride:
+        raise ValueError("gamma and beta: expected one row stride")
     dev, dt = x.device, x.dtype
     if cout % groups:
         raise ValueError(f"Cout={cout} is not a multiple of groups={groups}")
     bf16 = int(dt == torch.bfloat16)
     check_tile_shape(R, cout, groups, dt)
-    x, weight = kernel_operands(x, weight)
+    # the weight's layout made once a sampler call (utils/frozen.py)
+    weight = once(weight, ("k1", dt), lambda w: kernel_weight(w, dt))
+    x = kernel_input(x)
     cin = x.shape[-1]
     # both kernels read 16-byte rows from 16-byte aligned bases
     if x.data_ptr() % 16:
@@ -141,12 +156,11 @@ def _conv3d_gn_cuda(x, weight, bias, gamma, beta, groups, eps, act):
     if weight.data_ptr() % 16:
         weight = weight.clone()
     y = torch.empty((B, R, R, R, cout), dtype=dt, device=dev)
-    nbytes = kernels.entry_points()["p2pb_conv3d_gn_scratch_bytes"](B, R, cout, groups, bf16)
-    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    scratch = torch.empty(scratch_bytes(B, R, cout, groups, bf16), dtype=torch.uint8, device=dev)
     kernels.launch(
         "conv3d_gn", "p2pb_conv3d_gn", device, x.data_ptr(), weight.data_ptr(),
         bias.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-        int(gamma.dim() == 2), B, R, cin, cout, groups, eps, int(act), bf16,
+        stride, B, R, cin, cout, groups, eps, int(act), bf16,
         y.data_ptr(), scratch.data_ptr())
     return y
 
@@ -182,6 +196,12 @@ def conv3d_gn(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
               eps: float = 1e-5, act: bool = False) -> torch.Tensor:
     """x [B, R, R, R, Cin] f32 or bf16, weight [3, 3, 3, Cin, Cout] (DHWIO)
     of x's dtype, bias [Cout], gamma/beta [Cout] shared or [B, Cout] per
-    cloud (the AdaGN fold) -> [B, R, R, R, Cout] of x's dtype."""
-    return _Conv3dGN.apply(x.contiguous(), weight.contiguous(), bias.contiguous(),
-                           gamma.contiguous(), beta.contiguous(), groups, eps, act)
+    cloud (the AdaGN fold) -> [B, R, R, R, Cout] of x's dtype. Without a
+    gradient to track it skips the autograd node and what it saves."""
+    args = (x.contiguous(), weight.contiguous(), bias.contiguous(),
+            kernels.affine_operand(gamma), kernels.affine_operand(beta))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return _Conv3dGN.apply(*args, groups, eps, act)
+    if kernels.on_card(x):
+        return _conv3d_gn_cuda(*args, groups, eps, act)
+    return conv3d_gn_plain(*args, groups, eps, act)

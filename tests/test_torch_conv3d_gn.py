@@ -22,8 +22,7 @@ from p2p_bridge_tpu.ops.pallas.conv3d_kernel import supports as kstack_supports
 from p2p_bridge_tpu_torch import kernels
 from p2p_bridge_tpu_torch.models.unet_pvc import build_unet_from_config
 from p2p_bridge_tpu_torch.ops.conv3d_gn import (CIN_MULTIPLE, apply_group_norm, check_tile_shape,
-                                                conv3d_gn, conv3d_gn_plain, kernel_operands,
-                                                pad_channels)
+                                                conv3d_gn, conv3d_gn_plain, kernel_operands)
 from p2p_bridge_tpu_torch.utils.config import load_yaml
 
 CONFIGS = Path(__file__).resolve().parent.parent / "configs"
@@ -270,27 +269,6 @@ def test_bf16_kernel_takes_every_config_shape(config):
     check_tile_shape(64, 64, 8, torch.bfloat16)
     with pytest.raises(ValueError):  # the f32 kernel is built for R <= 32
         check_tile_shape(64, 64, 8, torch.float32)
-
-
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("cin", [35, 64, 192])
-def test_pad_channels_leaves_the_conv_unchanged(cin, dtype):
-    """The bf16 wrapper pads Cin to a multiple of 32 with zero channels and
-    zero weight rows: the plain result on the padded operands is identical.
-    Small integer inputs make every sum exact, so any summation order gives
-    the same bits."""
-    rng = np.random.default_rng(cin)
-    x = torch.from_numpy(rng.integers(-2, 3, size=(2, 8, 8, 8, cin)).astype(np.float32)).to(dtype)
-    w = torch.from_numpy(rng.integers(-2, 3, size=(3, 3, 3, cin, 32)).astype(np.float32) / 8).to(dtype)
-    b = torch.from_numpy(rng.integers(-4, 5, size=(32,)).astype(np.float32))
-    gamma, beta = torch.ones(2, 32), torch.zeros(2, 32)
-    xp, wp = pad_channels(x, w)
-    padded = -cin % 32
-    assert xp.shape[-1] == wp.shape[3] == cin + padded
-    assert not xp[..., cin:].any() and not wp[:, :, :, cin:].any()
-    want = conv3d_gn_plain(x, w, b, gamma, beta, act=True)
-    got = conv3d_gn_plain(xp, wp, b, gamma, beta, act=True)
-    assert got.dtype == dtype and torch.equal(got, want)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -414,3 +414,260 @@ def test_sa_and_fp_modules_bf16_match_jax():
              torch.from_numpy(cond).bfloat16())
     with torch.no_grad():
         close_bf16(port(*targs), apply(fm, params, *args))
+
+
+# ------------------------------------------ the fused norm and its routes
+# The modules' composition before GroupNorm / AdaGN + swish became one
+# fused op on the card, copied here so that the CPU and autograd routes,
+# which still run it, are held bit-equal to it.
+def unfused_stats(x, groups, eps):
+    B, C = x.shape[0], x.shape[-1]
+    xg = x.float().reshape(B, -1, groups, C // groups)
+    m = xg.mean(dim=(1, 3), keepdim=True)
+    v = ((xg * xg).mean(dim=(1, 3), keepdim=True) - m * m).clamp_min(0.0)
+    return ((xg - m) * torch.rsqrt(v + eps)).reshape(x.shape)
+
+
+def unfused_group_norm(gn, x):
+    y = unfused_stats(x, gn.num_groups, gn.eps) * gn.weight + gn.bias
+    return y.to(gn.compute_dtype)
+
+
+def unfused_adagn(m, x, cond):
+    fb = m.emd(cond)
+    shape = (x.shape[0],) + (1,) * (x.dim() - 2) + (-1,)
+    factor, shift = fb.view(shape[:-1] + (2 * m.norm.num_channels,)).chunk(2, dim=-1)
+    return unfused_group_norm(m.norm, x) * factor + shift
+
+
+def unfused_shared_mlp(m, x, cond=None):
+    for i in range(0, len(m.layers), 3):
+        x = m.layers[i](x)
+        norm = m.layers[i + 1]
+        x = unfused_adagn(norm, x, cond) if isinstance(norm, tm.AdaGN) else unfused_group_norm(norm, x)
+        x = tm.swish(x)
+    return x
+
+
+def unfused_my_group_norm_mlp(m, x):
+    for k in range(m.depth):
+        linear, norm, _ = getattr(m, f"shared_mlp_{k}").mlp
+        x = linear(x)
+        if norm.keep == x.shape[-1]:
+            x = unfused_group_norm(norm.group_norm, x)
+        elif norm.keep:
+            x = torch.cat([unfused_group_norm(norm.group_norm, x[..., :norm.keep]),
+                           x[..., norm.keep:]], -1)
+        x = tm.swish(x)
+    return x
+
+
+def unfused_pnet2stage(m, x):
+    feat = unfused_my_group_norm_mlp(m.mlp1, x)
+    feat = torch.cat([feat, feat.amax(dim=1, keepdim=True).expand_as(feat)], dim=-1)
+    return unfused_my_group_norm_mlp(m.mlp2, feat).amax(dim=1)
+
+
+def randomised(module, seed=0):
+    """``module`` with every parameter drawn from a seed: the GroupNorms'
+    scales and biases away from 1 and 0."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in module.parameters():
+            p.copy_(torch.randn(p.shape, generator=g) * 0.3 + (1.0 if p.dim() == 1 else 0.0))
+    return module
+
+
+def fused_cases():
+    """name -> (module, inputs, the unfused composition of the inputs)."""
+    x3, x4 = arr(2, 40, 11, scale=2.0), arr(2, 12, 6, 11, seed=3, scale=2.0)
+    cond, coords = arr(2, COND, seed=1), arr(2, 64, 3, seed=2)
+
+    def case(module, fn, *inputs):
+        return randomised(module), tuple(torch.from_numpy(t) for t in inputs), fn
+
+    return {
+        "GroupNorm": case(tm.GroupNorm(8, 32), unfused_group_norm, arr(2, 40, 32, scale=2.0)),
+        "AdaGN": case(tm.AdaGN(32, COND), unfused_adagn, arr(2, 5, 8, 32, scale=2.0), cond),
+        "SharedMLP": case(tm.SharedMLP(11, (16, 24)), unfused_shared_mlp, x3),
+        "SharedMLP_cond": case(tm.SharedMLP(11, (16, 24), COND), unfused_shared_mlp, x4, cond),
+        "MyGroupNorm_keep_lt_C": case(tm.MyGroupNormMLP(11, (40, 70)),
+                                      unfused_my_group_norm_mlp, x3),
+        "MyGroupNorm_C_lt_32": case(tm.MyGroupNormMLP(11, (8, 64)),
+                                    unfused_my_group_norm_mlp, x3),
+        "Pnet2Stage": case(tm.Pnet2Stage(3, (32, 64), (64, 96)), unfused_pnet2stage, coords),
+    }
+
+
+FUSED_CASES = ["GroupNorm", "AdaGN", "SharedMLP", "SharedMLP_cond", "MyGroupNorm_keep_lt_C",
+               "MyGroupNorm_C_lt_32", "Pnet2Stage"]
+
+
+def as_dtype(module, inputs, dtype):
+    """The module computing in ``dtype`` (each compute_dtype set, as the
+    constructors' ``dtype`` sets it; a GroupNorm built without one stays
+    f32) and its float inputs in ``dtype``."""
+    for m in module.modules():
+        if hasattr(m, "compute_dtype") and not (
+                isinstance(m, tm.GroupNorm) and m.compute_dtype == torch.float32
+                and dtype == torch.float32):
+            m.compute_dtype = dtype
+    return module, tuple(t.to(dtype) for t in inputs)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", FUSED_CASES)
+def test_module_cpu_outputs_equal_the_unfused_composition(name, dtype):
+    """On the CPU each module gives bit for bit what the composition before
+    the fused op gave, in f32 and in bf16."""
+    module, inputs, unfused = fused_cases()[name]
+    module, inputs = as_dtype(module.eval(), inputs, dtype)
+    with torch.no_grad():
+        got = module(*inputs)
+        want = unfused(module, *inputs)
+    assert got.dtype == want.dtype
+    assert torch.equal(got, want)
+
+
+@pytest.fixture
+def pretend_card(monkeypatch):
+    """CPU tensors count as on the card; the kernel is stood in for by the
+    plain formulation, and each call is recorded."""
+    from p2p_bridge_tpu_torch import kernels
+    from p2p_bridge_tpu_torch.ops import group_norm as gn_ops
+
+    calls = []
+
+    def kernel(x, gamma, beta, groups, eps, act, out_dtype):
+        calls.append((tuple(x.shape), tuple(gamma.shape), out_dtype))
+        return gn_ops.group_norm_act_plain(x, gamma, beta, groups, eps, act, out_dtype)
+
+    monkeypatch.setattr(kernels, "on_card", lambda t: True)
+    monkeypatch.setattr(gn_ops, "_group_norm_act_cuda", kernel)
+    return calls
+
+
+@pytest.mark.parametrize("name", FUSED_CASES)
+def test_autograd_takes_the_plain_route_with_the_unfused_gradients(name, pretend_card):
+    """With a gradient wanted the modules never reach the kernel, even on
+    the card, and their gradients equal the unfused composition's."""
+    module, inputs, unfused = fused_cases()[name]
+    module.train()
+    inputs = tuple(t.requires_grad_(True) for t in inputs)
+    got = module(*inputs)
+    want = unfused(module, *inputs)
+    assert torch.equal(got, want)
+    weight = torch.from_numpy(arr(*got.shape, seed=9))
+    wanted = list(inputs) + list(module.parameters())
+    g_got = torch.autograd.grad((got * weight).sum(), wanted, allow_unused=True)
+    g_want = torch.autograd.grad((want * weight).sum(), wanted, allow_unused=True)
+    for a, b in zip(g_got, g_want):
+        assert (a is None and b is None) or torch.equal(a, b)
+    assert pretend_card == []
+
+
+@pytest.mark.parametrize("name", FUSED_CASES)
+def test_no_grad_on_the_card_calls_the_kernel_once_a_norm(name, pretend_card):
+    """Under no_grad on the card every GroupNorm (+ swish) is one kernel
+    call (a lone GroupNorm or AdaGN through ``norm_act``), with a per-cloud
+    [B, C] affine for AdaGN and the shape of x (the first ``keep`` channels
+    of a MyGroupNorm), in the norm's dtype."""
+    module, inputs, _ = fused_cases()[name]
+    with torch.no_grad():
+        if isinstance(module, (tm.GroupNorm, tm.AdaGN)):
+            out = tm.norm_act(module.eval(), *inputs)
+        else:
+            out = module.eval()(*inputs)
+    norms = [m for m in module.modules() if isinstance(m, tm.GroupNorm)]
+    assert len(pretend_card) == len(norms)
+    per_cloud = [c for c in pretend_card if len(c[1]) == 2]
+    assert len(per_cloud) == sum(isinstance(m, tm.AdaGN) for m in module.modules())
+    assert all(x[-1] == g[-1] and out_dtype == out.dtype == torch.float32
+               for x, g, out_dtype in pretend_card)
+
+
+@pytest.mark.parametrize("shape", [(2, 40, 32), (3, 4, 5, 16)])
+def test_plain_formulation_with_a_shared_affine_is_group_norm_and_swish_in_f32(shape):
+    """In f32 the fused op's plain formulation is GroupNorm then swish, bit
+    for bit: the same operations, rounded as they were."""
+    from p2p_bridge_tpu_torch.ops.group_norm import group_norm_act_plain
+
+    gn = randomised(tm.GroupNorm(8, shape[-1]))
+    x = torch.from_numpy(arr(*shape, scale=2.0))
+    with torch.no_grad():
+        want = tm.swish(gn(x))
+        got = group_norm_act_plain(x, gn.weight, gn.bias, 8, gn.eps, True, torch.float32)
+    assert torch.equal(got, want)
+
+
+def ulp_bf16(v):
+    _, e = torch.frexp(v.float().abs().clamp_min(2.0 ** -126))
+    return torch.ldexp(torch.ones_like(v, dtype=torch.float32), e - 8)
+
+
+@pytest.mark.parametrize("shape", [(2, 40, 32), (2, 5, 8, 64)])
+def test_plain_formulation_with_the_per_cloud_affine_is_adagn_and_swish(shape):
+    """``group_norm_act_plain`` with ``AdaGN.affine``'s fold against
+    AdaGN.forward + swish. f32: the fold's products and sums in another
+    order, within TOL. bf16: the fused op rounds once, so it lies within
+    one bf16 ulp (half an ulp and the f32 roundings) of its f32 result;
+    the module's composition rounds the norm, the product, the sum, the
+    sigmoid and the swish, half an ulp of its terms' magnitude each, so
+    it lies within 4 ulps of the largest of norm * factor, shift and the
+    result."""
+    from p2p_bridge_tpu_torch.ops.group_norm import group_norm_act_plain
+
+    ada = randomised(tm.AdaGN(shape[-1], COND))
+    x, cond = torch.from_numpy(arr(*shape, scale=2.0)), torch.from_numpy(arr(2, COND, seed=1))
+    with torch.no_grad():
+        gamma, beta = ada.affine(cond)
+        fused = group_norm_act_plain(x, gamma, beta, 8, 1e-5, True, torch.float32)
+        close(fused, tm.swish(ada(x, cond)))
+        ada16, (x16, cond16) = as_dtype(ada, (x, cond), BF16)
+        gamma, beta = ada16.affine(cond16)
+        exact = group_norm_act_plain(x16, gamma, beta, 8, 1e-5, True, torch.float32)
+        fused16 = group_norm_act_plain(x16, gamma, beta, 8, 1e-5, True, BF16)
+        module16 = tm.swish(ada16(x16, cond16))
+        factor, shift = ada16.emd(cond16).float().chunk(2, dim=-1)
+        spatial = (2,) + (1,) * (len(shape) - 2) + (shape[-1],)
+        norm = tm.group_norm_stats(x16, 8, 1e-5) * ada16.norm.weight + ada16.norm.bias
+        terms = torch.maximum((norm * factor.reshape(spatial)).abs(),
+                              shift.reshape(spatial).abs().expand(norm.shape))
+    assert fused16.dtype == module16.dtype == BF16
+    assert ((fused16.float() - exact).abs() <= ulp_bf16(exact)).all()
+    assert ((module16.float() - exact).abs()
+            <= 4 * ulp_bf16(torch.maximum(terms, exact.abs()))).all()
+
+
+# Flax tests above, run again with every point-branch norm on the route it
+# takes on the card: ``fuses`` forced, so CPU tensors take the fused op's
+# plain formulation (one rounding, AdaGN folded into a per-cloud affine).
+FUSED_ROUTE_CASES = {
+    "shared_mlp_cond": lambda: test_shared_mlp_matches_jax(True),
+    "shared_mlp_cond_bf16": lambda: test_shared_mlp_bf16_matches_jax(True),
+    "my_group_norm_mlp_all": lambda: test_my_group_norm_mlp_matches_jax((40, 64)),
+    "my_group_norm_mlp_part": lambda: test_my_group_norm_mlp_matches_jax((32, 70)),
+    "pnet2stage": test_pnet2stage_matches_jax,
+    "pnet2stage_bf16": test_pnet2stage_bf16_matches_jax,
+    "pvconv": lambda: test_pvconv_matches_jax(True, True),
+    "pvconv_plain_group_norm": test_pvconv_plain_group_norm_matches_jax,
+    "pvconv_bf16": lambda: test_pvconv_bf16_matches_jax(False),
+    "sa_and_fp": test_sa_and_fp_modules_match_jax,
+    "sa_and_fp_bf16": test_sa_and_fp_modules_bf16_match_jax,
+}
+
+
+@pytest.mark.parametrize("case", list(FUSED_ROUTE_CASES))
+def test_fused_route_matches_jax(case, monkeypatch):
+    """The module on its fused route against flax, at the flax test's own
+    tolerances; each norm went through ``group_norm_act``."""
+    real, calls = tm.group_norm_act, []
+
+    def counted(*args):
+        calls.append(1)
+        return real(*args)
+
+    monkeypatch.setattr(tm, "fuses", lambda *args: True)
+    monkeypatch.setattr(tm, "group_norm_act", counted)
+    FUSED_ROUTE_CASES[case]()
+    assert calls

@@ -25,6 +25,7 @@ from p2p_bridge_tpu_torch.ops import ball_query as bq_ops
 from p2p_bridge_tpu_torch.ops import conv3d_gn as conv_ops
 from p2p_bridge_tpu_torch.ops import devoxelize as devox_ops
 from p2p_bridge_tpu_torch.ops import fps as fps_ops
+from p2p_bridge_tpu_torch.ops import group_norm as gn_ops
 from p2p_bridge_tpu_torch.ops import interpolate as interp_ops
 from p2p_bridge_tpu_torch.ops import voxelize as vox_ops
 from p2p_bridge_tpu_torch.utils.config import load_yaml
@@ -214,11 +215,15 @@ OPS = {
         "scatter_rows", ["p2pb_scatter_rows"],
         lambda dt: [_rand(2, 64, 8, dtype=dt), _rand(2, 64, 3), _ints(16, 2, 64, 3)],
         lambda t: interp_ops._three_nn_interpolate_backward_cuda(*t, 16), 1),
+    "group_norm_act": ("group_norm_act", ["p2pb_group_norm_act"],
+                       lambda dt: [_rand(2, 8, 4, 64, dtype=dt), _rand(2, 64), _rand(2, 64)],
+                       lambda t: gn_ops._group_norm_act_cuda(*t, 8, 1e-5, True, torch.bfloat16),
+                       0),
 }
 DATA_OPS = {"ball_query_group", "ball_query_group_rel", "avg_voxelize", "avg_voxelize_backward",
             "conv3d_gn", "trilinear_devoxelize", "trilinear_devoxelize_no_mean",
             "three_nn_interpolate", "scatter_devoxelize",
-            "scatter_ball_query_group", "scatter_three_nn_interpolate"}
+            "scatter_ball_query_group", "scatter_three_nn_interpolate", "group_norm_act"}
 OP_CASES = [(op, dt) for op in OPS
             for dt in ((torch.float32, torch.bfloat16) if op in DATA_OPS else (torch.float32,))]
 
