@@ -22,10 +22,13 @@ Phases, in order; any failure raises and the process exits non-zero:
      and the bucketed recombination (one warp or block per cloud), also on
      clouds whose every pick ties across lanes and warps and at odd N (33,
      1000, 4097, 16,383) and [8, 4096], and at the seeding, the exact
-     recombination [1 and 4, 149,504] -> 50,000 and a ragged [1, 100,003]
-     -> 33,000 whose every pick is a tie (one 16-CTA cluster per cloud),
-     with device us a pick, and both kernels at B = 1 and 73 for growing N
-     up to 16,383 (the dispatch's crossover);
+     recombination [1 and 4, 149,504] -> 50,000 (kNN patches of a 50k
+     cloud, as the recombination receives them, and a random cloud), its
+     10k shape [1, 28,672] -> 10,000, a ragged [1, 100,003] -> 33,000
+     whose every pick is a tie and [1, 200,000] past the registers (one
+     16-CTA cluster per cloud), with device us a pick and the share of
+     unit passes the cluster kernel skipped, and both kernels at B = 1 and
+     73 for growing N up to 16,383 (the dispatch's crossover);
      K1 in f32 within CONV_TOL and in bf16 within conv_bf16_bound, a bound
      per element derived from the epilogue kernel, plain version and TPU
      kernel share (each shape prints its largest ratio of error to bound),
@@ -252,6 +255,7 @@ from p2p_bridge_tpu_torch.ops import devoxelize as devox_ops
 from p2p_bridge_tpu_torch.ops import fps as fps_ops
 from p2p_bridge_tpu_torch.ops import group_norm as gn_ops
 from p2p_bridge_tpu_torch.ops import interpolate as interp_ops
+from p2p_bridge_tpu_torch.ops.knn import knn
 from p2p_bridge_tpu_torch.ops import scatter as scatter_ops
 from p2p_bridge_tpu_torch.ops import voxelize as vox_ops
 from p2p_bridge_tpu_torch.ops.common import (pairwise_sqdist, pairwise_sqdist_exact,
@@ -612,6 +616,31 @@ def tied_cloud(rng, n: int, chunk: int) -> np.ndarray:
     return x.astype(np.float32)
 
 
+def knn_patch_cloud(rng, n: int, dev) -> torch.Tensor:
+    """What the exact recombination receives from an n-point object: the
+    kNN patches (PATCH points, in kNN order) around its int(3 n / PATCH)
+    FPS seeds, one after another: [1, S * PATCH, 3]."""
+    pcl = torch.from_numpy(surface_cloud(rng, n)).to(dev)[None]
+    seeds = fps_ops.furthest_point_sample_and_gather(pcl, int(3 * n / PATCH))
+    _, idx = knn(seeds, pcl, PATCH)
+    return pcl[0][idx[0].long()].reshape(1, -1, 3).contiguous()
+
+
+def cluster_skip_share(x, m) -> float:
+    """The share (%) of the cluster kernel's unit passes that its
+    bounding-box test skipped in one call on x, from the count the kernel
+    hands ``fps_ops.cluster_skips``."""
+    seen = []
+    real = fps_ops.cluster_skips
+    fps_ops.cluster_skips = lambda skipped, passes: seen.append((skipped, passes)) or skipped
+    try:
+        fps_ops._fps_launch("fps_cluster", x, m)
+    finally:
+        fps_ops.cluster_skips = real
+    skipped, passes = seen[0]
+    return 100.0 * int(skipped.sum()) / max(x.shape[0] * passes, 1)
+
+
 def fps_crossover(rng, dev) -> dict:
     """Both K5 kernels for growing N, 511 iterations each, at B = 1 and at
     B = 73 (the one-block kernel runs a block per cloud on 132 SMs, the
@@ -656,12 +685,17 @@ def check_fps(rng, dev, shapes) -> dict:
              for i, (n, m, _, _, _) in enumerate(shapes["sa"])]
     cases += [("bucketed recombination", PATCHES, PATCH, 685, 0, RUNS),
               ("seeding", 1, 50_000, PATCHES, 1, RUNS),
-              ("exact recombination", 1, exact_n, 50_000, 1, RUNS)]
+              ("exact recombination, random order", 1, exact_n, 50_000, 0, RUNS),
+              # what the recombination receives: kNN patches, of a 50k and a 10k cloud
+              ("exact recombination", 1, 50_000, 50_000, 1, RUNS),
+              ("exact recombination 10k, kNN patches", 1, 10_000, 10_000, 0, RUNS)]
     tallies = {"fps": Tally("f32", library=False), "fps_cluster": Tally("f32", library=False)}
     extra, per_pick = {}, {}
     for what, b, n, m, calls, runs in cases:
+        x = (knn_patch_cloud(rng, n, dev) if what.startswith("exact recombination") and
+             "random" not in what else patches(rng, b, n, dev))
+        n = x.shape[1]
         kernel = "fps_cluster" if n >= fps_ops.CLUSTER_MIN_POINTS else "fps"
-        x = patches(rng, b, n, dev)
         fps_equal(x, m, what)
         ms = time_ms(lambda: fps_ops.furthest_point_sample(x, m), runs)
         dms = device_ms(lambda: fps_ops.furthest_point_sample(x, m), kernel)
@@ -672,8 +706,12 @@ def check_fps(rng, dev, shapes) -> dict:
                                     10.0 * b * (m - 1) * n, 0.0, dms, hus)
         us_pick = dms / max(m - 1, 1) * 1e3
         per_pick[what] = {"device_ms": dms, "us_per_pick": us_pick, "ms": ms}
+        skip = ""
+        if kernel == "fps_cluster":
+            per_pick[what]["skip_share"] = cluster_skip_share(x, m)
+            skip = f", {per_pick[what]['skip_share']:.2f}% of unit passes skipped"
         log(f"{kernel} {what} [{b}, {n}] -> {m}: indices equal; kernel {ms:.3f} ms (device "
-            f"{dms:.4f} ms, {us_pick:.3f} us a pick; host {hus:.1f} us "
+            f"{dms:.4f} ms, {us_pick:.3f} us a pick{skip}; host {hus:.1f} us "
             f"a call), plain {plain:.3f} ms, bound {bound:.3g} ms")
         if what == "exact recombination":
             extra = {"exact_recombination_ms": ms, "exact_recombination_device_ms": dms,
@@ -695,17 +733,26 @@ def check_fps(rng, dev, shapes) -> dict:
     x = patches(rng, 4, exact_n, dev)
     fps_equal(x, 50_000, f"[4, {exact_n}]")
     ms4 = time_ms(lambda: fps_ops.furthest_point_sample(x, 50_000), 2)
-    log(f"fps_cluster [4, {exact_n}] -> 50000: indices equal; kernel {ms4:.2f} ms")
+    skip4 = cluster_skip_share(x, 50_000)
+    log(f"fps_cluster [4, {exact_n}] -> 50000: indices equal; kernel {ms4:.2f} ms, "
+        f"{ms4 / 49_999 * 1e3:.3f} us a pick, {skip4:.2f}% of unit passes skipped")
     n = 100_003
     x = torch.from_numpy(tied_cloud(rng, n, -(-n // 16))).to(dev)[None]
     fps_equal(x, 33_000, f"ragged tied [1, {n}]")
+    ms_tied, skip_tied = time_ms(lambda: fps_ops.furthest_point_sample(x, 33_000), 2), \
+        cluster_skip_share(x, 33_000)
     log(f"fps_cluster ragged [1, {n}] -> 33000, every pick a tie, ties across the 16 CTAs' "
-        "ranges: indices equal")
+        f"ranges: indices equal; {ms_tied / 32_999 * 1e3:.3f} us a pick, {skip_tied:.2f}% of "
+        "unit passes skipped")
     # past the registers (N above 163,840): distances in a global scratch row
     x = patches(rng, 1, 200_000, dev)
     fps_equal(x, 3000, "[1, 200000], points past the registers")
-    log("fps_cluster [1, 200000] -> 3000 (2,260 points a CTA past the registers): indices equal")
-    extra.update(four_clouds_ms=ms4, crossover=fps_crossover(rng, dev))
+    ms_spill, skip_spill = time_ms(lambda: fps_ops.furthest_point_sample(x, 3000), 2), \
+        cluster_skip_share(x, 3000)
+    log("fps_cluster [1, 200000] -> 3000 (2,260 points a CTA past the registers): indices "
+        f"equal; {ms_spill / 2999 * 1e3:.3f} us a pick, {skip_spill:.2f}% of unit passes skipped")
+    extra.update(four_clouds_ms=ms4, four_clouds_skip_share=skip4, tied_skip_share=skip_tied,
+                 spill_skip_share=skip_spill, crossover=fps_crossover(rng, dev))
     tallies["fps_cluster"].extra = extra
     tallies["fps"].extra = {"per_call": per_pick}
     return {name: {"f32": t} for name, t in tallies.items()}

@@ -39,8 +39,10 @@
 //    winner without a second barrier. The table [j & 1] is written again at
 //    iteration j + 2, after barrier j + 1, which no warp passes before it
 //    has read the table at iteration j.
+#include <algorithm>
 #include <cfloat>
 #include <climits>
+#include <cmath>
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -222,84 +224,365 @@ int warp_ppt(int N) {
 
 // fps_cluster_kernel: one cluster of 16 CTAs per cloud, 512 threads each. CTA
 // rank c owns the contiguous points [c * chunk, (c + 1) * chunk), chunk =
-// ceil(N / 16): 9,344 at N = 149,504. Its thread t holds local points
-// t + k * 512, k < PPT, coordinates and running distance in registers for
-// all M iterations, and a copy of their coordinates in shared memory (12 *
-// PPT * 512 bytes) for the winner's lookup; points past PPT * 512 (N above
-// 163,840) keep their distance in a global scratch row and read their
-// coordinates from global memory. Each iteration:
-//  - one pass over the thread's points (strict >, so its lowest index wins);
-//  - the argmax of the warp, then of the CTA's 16 warps (warp 0), each as
-//    two redux.sync: the largest distance (its bits: distances are >= 0, so
-//    their bits order as the values), then the lowest index among the
-//    lanes holding it;
-//  - warp 0's lanes c < 16 push the CTA's winner (distance, x, y, z,
-//    index: 20 bytes) into slot [rank] of CTA c's inbox with st.async, which
-//    also counts its bytes on CTA c's mbarrier;
-//  - every CTA waits on its own mbarrier for the 16 winners (320 bytes) and
-//    every warp reduces them with the same two redux.sync, so all 16 CTAs
-//    agree on the winner, whose coordinates come with it. Rank 0 writes
-//    out[j].
-// Inboxes and mbarriers are double-buffered by iteration parity. A CTA
-// pushes iteration j + 2's winner into inbox [j & 1] only after it has the
-// 16 winners of iteration j + 1, among them the receiver's, which the
-// receiver sends after every one of its warps has read inbox [j & 1] at
-// iteration j (the __syncthreads of its CTA argmax lies between), so no
-// slot is overwritten while it is read and no mbarrier phase is skipped.
-// An iteration's floor is the pass, some 10 FP32 operations a point on one
-// SM's 128 lanes (about 0.4 us at 9,344 points), plus the latency of the
-// reductions and of one remote store.
+// ceil(N / 16), laid out in positions: warp w holds positions [w * span,
+// (w + 1) * span), span = 32 * ceil(chunk / 512) (608 at N = 149,504, 128
+// at N = 28,672), lane l the offsets 32 k + l, k < PPT, with coordinates
+// and running distance in registers for all M iterations and a copy of the
+// coordinates in shared memory (12 * PPT * 512 bytes) for the winner's
+// lookup. A span longer than 32 * PPT (N above 163,840) keeps the rest's
+// distances in a global scratch row and reads their coordinates from global
+// memory.
+//
+// Late in an FPS a pick changes only the distances within the covering
+// radius, so most of the cloud lies where no pick reaches. A warp's rows
+// are cut into units (4 of 5 rows at PPT 20, 2 of 2 rows at PPT 4; one
+// unit of the whole span past the registers); each unit keeps the bounding
+// box of its points and its largest running distance on one lane, and its
+// winner (that distance, the lowest index holding it, the point) in a
+// table in shared memory. Where the spans fit in registers, the CTA first
+// orders its points as a k-d tree whose leaves are the units (each split
+// sorts a node's points along its longest axis in shared memory, bitonic,
+// and cuts at a unit boundary; the last sort orders each unit by index), so
+// that a unit's box is tight and a pick reaches few units. An iteration:
+//  - the skip test, lane u for unit u: the per-axis gaps from the last pick
+//    to the box, each rounded as the pass rounds a point's difference, and
+//    their sqdist3. Rounding to nearest is monotone, so that is at most the
+//    pass's sqdist3 of every point in the box, exactly and with no margin;
+//    where it is at least the unit's largest running distance no fminf can
+//    change a distance and the unit's winner stands. Each CTA counts the
+//    skipped passes of its units that hold points;
+//  - each unit the test lets through: the pass over its rows (strict >, so
+//    each lane offers its lowest offset of its largest distance; offsets
+//    ascend with indices within a unit) and its argmax: redux.sync of the
+//    largest distance bits (distances are >= 0, so their bits order as the
+//    values), the ballot of the lanes holding it and, on a tie, redux.sync
+//    of the lowest offset among them; the winning lane writes the unit's
+//    entry;
+//  - __syncthreads, then warp 0 takes the CTA's winner from its 16 R entries:
+//    the largest key (distance bits + 1, or 0 for a unit without points),
+//    then the lowest index holding it (in k-d order a CTA's units do not
+//    own ascending indices), and its lanes c < 16 push it (key, x, y, z: 16
+//    bytes) into slot [rank] of CTA c's inbox with st.async, which also
+//    counts its bytes on CTA c's mbarrier;
+//  - every warp waits on its CTA's mbarrier for the 16 winners and reduces
+//    them with redux.sync and a ballot: the largest key, then the lowest
+//    rank (ranks own ascending indices), so all 16 CTAs agree on the winner.
+//    The winning CTA writes out[j].
+// The table is written only by the iteration that changes an entry: an
+// entry of iteration j + 1 is written after its writer's CTA holds the 16
+// winners of iteration j, among them its own, which warp 0 pushes after it
+// has read the table. Inboxes and mbarriers are double-buffered by
+// iteration parity. A CTA pushes iteration j + 2's winner into inbox [j & 1]
+// only after it has the 16 winners of iteration j + 1, among them the
+// receiver's, which the receiver sends after every one of its warps has read
+// inbox [j & 1] at iteration j (its __syncthreads lies between), so no slot
+// is overwritten while it is read and no mbarrier phase is skipped.
+// An iteration's floor is the latency of one remote store, the CTA's
+// barrier and the reductions (some 0.6 us on an H100); the pass of the
+// units a pick reaches comes on top, a few hundred cycles a unit, whose
+// unrolled code a warp seldom finds fetched. The k-d order costs 7 sorts
+// of the CTA's keys before the first pick (about 0.75 ms at 149,504
+// points), some 2% of the FPS it shortens.
 constexpr int kCluster = 16;
 constexpr int kClusterThreads = 512;
 constexpr int kClusterWarps = kClusterThreads / 32;
 constexpr int kMaxPPT = 20;  // registers: 4 * 20 of a 512-thread block's 128
-constexpr int kWinnerBytes = 20;  // distance, x, y, z, index
+constexpr int kUnits = 4;  // a warp's units: its rows cut in 4, each with a box and a winner
+constexpr int kOfferBytes = 16;  // key, x, y, z
+constexpr int kIndexBits = 14;  // a sorted CTA's local index, in a key's low bits
+constexpr unsigned kIndexMask = (1u << kIndexBits) - 1;
+constexpr int kCoordBits = 12;  // a coordinate quantised along its node's longest axis
+constexpr int kSortedPoints = 1 << kIndexBits;  // a sorted CTA's keys at most
 
-template <int PPT>
+// The points of a CTA's chunk that each of its warps owns.
+__host__ __device__ inline int cluster_span(int chunk) {
+  return 32 * ((chunk + kClusterThreads - 1) / kClusterThreads);
+}
+
+// A warp's units (R) and their rows (ROWS) for PPT points a lane: 4 units,
+// or units of 2 rows up to 4 rows; one unit, all of the span, past the
+// registers.
+template <int PPT, bool SPILL>
+struct Units {
+  static constexpr int R = SPILL ? 1 : (PPT <= kUnits ? PPT / 2 : kUnits);
+  static constexpr int ROWS = PPT / R;
+  static constexpr int CTA = kClusterWarps * R;  // a CTA's units
+  static constexpr int LEVELS = R == 4 ? 6 : (R == 2 ? 5 : 4);  // log2(CTA)
+};
+
+// The largest of a[k0, k0 + KN) and its lowest k, as a tree of pairwise
+// maxima in which the higher k wins only where it is strictly larger (k0
+// is a constant once the caller's loop is unrolled).
+template <int KN, int PPT>
+__device__ __forceinline__ void tree_argmax(const float (&a)[PPT], int k0, float& v, int& k) {
+  float val[KN];
+  int idx[KN];
+#pragma unroll
+  for (int q = 0; q < KN; ++q) {
+    val[q] = a[k0 + q];
+    idx[q] = k0 + q;
+  }
+#pragma unroll
+  for (int step = 1; step < KN; step *= 2) {
+#pragma unroll
+    for (int q = 0; q + step < KN; q += 2 * step) {
+      if (val[q + step] > val[q]) {
+        val[q] = val[q + step];
+        idx[q] = idx[q + step];
+      }
+    }
+  }
+  v = val[0];
+  k = idx[0];
+}
+
+// Sorts keys[0, n) ascending in shared memory, n a power of two, by the
+// whole CTA (a bitonic network: each stage compares n / 2 pairs).
+__device__ void bitonic_sort(unsigned* keys, int n) {
+  for (int k = 2; k <= n; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int q = threadIdx.x; q < n / 2; q += kClusterThreads) {
+        const int i = ((q & ~(j - 1)) << 1) | (q & (j - 1));
+        const unsigned a = keys[i], c = keys[i + j];
+        if ((a > c) == ((i & k) == 0)) {
+          keys[i] = c;
+          keys[i + j] = a;
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// The lowest lane holding the warp's largest v.
+__device__ __forceinline__ int lowest_largest(unsigned v) {
+  return __ffs(__ballot_sync(kAll, v == __reduce_max_sync(kAll, v))) - 1;
+}
+
+// The gap from v to [lo, hi], rounded as the pass rounds p - v for p in it.
+__device__ __forceinline__ float gap(float v, float lo, float hi) {
+  return v < lo ? lo - v : (v > hi ? v - hi : 0.0f);
+}
+
+// Widens box by the lane's points in rows [k0, k0 + KN) (k0 a constant once
+// the caller's loop is unrolled).
+template <int KN, int PPT>
+__device__ __forceinline__ void rows_box(const float (&px)[PPT], const float (&py)[PPT],
+                                         const float (&pz)[PPT], const float (&pd)[PPT], int k0,
+                                         float (&box)[6]) {
+#pragma unroll
+  for (int k = k0; k < k0 + KN; ++k) {
+    if (pd[k] >= 0.0f) {  // a real point
+      box[0] = fminf(box[0], px[k]), box[3] = fmaxf(box[3], px[k]);
+      box[1] = fminf(box[1], py[k]), box[4] = fmaxf(box[4], py[k]);
+      box[2] = fminf(box[2], pz[k]), box[5] = fmaxf(box[5], pz[k]);
+    }
+  }
+}
+
+// The union of the lanes' boxes, on every lane.
+__device__ __forceinline__ void warp_box(float (&box)[6]) {
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      box[c] = fminf(box[c], __shfl_xor_sync(kAll, box[c], s));
+      box[3 + c] = fmaxf(box[3 + c], __shfl_xor_sync(kAll, box[3 + c], s));
+    }
+  }
+}
+
+template <int PPT, bool SPILL>
 __global__ void __launch_bounds__(kClusterThreads, 1)
     fps_cluster_kernel(const float* __restrict__ pts, int N, int M, int chunk,
-                       float* __restrict__ spill, int spill_per_cta,
+                       float* __restrict__ spill, long long* __restrict__ skipped,
                        int32_t* __restrict__ out) {
-  constexpr int HELD = PPT * kClusterThreads;  // points held in registers
-  extern __shared__ float held_xyz[];  // x [HELD], y [HELD], z [HELD]
-  __shared__ unsigned red_v[kClusterWarps], red_i[kClusterWarps];
-  __shared__ float4 inbox_v[2][kCluster];  // distance, x, y, z of each CTA's winner
-  __shared__ unsigned inbox_i[2][kCluster];  // its index in the cloud
+  using U = Units<PPT, SPILL>;
+  constexpr int R = U::R, ROWS = U::ROWS;
+  constexpr int HELD = 32 * PPT;  // a warp's points held in registers
+  extern __shared__ float held_xyz[];  // x, y, z [kClusterWarps * HELD] each; the keys
+  __shared__ float unit_box[U::CTA][6];  // the k-d build's boxes
+  __shared__ float node_cut[U::CTA / 2][3];  // each node's axis, low end, scale
+  __shared__ uint4 table[U::CTA];  // key, x, y, z of each unit's winner
+  __shared__ unsigned table_i[U::CTA];  // its index
+  __shared__ uint4 inbox[2][kCluster];  // key, x, y, z of each CTA's winner
   __shared__ uint64_t full[2];  // the 16 winners of an iteration have landed
+  __shared__ unsigned long long cta_skips;
 
   const int rank = (int)p2pb::cluster_ctarank();
   const int b = blockIdx.x / kCluster;
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const float* p = pts + (size_t)b * N * 3;
-  const int lo = rank * chunk;
-  const int count = max(0, min(chunk, N - lo));
-  float* sx = held_xyz;
-  float* sy = held_xyz + HELD;
-  float* sz = held_xyz + 2 * HELD;
-  float* sd = spill + ((size_t)b * kCluster + rank) * spill_per_cta;  // [count - HELD]
+  const int span = cluster_span(chunk);
+  const int first = rank * chunk + warp * span;  // the warp's first position
+  const int count = max(0, min(span, min(chunk - warp * span, N - first)));  // its points
+  const int cta_count = max(0, min(chunk, N - rank * chunk));
+  const float* p = pts + ((size_t)b * N + first) * 3;
+  float* sx = held_xyz + warp * HELD;
+  float* sy = sx + kClusterWarps * HELD;
+  float* sz = sy + kClusterWarps * HELD;
+  float* sd = spill + ((size_t)(b * kCluster + rank) * kClusterWarps + warp) * max(0, span - HELD);
+  unsigned* keys = reinterpret_cast<unsigned*>(held_xyz + 3 * kClusterWarps * HELD);
+  const bool sorted = !SPILL && cta_count > 0;
+  // the CTA's unit of a position
+  auto unit_of = [&](int pos) {
+    const int w = pos / span;
+    return w * R + min((pos - w * span) / (32 * ROWS), R - 1);
+  };
 
+  // The CTA's points in k-d order (the spans fit in registers): the
+  // coordinates by local index in held_xyz, keys[position] = local index.
+  // Each split sorts every node's points by (node, its longest axis
+  // quantised, index) and cuts at a unit boundary; the last sort orders
+  // each unit by index.
+  if (sorted) {
+    const float* c = pts + ((size_t)b * N + rank * chunk) * 3;
+    float* hx = held_xyz;
+    float* hy = hx + kClusterWarps * HELD;
+    float* hz = hy + kClusterWarps * HELD;
+    int n2 = 1;
+    while (n2 < cta_count) n2 <<= 1;
+    for (int i = t; i < n2; i += kClusterThreads) {
+      keys[i] = i < cta_count ? (unsigned)i : kNone;
+      if (i < cta_count) {
+        hx[i] = c[3 * i];
+        hy[i] = c[3 * i + 1];
+        hz[i] = c[3 * i + 2];
+      }
+    }
+    __syncthreads();
+    for (int level = 0; level <= U::LEVELS; ++level) {
+      if (level < U::LEVELS) {
+#pragma unroll
+        for (int u = 0; u < R; ++u) {  // the boxes of the warp's units
+          float bx[6] = {INFINITY, INFINITY, INFINITY, -INFINITY, -INFINITY, -INFINITY};
+          for (int o = 32 * ROWS * u + lane; o < min(count, 32 * ROWS * (u + 1)); o += 32) {
+            const unsigned i = keys[warp * span + o] & kIndexMask;
+            bx[0] = fminf(bx[0], hx[i]), bx[3] = fmaxf(bx[3], hx[i]);
+            bx[1] = fminf(bx[1], hy[i]), bx[4] = fmaxf(bx[4], hy[i]);
+            bx[2] = fminf(bx[2], hz[i]), bx[5] = fmaxf(bx[5], hz[i]);
+          }
+          warp_box(bx);
+          if (lane == 0) {
+#pragma unroll
+            for (int q = 0; q < 6; ++q) unit_box[warp * R + u][q] = bx[q];
+          }
+        }
+        __syncthreads();
+        const int per = U::CTA >> level;  // units a node
+        if (t < (1 << level)) {  // node t: the union of its units' boxes, its longest axis
+          float lx0 = INFINITY, ly0 = INFINITY, lz0 = INFINITY;
+          float hx1 = -INFINITY, hy1 = -INFINITY, hz1 = -INFINITY;
+          for (int u = t * per; u < (t + 1) * per; ++u) {
+            lx0 = fminf(lx0, unit_box[u][0]), hx1 = fmaxf(hx1, unit_box[u][3]);
+            ly0 = fminf(ly0, unit_box[u][1]), hy1 = fmaxf(hy1, unit_box[u][4]);
+            lz0 = fminf(lz0, unit_box[u][2]), hz1 = fmaxf(hz1, unit_box[u][5]);
+          }
+          const float ex = hx1 - lx0, ey = hy1 - ly0, ez = hz1 - lz0;
+          const int axis = ey > ex ? (ez > ey ? 2 : 1) : (ez > ex ? 2 : 0);
+          const float extent = axis == 0 ? ex : (axis == 1 ? ey : ez);
+          node_cut[t][0] = (float)axis;
+          node_cut[t][1] = axis == 0 ? lx0 : (axis == 1 ? ly0 : lz0);
+          node_cut[t][2] = extent > 0.0f ? ((1 << kCoordBits) - 1) / extent : 0.0f;
+        }
+        __syncthreads();
+      }
+      for (int pos = t; pos < cta_count; pos += kClusterThreads) {
+        const unsigned i = keys[pos] & kIndexMask;
+        const int u = unit_of(pos);
+        unsigned key = (unsigned)u << kIndexBits;  // the last round: unit, then index
+        if (level < U::LEVELS) {
+          const int node = u >> (U::LEVELS - level);
+          const int axis = (int)node_cut[node][0];
+          const float v = axis == 0 ? hx[i] : (axis == 1 ? hy[i] : hz[i]);
+          const float q = fminf(fmaxf((v - node_cut[node][1]) * node_cut[node][2], 0.0f),
+                                (float)((1 << kCoordBits) - 1));
+          key = ((unsigned)node << (kCoordBits + kIndexBits)) | ((unsigned)q << kIndexBits);
+        }
+        keys[pos] = key | i;
+      }
+      __syncthreads();
+      bitonic_sort(keys, n2);
+    }
+  }
+  // the warp's points in registers and, by position, in held_xyz (a copy
+  // for the winner's lookup)
   float px[PPT], py[PPT], pz[PPT], pd[PPT];
 #pragma unroll
   for (int k = 0; k < PPT; ++k) {
-    const int li = k * kClusterThreads + t;
-    if (li < count) {
-      const float* q = p + (size_t)(lo + li) * 3;
+    const int o = 32 * k + lane;
+    if (o < count) {
+      const float* q = sorted ? held_xyz + (keys[warp * span + o] & kIndexMask) : p + 3 * o;
+      const int stride = sorted ? kClusterWarps * HELD : 1;
       px[k] = q[0];
-      py[k] = q[1];
-      pz[k] = q[2];
+      py[k] = q[stride];
+      pz[k] = q[2 * stride];
       pd[k] = FLT_MAX;
-      sx[li] = px[k];
-      sy[li] = py[k];
-      sz[li] = pz[k];
     } else {  // padding: a distance below every real one never wins
       px[k] = py[k] = pz[k] = 0.0f;
       pd[k] = -1.0f;
     }
   }
-  for (int li = HELD + t; li < count; li += kClusterThreads) sd[li - HELD] = FLT_MAX;
-  float lx = p[0], ly = p[1], lz = p[2];
+  __syncthreads();  // every point read from held_xyz before it is overwritten
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {
+    const int o = 32 * k + lane;
+    if (o < count) {
+      sx[o] = px[k];
+      sy[o] = py[k];
+      sz[o] = pz[k];
+    }
+  }
+  // the local index of the warp's point at offset o
+  auto index_of = [&](int o) {
+    return (unsigned)(sorted ? rank * chunk + (keys[warp * span + o] & kIndexMask) : first + o);
+  };
+  // Each unit: its box and its largest running distance on lane u, its
+  // winner (while every distance is FLT_MAX: its first point) in the
+  // table. A unit without points has an empty box, so it always skips, and
+  // offers key 0.
+  float box[6];
+  float ud = -1.0f;
+  unsigned holding = 0;  // the units that hold points
+#pragma unroll
+  for (int u = 0; u < R; ++u) {
+    float bx[6] = {INFINITY, INFINITY, INFINITY, -INFINITY, -INFINITY, -INFINITY};
+    rows_box<ROWS, PPT>(px, py, pz, pd, u * ROWS, bx);
+    const int o0 = 32 * ROWS * u;  // the unit's first offset
+    if (SPILL) {  // one unit: the spill points too
+#pragma unroll 1
+      for (int o = HELD + lane; o < count; o += 32) {
+        const float* q = p + 3 * (size_t)o;
+        sd[o - HELD] = FLT_MAX;
+        bx[0] = fminf(bx[0], q[0]), bx[3] = fmaxf(bx[3], q[0]);
+        bx[1] = fminf(bx[1], q[1]), bx[4] = fmaxf(bx[4], q[1]);
+        bx[2] = fminf(bx[2], q[2]), bx[5] = fmaxf(bx[5], q[2]);
+      }
+    }
+    warp_box(bx);
+    if (lane == u) {
+#pragma unroll
+      for (int q = 0; q < 6; ++q) box[q] = bx[q];
+      ud = o0 < count ? FLT_MAX : -1.0f;
+    }
+    if (o0 < count) holding |= 1u << u;
+    if (lane == 0) {
+      table[warp * R + u] = make_uint4(o0 < count ? __float_as_uint(FLT_MAX) + 1u : 0u,
+                                       __float_as_uint(px[u * ROWS]), __float_as_uint(py[u * ROWS]),
+                                       __float_as_uint(pz[u * ROWS]));
+      table_i[warp * R + u] = o0 < count ? index_of(o0) : kNone;
+    }
+  }
+  if (lane >= R) {  // no unit: never active
+#pragma unroll
+    for (int q = 0; q < 3; ++q) box[q] = INFINITY, box[3 + q] = -INFINITY;
+  }
+  unsigned skips = 0, cta_i = 0;  // warp 0: the index of its CTA's winner
+
+  const float* cloud = pts + (size_t)b * N * 3;
+  float lx = cloud[0], ly = cloud[1], lz = cloud[2];
   if (t == 0) {
     if (rank == 0) out[(size_t)b * M] = 0;
+    cta_skips = 0;
     p2pb::mbar_init(&full[0], 1);
     p2pb::mbar_init(&full[1], 1);
     p2pb::fence_mbar_init_cluster();
@@ -309,99 +592,140 @@ __global__ void __launch_bounds__(kClusterThreads, 1)
 
   for (int j = 1; j < M; ++j) {
     const int buf = j & 1;
-    if (t == 0) p2pb::mbar_arrive_expect_tx(&full[buf], kCluster * kWinnerBytes);
-    float bv = -1.0f;
-    int bi = 0;
+    if (t == 0) p2pb::mbar_arrive_expect_tx(&full[buf], kCluster * kOfferBytes);
+    // lane u tests unit u
+    const unsigned active = __ballot_sync(
+        kAll, p2pb::sqdist3(gap(lx, box[0], box[3]), gap(ly, box[1], box[4]),
+                            gap(lz, box[2], box[5])) < ud);
+    skips += __popc(holding & ~active);
 #pragma unroll
-    for (int k = 0; k < PPT; ++k) {
-      const float dd = fminf(pd[k], p2pb::sqdist3(px[k] - lx, py[k] - ly, pz[k] - lz));
-      pd[k] = dd;
-      if (dd > bv) {  // local indices grow with k, so strict > keeps the lowest
-        bv = dd;
-        bi = k * kClusterThreads + t;
+    for (int u = 0; u < R; ++u) {
+      if (active >> u & 1) {
+#pragma unroll
+        for (int k = u * ROWS; k < (u + 1) * ROWS; ++k)
+          pd[k] = fminf(pd[k], p2pb::sqdist3(px[k] - lx, py[k] - ly, pz[k] - lz));
+        float bv;
+        int bo;
+        tree_argmax<ROWS, PPT>(pd, u * ROWS, bv, bo);
+        bo = 32 * bo + lane;
+        if (SPILL) {
+#pragma unroll 1
+          for (int o = HELD + lane; o < count; o += 32) {  // offsets above every register's
+            const float* q = p + 3 * (size_t)o;
+            const float dd = fminf(sd[o - HELD], p2pb::sqdist3(q[0] - lx, q[1] - ly, q[2] - lz));
+            sd[o - HELD] = dd;
+            if (dd > bv) {
+              bv = dd;
+              bo = o;
+            }
+          }
+        }
+        float cx, cy, cz;  // the lane's best point, fetched while the warp reduces
+        if (!SPILL || bo < HELD) {
+          cx = sx[bo];
+          cy = sy[bo];
+          cz = sz[bo];
+        } else {
+          const float* q = p + 3 * (size_t)bo;
+          cx = q[0];
+          cy = q[1];
+          cz = q[2];
+        }
+        // the unit's largest distance (a lane without points offers bits
+        // 0), then its lowest offset: the only lane holding it, or on a tie
+        // the lowest offset among the lanes holding it (offsets ascend with
+        // indices within a unit)
+        const bool real = bv >= 0.0f;
+        const unsigned v = real ? __float_as_uint(bv) : 0u;
+        const unsigned best = __reduce_max_sync(kAll, v);
+        unsigned holders = __ballot_sync(kAll, real && v == best);
+        if (holders & (holders - 1)) {
+          const unsigned low = __reduce_min_sync(kAll, real && v == best ? (unsigned)bo : kNone);
+          holders = __ballot_sync(kAll, (unsigned)bo == low);
+        }
+        if (lane == u) ud = __uint_as_float(best);
+        if (lane == __ffs(holders) - 1) {
+          table[warp * R + u] = make_uint4(best + 1u, __float_as_uint(cx), __float_as_uint(cy),
+                                           __float_as_uint(cz));
+          table_i[warp * R + u] = index_of(bo);
+        }
       }
-    }
-    for (int li = HELD + t; li < count; li += kClusterThreads) {
-      const float* q = p + (size_t)(lo + li) * 3;
-      const float dd = fminf(sd[li - HELD], p2pb::sqdist3(q[0] - lx, q[1] - ly, q[2] - lz));
-      sd[li - HELD] = dd;
-      if (dd > bv) {
-        bv = dd;
-        bi = li;
-      }
-    }
-    // a thread without points offers distance bits 0 and no index
-    unsigned v = bv >= 0.0f ? __float_as_uint(bv) : 0u;
-    unsigned i = bv >= 0.0f ? (unsigned)bi : kNone;
-    argmax(v, i);
-    if (lane == 0) {
-      red_v[warp] = v;
-      red_i[warp] = i;
     }
     __syncthreads();
     if (warp == 0) {
-      v = lane < kClusterWarps ? red_v[lane] : 0u;
-      i = lane < kClusterWarps ? red_i[lane] : kNone;
-      argmax(v, i);
-      float x = 0.0f, y = 0.0f, z = 0.0f;  // the CTA winner's coordinates
-      if (i < (unsigned)HELD) {
-        x = sx[i];
-        y = sy[i];
-        z = sz[i];
-      } else if (i < (unsigned)count) {
-        const float* q = p + (size_t)(lo + i) * 3;
-        x = q[0];
-        y = q[1];
-        z = q[2];
+      // the CTA's winner: the largest key, then the lowest index holding it
+      // (in k-d order a CTA's units do not own ascending indices)
+      unsigned key = 0, idx = kNone;
+      uint4 e = make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+      for (int s = lane; s < U::CTA; s += 32) {
+        const uint4 c = table[s];
+        const unsigned ci = table_i[s];
+        if (c.x > key || (c.x == key && ci < idx)) {
+          key = c.x;
+          idx = ci;
+          e = c;
+        }
       }
-      if (lane < kCluster) {
-        const uint32_t bar = p2pb::cluster_map(&full[buf], lane);
-        p2pb::st_async_f4(p2pb::cluster_map(&inbox_v[buf][rank], lane),
-                          make_float4(__uint_as_float(v), x, y, z), bar);
-        p2pb::st_async_u32(p2pb::cluster_map(&inbox_i[buf][rank], lane),
-                           i == kNone ? kNone : lo + i, bar);
+      const unsigned best = __reduce_max_sync(kAll, key);
+      unsigned holders = __ballot_sync(kAll, key == best);
+      if (holders & (holders - 1)) {
+        const unsigned low = __reduce_min_sync(kAll, key == best ? idx : kNone);
+        holders = __ballot_sync(kAll, key == best && idx == low);
       }
+      const int owner = __ffs(holders) - 1;
+      const uint4 w = make_uint4(best, __shfl_sync(kAll, e.y, owner), __shfl_sync(kAll, e.z, owner),
+                                 __shfl_sync(kAll, e.w, owner));
+      cta_i = __shfl_sync(kAll, idx, owner);
+      if (lane < kCluster)
+        p2pb::st_async_u4(p2pb::cluster_map(&inbox[buf][rank], lane), w,
+                          p2pb::cluster_map(&full[buf], lane));
     }
     // the phase of full[buf] that iteration j completes: its ((j - 1) / 2)th
     p2pb::mbar_wait(&full[buf], ((j - 1) >> 1) & 1);
-    const unsigned sent = lane < kCluster ? inbox_i[buf][lane] : kNone;
-    v = lane < kCluster ? __float_as_uint(inbox_v[buf][lane].x) : 0u;
-    i = sent;
-    argmax(v, i);
-    const float4 w = inbox_v[buf][__ffs(__ballot_sync(kAll, sent == i)) - 1];
-    lx = w.y;
-    ly = w.z;
-    lz = w.w;
-    if (rank == 0 && t == 0) out[(size_t)b * M + j] = (int32_t)i;
+    const int s = lowest_largest(lane < kCluster ? inbox[buf][lane].x : 0u);
+    const uint4 w = inbox[buf][s];
+    lx = __uint_as_float(w.y);
+    ly = __uint_as_float(w.z);
+    lz = __uint_as_float(w.w);
+    if (t == 0 && s == rank) out[(size_t)b * M + j] = (int32_t)cta_i;
   }
+  if (lane == 0 && skips) atomicAdd(&cta_skips, (unsigned long long)skips);
   p2pb::cluster_sync();  // no CTA exits while another may still push to it
+  if (t == 0) skipped[(size_t)b * kCluster + rank] = (long long)cta_skips;
 }
 
 // The cluster kernel's points per thread for N: the fewest of 2, 4, 8, 12,
-// 16 and 20 that hold a CTA's chunk, else 20 and a spill row.
+// 16 and 20 that hold a warp's span, else 20 and a spill row.
 int cluster_ppt(int N) {
   const int chunk = (N + kCluster - 1) / kCluster;
-  const int need = (chunk + kClusterThreads - 1) / kClusterThreads;
+  const int need = cluster_span(chunk) / 32;
   constexpr int kFewer[] = {2, 4, 8, 12, 16};
   for (int ppt : kFewer)
     if (need <= ppt) return ppt;
   return kMaxPPT;
 }
 
+// A warp's points past its registers, for N (0 up to 163,840 points).
+int cluster_spill(int N) {
+  const int chunk = (N + kCluster - 1) / kCluster;
+  return std::max(0, cluster_span(chunk) - 32 * cluster_ppt(N));
+}
+
 // Sets the kernel's attributes and checks that a cluster of 16 with its
 // shared memory can be resident, once per card; then launches it.
-template <int PPT>
-int launch_cluster(const float* pts, int B, int N, int M, float* spill, int32_t* out,
-                   cudaStream_t stream) {
+template <int PPT, bool SPILL>
+int launch_cluster(const float* pts, int B, int N, int M, float* spill, long long* skipped,
+                   int32_t* out, cudaStream_t stream) {
   static bool ready[MAX_DEVICES];
-  auto kernel = fps_cluster_kernel<PPT>;
+  auto kernel = fps_cluster_kernel<PPT, SPILL>;
   const int chunk = (N + kCluster - 1) / kCluster;
-  const int spill_per_cta =
-      chunk > PPT * kClusterThreads ? chunk - PPT * kClusterThreads : 0;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(B * kCluster);
   cfg.blockDim = dim3(kClusterThreads);
-  cfg.dynamicSmemBytes = (size_t)12 * PPT * kClusterThreads;
+  // the coordinates; the sort's keys where the spans fit in registers
+  const size_t most = (size_t)12 * PPT * kClusterThreads + (SPILL ? 0 : 4 * kSortedPoints);
+  cfg.dynamicSmemBytes = most;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -417,7 +741,7 @@ int launch_cluster(const float* pts, int B, int N, int M, float* spill, int32_t*
     err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (!err)
       err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                      (int)cfg.dynamicSmemBytes);
+                                      (int)most);
     int clusters = 0;
     if (!err) err = (int)cudaOccupancyMaxActiveClusters(&clusters, (void*)kernel, &cfg);
     // a cluster that cannot be resident would never run: refuse the launch
@@ -425,12 +749,16 @@ int launch_cluster(const float* pts, int B, int N, int M, float* spill, int32_t*
     ready[dev] = !err;
   }
   if (err) return err;
-  err = (int)cudaLaunchKernelEx(&cfg, kernel, pts, N, M, chunk, spill, spill_per_cta, out);
+  int keys = 1;
+  while (keys < chunk) keys <<= 1;
+  cfg.dynamicSmemBytes = (size_t)12 * PPT * kClusterThreads + (SPILL ? 0 : (size_t)4 * keys);
+  err = (int)cudaLaunchKernelEx(&cfg, kernel, pts, N, M, chunk, spill, skipped, out);
   if (err) return err;
   return (int)cudaGetLastError();
 }
 
 }  // namespace
+
 
 // pts [B, N, 3] f32, out [B, M] int32, 1 <= M <= N <= 16,383: one warp
 // per cloud up to 1,024 points, else one block.
@@ -469,28 +797,47 @@ P2PB_API int p2pb_fps(const void* pts, int B, int N, int M, void* out, int devic
 // Bytes of global scratch the cluster kernel needs for this shape (0: none):
 // the distances of the points past the registers, N above 163,840.
 P2PB_API long long p2pb_fps_cluster_scratch_bytes(int B, int N) {
-  const long long chunk = (N + kCluster - 1) / kCluster;
-  const long long spill = chunk - (long long)cluster_ppt(N) * kClusterThreads;
-  return spill > 0 ? (long long)B * kCluster * spill * 4 : 0;
+  return (long long)B * kCluster * kClusterWarps * cluster_spill(N) * 4;
+}
+
+// The cluster kernel's units that hold points of a cloud of N: each of them
+// makes or skips one pass an iteration.
+P2PB_API long long p2pb_fps_cluster_units(int N) {
+  const int chunk = (N + kCluster - 1) / kCluster, span = cluster_span(chunk);
+  const bool spill = cluster_spill(N) > 0;
+  const int units = spill ? 1 : (cluster_ppt(N) <= kUnits ? cluster_ppt(N) / 2 : kUnits);
+  const int unit = spill ? span : 32 * (cluster_ppt(N) / units);  // a unit's offsets
+  long long held = 0;
+  for (int c = 0; c < kCluster; ++c) {
+    const int cta = std::max(0, std::min(chunk, N - c * chunk));
+    for (int w = 0; w < kClusterWarps; ++w) {
+      const int count = std::max(0, std::min(span, cta - w * span));
+      held += std::min(units, (count + unit - 1) / unit);
+    }
+  }
+  return held;
 }
 
 // pts [B, N, 3] f32, out [B, M] int32, 1 <= M <= N, 16 * B blocks at most
-// 2^31 - 1; scratch as p2pb_fps_cluster_scratch_bytes says. Returns
+// 2^31 - 1; scratch as p2pb_fps_cluster_scratch_bytes says; skipped [B, 16]
+// int64 gets each CTA's count of skipped passes. Returns
 // cudaErrorLaunchOutOfResources where a 16-CTA cluster cannot be resident.
 P2PB_API int p2pb_fps_cluster(const void* pts, int B, int N, int M, void* scratch,
-                              void* out, int device, void* stream) {
+                              void* skipped, void* out, int device, void* stream) {
   P2PB_ON_DEVICE(device);
   const float* p = (const float*)pts;
   float* sd = (float*)scratch;
+  long long* sk = (long long*)skipped;
   int32_t* o = (int32_t*)out;
   cudaStream_t s = (cudaStream_t)stream;
+  if (cluster_spill(N)) return launch_cluster<kMaxPPT, true>(p, B, N, M, sd, sk, o, s);
   switch (cluster_ppt(N)) {
-    case 2: return launch_cluster<2>(p, B, N, M, sd, o, s);
-    case 4: return launch_cluster<4>(p, B, N, M, sd, o, s);
-    case 8: return launch_cluster<8>(p, B, N, M, sd, o, s);
-    case 12: return launch_cluster<12>(p, B, N, M, sd, o, s);
-    case 16: return launch_cluster<16>(p, B, N, M, sd, o, s);
-    default: return launch_cluster<kMaxPPT>(p, B, N, M, sd, o, s);
+    case 2: return launch_cluster<2, false>(p, B, N, M, sd, sk, o, s);
+    case 4: return launch_cluster<4, false>(p, B, N, M, sd, sk, o, s);
+    case 8: return launch_cluster<8, false>(p, B, N, M, sd, sk, o, s);
+    case 12: return launch_cluster<12, false>(p, B, N, M, sd, sk, o, s);
+    case 16: return launch_cluster<16, false>(p, B, N, M, sd, sk, o, s);
+    default: return launch_cluster<kMaxPPT, false>(p, B, N, M, sd, sk, o, s);
   }
 }
 

@@ -170,18 +170,12 @@ __device__ __forceinline__ void fence_mbar_init_cluster() {
 // Store to shared::cluster address `a` (another CTA's shared memory) and
 // count the bytes on that CTA's mbarrier at shared::cluster address `bar`,
 // whose phase completes when they have all landed.
-__device__ __forceinline__ void st_async_f4(uint32_t a, float4 v, uint32_t bar) {
+__device__ __forceinline__ void st_async_u4(uint32_t a, uint4 v, uint32_t bar) {
   asm volatile(
-      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, "
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, "
       "[%5];\n" ::"r"(a),
-      "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar)
+      "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "r"(bar)
       : "memory");
-}
-
-__device__ __forceinline__ void st_async_u32(uint32_t a, uint32_t v, uint32_t bar) {
-  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];\n" ::"r"(a),
-               "r"(v), "r"(bar)
-               : "memory");
 }
 
 // ---- wgmma -----------------------------------------------------------------

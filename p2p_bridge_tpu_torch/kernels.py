@@ -51,8 +51,9 @@ _SIGNATURES = {
     # name: (restype, argtypes); every launching entry ends with the card's
     # index and the stream, which launch() appends
     "p2pb_fps": (_I, (_P, _I, _I, _I, _P, _I, _P)),
-    "p2pb_fps_cluster": (_I, (_P, _I, _I, _I, _P, _P, _I, _P)),
+    "p2pb_fps_cluster": (_I, (_P, _I, _I, _I, _P, _P, _P, _I, _P)),
     "p2pb_fps_cluster_scratch_bytes": (_LL, (_I, _I)),
+    "p2pb_fps_cluster_units": (_LL, (_I,)),
     "p2pb_ball_query_group": (_I, (_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P, _P, _I, _P)),
     "p2pb_ball_query_group_rel": (_I, (_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P, _P, _I, _P)),
     "p2pb_avg_voxelize": (_I, (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P)),

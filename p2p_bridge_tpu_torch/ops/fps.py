@@ -7,7 +7,9 @@ kernel K5 (``csrc/fps.cu``): ``fps``, one warp per cloud up to 1,024
 points and one block per cloud above, below :data:`CLUSTER_MIN_POINTS`
 points a cloud (the SA stages, the bucketed recombination), and
 ``fps_cluster``, one cluster of 16 blocks per cloud, from there on (the
-exact recombination, the seeding). Both give the plain version's indices.
+exact recombination, the seeding; it skips the passes of the units of
+points a pick cannot reach, and :func:`cluster_skips` gets their count).
+Both give the plain version's indices.
 On a CPU tensor it runs the plain version.
 :func:`furthest_point_sample_and_gather` gathers the picked coordinates.
 :func:`bucket_fps` is the room path's host FPS over numpy, on the native
@@ -56,6 +58,16 @@ def furthest_point_sample_plain(coords: torch.Tensor, num_samples: int) -> torch
 CLUSTER_MIN_POINTS = 16384
 
 
+def cluster_skips(skipped: torch.Tensor, passes: int) -> torch.Tensor:
+    """The cluster kernel's count of one call: ``skipped`` [B, 16] int64 on
+    the card, each block's unit passes that its bounding-box test skipped,
+    of ``passes`` a cloud (the units that hold points, times M - 1).
+    Returns ``skipped``: nothing on the path reads it, so the count costs no
+    sync; ``_fps_launch`` looks this function up in its module, where a
+    profiling run can wrap it to read the counts after its window."""
+    return skipped
+
+
 def _fps_launch(kernel: str, coords: torch.Tensor, num_samples: int) -> torch.Tensor:
     """Kernel ``fps`` (one warp or block per cloud, fewer than
     CLUSTER_MIN_POINTS points) or ``fps_cluster`` (one 16-block cluster per
@@ -69,12 +81,16 @@ def _fps_launch(kernel: str, coords: torch.Tensor, num_samples: int) -> torch.Te
         kernels.launch(kernel, "p2pb_fps", device, coords.data_ptr(), B, N, num_samples,
                        out.data_ptr())
         return out
-    nbytes = kernels.entry_points()["p2pb_fps_cluster_scratch_bytes"](B, N)
+    entries = kernels.entry_points()
+    nbytes = entries["p2pb_fps_cluster_scratch_bytes"](B, N)
     scratch = (torch.empty(nbytes // 4, dtype=torch.float32, device=coords.device)
                if nbytes else None)
+    skipped = torch.empty((B, 16), dtype=torch.int64, device=coords.device)
+    passes = entries["p2pb_fps_cluster_units"](N) * (num_samples - 1)
     kernels.launch(
         kernel, "p2pb_fps_cluster", device, coords.data_ptr(), B, N, num_samples,
-        None if scratch is None else scratch.data_ptr(), out.data_ptr())
+        None if scratch is None else scratch.data_ptr(), skipped.data_ptr(), out.data_ptr())
+    cluster_skips(skipped, passes)
     return out
 
 

@@ -6,9 +6,11 @@ through the attribute their callers look up.
 Runs use a tiny backbone (random weights from a seed): a 2,000-point room
 dense enough that some neighbourhoods are split by the host FPS and some
 padded, the same room without its conditioning, and one 600-point object
-cloud, each with 2 sampling steps.
+cloud, each with 2 sampling steps; the cluster FPS's wrapper runs against a
+stand-in of its entry points.
 """
 
+import ctypes
 import importlib
 import json
 
@@ -18,11 +20,12 @@ import torch
 import yaml
 
 from p2p_bridge_tpu_torch import denoise_room as room_cli
-from p2p_bridge_tpu_torch import inference, rooms
+from p2p_bridge_tpu_torch import inference, kernels, rooms
 from p2p_bridge_tpu_torch.config import pvdl_snpp, pvds_punet
 from p2p_bridge_tpu_torch.models import modules
 from p2p_bridge_tpu_torch.models.p2pb import P2PBridge
 from p2p_bridge_tpu_torch.models.unet_pvc import build_unet_from_config, init_parameters
+from p2p_bridge_tpu_torch.ops import fps as fps_ops
 from p2p_bridge_tpu_torch.utils import spans
 from p2p_bridge_tpu_torch.utils.io import read_ply, write_ply
 
@@ -42,7 +45,8 @@ SPANS = ROOM_SPANS + ("inference.denoise", "sampler.step")
 WRAPPED = {"rooms.create_patches": "room", "rooms.bucket_fps": "room",
            "inference.recombine_exact": "object", "inference.furthest_point_sample": "object",
            "models.pvcnn.furthest_point_sample": "object", "models.pvcnn.conv3d_gn": "object",
-           "models.p2pb.P2PBridge.sample": "object", "models.modules.group_norm_act": "fused_object"}
+           "models.p2pb.P2PBridge.sample": "object", "models.modules.group_norm_act": "fused_object",
+           "ops.fps.cluster_skips": "cluster_fps"}
 
 
 def tiny_config(cfg: dict, features: int) -> dict:
@@ -78,8 +82,8 @@ def one_thread():
 @pytest.fixture(scope="module")
 def runs():
     """{"room": run(), "object": run(), "bare_room": run(), "fused_object":
-    run()}: each tiny run, returning its output; the bare room has no
-    conditioning."""
+    run(), "cluster_fps": run()}: each tiny run, returning its output; the
+    bare room has no conditioning."""
     room_bridge = tiny_bridge(tiny_config(pvdl_snpp(), FEATS))
     bare_bridge = tiny_bridge(tiny_config(pvdl_snpp(), 0))
     object_bridge = tiny_bridge(tiny_config(pvds_punet(), 0))
@@ -109,7 +113,22 @@ def runs():
         finally:
             modules.fuses = real
 
-    return {"room": room, "object": obj, "bare_room": bare_room, "fused_object": fused_obj}
+    def cluster_fps():
+        """The exact recombination's FPS through the cluster kernel's wrapper
+        (no card here: its entry points a stand-in that launches nothing)."""
+        real = kernels.entry_points, kernels.current_stream
+        kernels.entry_points = lambda: {
+            name: (lambda *a, r=restype: 1 if r is ctypes.c_longlong else 0)
+            for name, (restype, _) in kernels._SIGNATURES.items()}
+        kernels.current_stream = lambda device: 0
+        try:
+            fps_ops._furthest_point_sample_cuda(torch.zeros(1, fps_ops.CLUSTER_MIN_POINTS, 3), 4)
+        finally:
+            kernels.entry_points, kernels.current_stream = real
+        return np.zeros(1)
+
+    return {"room": room, "object": obj, "bare_room": bare_room, "fused_object": fused_obj,
+            "cluster_fps": cluster_fps}
 
 
 @pytest.fixture(scope="module")

@@ -170,7 +170,8 @@ OPS = {
     "fps": ("fps", ["p2pb_fps"],
             lambda dt: [_rand(2, 64, 3)],
             lambda t: fps_ops._furthest_point_sample_cuda(t[0], 8), 0),
-    "fps_cluster": ("fps_cluster", ["p2pb_fps_cluster_scratch_bytes", "p2pb_fps_cluster"],
+    "fps_cluster": ("fps_cluster", ["p2pb_fps_cluster_scratch_bytes", "p2pb_fps_cluster_units",
+                                    "p2pb_fps_cluster"],
                     lambda dt: [_rand(2, fps_ops.CLUSTER_MIN_POINTS + 5, 3)],
                     lambda t: fps_ops._furthest_point_sample_cuda(t[0], 8), 0),
     "ball_query_group": ("ball_query_group", ["p2pb_ball_query_group"],
