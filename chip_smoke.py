@@ -60,7 +60,9 @@ Phases, in order; any failure raises and the process exits non-zero:
      forward at B = 32, as the forwards call it, in bf16 and f32, shared
      and per-cloud affine, with and without swish: within gn_bound of its
      plain formulation's f32 result (one rounding, and the two sides' f32
-     statistics), two calls bit-equal; timed at each PVDS_PUNet call;
+     statistics), two calls bit-equal; under autograd at each PVDS_PUNet
+     (shape, groups), one launch a forward and the plain formulation's
+     gradients, bit for bit; timed at each PVDS_PUNet call;
      then the host cost of K2b's wrapper, of its launch and of the pieces
      of the launch path, this one's and the earlier one's;
   4. build PVDS_PUNet at full width as shipped (bf16, training.amp) and an
@@ -329,8 +331,8 @@ KERNELS = {
 }
 SERVING = ("fps", "ball_query_group", "avg_voxelize", "conv3d_gn", "trilinear_devoxelize",
            "three_nn_interpolate", "group_norm_act")  # the kernels of every denoising path's backbone
-# a training step's: the fused point-branch norm runs only where no gradient is wanted
-TRAINING = tuple(k for k in KERNELS if k not in ("fps_cluster", "group_norm_act"))
+# a training step's: all but the exact recombination's FPS
+TRAINING = tuple(k for k in KERNELS if k != "fps_cluster")
 ROOM_TRAINING = tuple(k for k in TRAINING if k != "auction_emd")  # room pairs are aligned offline
 # the kernels of one device function a launch, whose records a profile's share counts
 SINGLE_FUNCTION = ("trilinear_devoxelize", "ball_query_group", "three_nn_interpolate",
@@ -1307,11 +1309,35 @@ def gn_inputs(gen, dev, shape, dt, per_cloud):
     return x, gamma, beta
 
 
+def group_norm_autograd_equal(gen, dev, shape, groups, dt) -> None:
+    """Under autograd on the card (per-cloud affine, swish): the forward is
+    one launch, equal to the call without a gradient; the backward launches
+    none, and its gradients of x, gamma and beta equal autograd's through
+    the plain formulation on the same inputs."""
+    x, gamma, beta = gn_inputs(gen, dev, shape, dt, True)
+    with torch.no_grad():
+        ref = gn_ops.group_norm_act(x, gamma, beta, groups, 1e-5, True)
+    leaves = [t.requires_grad_(True) for t in (x, gamma, beta)]
+    weight = torch.randn(shape, device=dev, generator=gen)
+    before = kernels.launch_counts["group_norm_act"]
+    got = gn_ops.group_norm_act(*leaves, groups, 1e-5, True)
+    g_got = torch.autograd.grad((got.float() * weight).sum(), leaves)
+    launched = kernels.launch_counts["group_norm_act"] - before
+    want = gn_ops.group_norm_act_plain(*leaves, groups, 1e-5, True)
+    g_want = torch.autograd.grad((want.float() * weight).sum(), leaves)
+    equal = [torch.equal(a, b) for a, b in zip(g_got, g_want)]
+    if not (launched == 1 and torch.equal(got.detach(), ref) and all(equal)):
+        raise AssertionError(f"group_norm_act under autograd {dt} {shape} / {groups}: {launched} "
+                             f"launches, forward equal {torch.equal(got.detach(), ref)}, "
+                             f"gradients of x, gamma, beta equal {equal}")
+
+
 def check_group_norm(dev) -> dict:
     """The fused point-branch GroupNorm against its plain formulation at
     every distinct (shape, groups) of a PVDS_PUNet forward at B = 73 and a
     PVDL_SNPP forward at B = 32, in bf16 and f32, shared and per-cloud
-    affine, with and without swish; then timed at each PVDS_PUNet call as
+    affine, with and without swish; under autograd at each PVDS_PUNet
+    (shape, groups) (group_norm_autograd_equal); then timed at each call as
     the forward makes it (bf16, and the f32 twin's), beside the plain
     formulation. Bound: x read twice, y written once and the affine tables
     read, over 3.35 TB/s (12 f32 operations a value do not bind)."""
@@ -1339,6 +1365,14 @@ def check_group_norm(dev) -> dict:
                 f"with and without swish, within gn_bound (largest ratio to it so far "
                 f"{worst['bf16']:.3f} bf16, {worst['f32']:.3f} f32)")
         torch.cuda.empty_cache()
+    shapes = dict.fromkeys((s, g) for (s, g, _, _, _), _ in calls["PVDS_PUNet"])
+    for dt in DTYPES.values():
+        for shape, groups in shapes:
+            group_norm_autograd_equal(gen, dev, shape, groups, dt)
+    log(f"group_norm_act under autograd at {len(shapes)} PVDS_PUNet shapes, bf16 and f32: one "
+        "launch a forward, equal to the call without a gradient; none in the backward, whose "
+        "gradients equal the plain formulation's")
+    torch.cuda.empty_cache()
     out = {}
     for dname, dt in DTYPES.items():
         tally = Tally(dname, library=False)

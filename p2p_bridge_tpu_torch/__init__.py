@@ -9,10 +9,12 @@ source) is copied here, and tests hold each copy against its original.
 
 Layout:
   ops/      point ops; FPS, ball query + group, voxelize (and its
-            backward), the voxel conv + GroupNorm, trilinear devoxelize
-            and 3-NN interpolation launch hand-written CUDA kernels
-            (csrc/) on CUDA tensors and run their plain PyTorch versions
-            on the CPU, in f32 or bf16; each is differentiable
+            backward), the voxel conv + GroupNorm, trilinear devoxelize,
+            3-NN interpolation and the point branch's GroupNorm + swish
+            launch hand-written CUDA kernels (csrc/) on CUDA tensors and
+            run their plain PyTorch versions on the CPU, in f32 or bf16;
+            each is differentiable (the GroupNorm through its plain
+            version, the port's one GroupNorm formulation)
   metrics/  the auction EMD (a CUDA kernel) and the training alignment;
             Chamfer, the approximate EMD, point-to-mesh and the object
             and room evaluations' facade

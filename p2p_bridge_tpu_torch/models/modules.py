@@ -12,12 +12,11 @@ returns ``dtype`` (bf16 products accumulate in f32); a ``GroupNorm``
 takes its statistics in f32 and returns ``dtype``, or f32 when ``dtype``
 is None (flax's GroupNorm without a dtype).
 
-Each GroupNorm / AdaGN / MyGroupNorm of the point branch and the swish
-after it run through :func:`norm_act`: one ``group_norm_act`` call (looked
-up here at call time) wherever ``fuses`` holds, on the card with no
-gradient wanted. There the result is rounded once; elsewhere (the CPU,
-autograd) the modules' own composition runs, which rounds the norm to
-``dtype`` before AdaGN's modulation and swish (``ops/group_norm.py``).
+Every GroupNorm and AdaGN, alone or with the swish after it
+(:func:`norm_act`, the point branch), is one ``group_norm_act`` call,
+looked up here at call time: AdaGN's modulation folded into a per-cloud
+f32 affine, the affine and swish in f32, one rounding to ``dtype``. The op
+picks the kernel or its plain formulation (``ops/group_norm.py``).
 
 Inside ``utils.frozen.frozen_weights()`` (the sampler's steps) a Linear
 casts its weight and bias once, not at every call, and on the card the
@@ -34,7 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import kernels
-from ..ops.group_norm import fuses, group_norm_act, group_norm_stats
+from ..ops.group_norm import group_norm_act
 from ..utils.frozen import active, once
 
 
@@ -81,23 +80,24 @@ class Linear(nn.Linear):
 
 
 class GroupNorm(nn.GroupNorm):
-    """nn.GroupNorm's parameters, applied channels-last; the affine in f32,
-    the result in ``dtype`` (f32 when None)."""
+    """nn.GroupNorm's parameters, applied channels-last; the statistics and
+    the affine in f32, the result in ``dtype`` (f32 when None)."""
 
     def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-5,
                  dtype: Optional[torch.dtype] = torch.float32):
         super().__init__(num_groups, num_channels, eps=eps)
         self.compute_dtype = dtype or torch.float32
 
-    def forward(self, x):
-        y = group_norm_stats(x, self.num_groups, self.eps) * self.weight + self.bias
-        return y.to(self.compute_dtype)
+    def forward(self, x, act=False):
+        """The norm of x, then swish if ``act``: one ``group_norm_act``."""
+        return group_norm_act(x, self.weight, self.bias, self.num_groups, self.eps, act,
+                              self.compute_dtype)
 
 
 class AdaGN(nn.Module):
     """GroupNorm whose affine is modulated by a global embedding:
-    norm(x) * factor(cond) + shift(cond), the product and sum in
-    ``dtype``."""
+    norm(x) * factor(cond) + shift(cond), folded into the per-cloud affine
+    of :meth:`affine`."""
 
     def __init__(self, channels: int, cond_dim: int, groups: int = 8,
                  dtype: torch.dtype = torch.float32):
@@ -116,11 +116,11 @@ class AdaGN(nn.Module):
         factor, shift = fb.chunk(2, dim=-1)
         return self.norm.weight[None] * factor, self.norm.bias[None] * factor + shift
 
-    def forward(self, x, cond):
-        fb = self.emd(cond)
-        shape = (x.shape[0],) + (1,) * (x.dim() - 2) + (-1,)
-        factor, shift = fb.view(shape[:-1] + (2 * self.norm.num_channels,)).chunk(2, dim=-1)
-        return self.norm(x) * factor + shift
+    def forward(self, x, cond, act=False):
+        """The norm of x, then swish if ``act``: one ``group_norm_act``."""
+        gn = self.norm
+        return group_norm_act(x, *self.affine(cond), gn.num_groups, gn.eps, act,
+                              gn.compute_dtype)
 
 
 class AffineBank:
@@ -163,27 +163,19 @@ class AffineBank:
 def norm_act(norm: nn.Module, x: torch.Tensor,
              cond: Optional[torch.Tensor] = None) -> torch.Tensor:
     """swish(``norm`` of x), ``norm`` a GroupNorm, an AdaGN of ``cond`` or a
-    MyGroupNorm (its first ``keep`` channels normalised): one
-    ``group_norm_act`` call where it fuses (AdaGN's modulation folded into a
-    per-cloud affine, one rounding), else the modules' own composition."""
+    MyGroupNorm (its first ``keep`` channels normalised, the rest through
+    swish alone): one ``group_norm_act`` call a norm."""
     if isinstance(norm, MyGroupNorm):
         keep = norm.keep
         if keep == x.shape[-1]:
             return norm_act(norm.group_norm, x)
         if not keep:
             return swish(x)
-        gn = norm.group_norm
-        if fuses(x, gn):
-            return torch.cat([norm_act(gn, x[..., :keep]), swish(x[..., keep:])], -1)
-        # one swish over the whole row: the CPU's sigmoid of a strided slice
-        # may differ in the last bit
-        return swish(torch.cat([gn(x[..., :keep]), x[..., keep:]], -1))
-    ada = isinstance(norm, AdaGN)
-    gn = norm.norm if ada else norm
-    if fuses(x, norm, *((cond,) if ada else ())):
-        gamma, beta = norm.affine(cond) if ada else (gn.weight, gn.bias)
-        return group_norm_act(x, gamma, beta, gn.num_groups, gn.eps, True, gn.compute_dtype)
-    return swish(norm(x, cond) if ada else norm(x))
+        return torch.cat([norm_act(norm.group_norm, x[..., :keep]), swish(x[..., keep:])], -1)
+    # forward, not __call__: no module hooks on the sampler's path
+    if isinstance(norm, AdaGN):
+        return norm.forward(x, cond, act=True)
+    return norm.forward(x, act=True)
 
 
 class SE(nn.Module):

@@ -9,7 +9,9 @@ from that f32 accumulator; the pre-norm grid is staged in x's dtype and
 normalised from there, and the result is stored in x's dtype, as the TPU
 kernel's epilogue does (wconv3d_kernel.py ``_kernel``). On a CUDA tensor
 :func:`conv3d_gn` launches kernel K1 (``csrc/conv3d_gn.cu``); on a CPU
-tensor it runs the plain version.
+tensor it runs the plain version. The GroupNorm arithmetic, here as in the
+kernel (``csrc/group_norm.cuh``), is the port's one formulation
+(``ops/group_norm.py``).
 
 The backward is that of the JAX package (wconv3d_kernel.py ``_make_conv_gn``):
 the gradient of the composition :func:`conv3d_gn_reference`, a SAME conv in
@@ -28,29 +30,7 @@ import torch.nn.functional as F
 
 from .. import kernels
 from ..utils.frozen import once
-
-
-def apply_group_norm(y: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-                     groups: int, eps: float, act: bool,
-                     staged: torch.dtype | None = None) -> torch.Tensor:
-    """GroupNorm over all voxels per (cloud, group), variance E[y^2] - m^2,
-    affine gamma/beta of shape [C] or [B, C], optional swish. The statistics
-    come from y; with ``staged``, the values normalised are y rounded to
-    that dtype (a pre-norm grid stored in the compute dtype)."""
-    B, C = y.shape[0], y.shape[-1]
-    yg = y.float().reshape(B, -1, groups, C // groups)
-    m = yg.mean(dim=(1, 3), keepdim=True)
-    v = (yg * yg).mean(dim=(1, 3), keepdim=True) - m * m
-    if staged is not None:
-        yg = y.to(staged).float().reshape(yg.shape)
-    yn = ((yg - m) * torch.rsqrt(v + eps)).reshape(y.shape)
-    spatial = [1] * (y.dim() - 2)
-    gamma = gamma.float().expand(B, C).reshape(B, *spatial, C)
-    beta = beta.float().expand(B, C).reshape(B, *spatial, C)
-    yn = yn * gamma + beta
-    if act:
-        yn = yn * torch.sigmoid(yn)
-    return yn.to(y.dtype)
+from .group_norm import group_moments, group_norm_act_plain, group_normalise
 
 
 def conv3d_gn_plain(x, weight, bias, gamma, beta, groups=8, eps=1e-5, act=False):
@@ -58,10 +38,9 @@ def conv3d_gn_plain(x, weight, bias, gamma, beta, groups=8, eps=1e-5, act=False)
     statistics from the f32 conv + bias, which is staged in x's dtype before
     it is normalised (the identity for f32), stored in x's dtype."""
     y = F.conv3d(x.float().permute(0, 4, 1, 2, 3), weight.float().permute(4, 3, 0, 1, 2),
-                 bias.float(), padding=1)
-    y = apply_group_norm(y.permute(0, 2, 3, 4, 1), gamma, beta, groups, eps, act,
-                         staged=x.dtype)
-    return y.to(x.dtype)
+                 bias.float(), padding=1).permute(0, 2, 3, 4, 1)
+    return group_normalise(y.to(x.dtype), group_moments(y, groups), gamma, beta, eps, act,
+                           x.dtype)
 
 
 # input channels of each kernel's rows: a multiple of this (kernel_operands)
@@ -120,10 +99,11 @@ def kernel_weight(weight, dtype):
 
 def conv3d_gn_reference(x, weight, bias, gamma, beta, groups=8, eps=1e-5, act=False):
     """The composition the backward differentiates: the conv in x's dtype
-    (bias cast to it, as flax promotes it), then :func:`apply_group_norm`."""
+    (bias cast to it, as flax promotes it), then the f32 GroupNorm of its
+    output, rounded to x's dtype (:func:`group_norm_act_plain`)."""
     y = F.conv3d(x.permute(0, 4, 1, 2, 3), weight.permute(4, 3, 0, 1, 2),
                  bias.to(x.dtype), padding=1)
-    return apply_group_norm(y.permute(0, 2, 3, 4, 1), gamma, beta, groups, eps, act)
+    return group_norm_act_plain(y.permute(0, 2, 3, 4, 1), gamma, beta, groups, eps, act)
 
 
 @functools.lru_cache(maxsize=None)

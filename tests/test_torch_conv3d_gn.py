@@ -21,8 +21,11 @@ from p2p_bridge_tpu.ops.pallas.conv3d_kernel import kstack_conv3d_gn_pallas
 from p2p_bridge_tpu.ops.pallas.conv3d_kernel import supports as kstack_supports
 from p2p_bridge_tpu_torch import kernels
 from p2p_bridge_tpu_torch.models.unet_pvc import build_unet_from_config
-from p2p_bridge_tpu_torch.ops.conv3d_gn import (CIN_MULTIPLE, apply_group_norm, check_tile_shape,
-                                                conv3d_gn, conv3d_gn_plain, kernel_operands)
+from p2p_bridge_tpu_torch.ops.conv3d_gn import (CIN_MULTIPLE, check_tile_shape, conv3d_gn,
+                                                conv3d_gn_plain, conv3d_gn_reference,
+                                                kernel_operands)
+from p2p_bridge_tpu_torch.ops.group_norm import (group_moments, group_norm_act_plain,
+                                                 group_normalise)
 from p2p_bridge_tpu_torch.utils.config import load_yaml
 
 CONFIGS = Path(__file__).resolve().parent.parent / "configs"
@@ -71,7 +74,8 @@ def test_conv3d_gn_matches_wconv_pallas(percloud, act):
 
 @pytest.mark.parametrize("shape", [(2, 4, 4, 4, 16), (3, 50, 32), (2, 7, 5, 24)])
 def test_apply_group_norm_matches_xla(shape):
-    """The GroupNorm epilogue alone, on any channels-last rank."""
+    """The GroupNorm epilogue alone, the port's two halves (moments, then
+    normalise + affine + swish), on any channels-last rank."""
     rng = np.random.default_rng(len(shape))
     y = (rng.normal(size=shape) * 2 + 0.5).astype(np.float32)
     B, C = shape[0], shape[-1]
@@ -80,8 +84,9 @@ def test_apply_group_norm_matches_xla(shape):
     y5 = y.reshape(B, 1, 1, -1, C)
     want = np.asarray(_apply_gn_xla(jnp.asarray(y5), jnp.asarray(gamma), jnp.asarray(beta),
                                     groups=8, eps=1e-5, act=True)).reshape(shape)
-    got = apply_group_norm(torch.from_numpy(y), torch.from_numpy(gamma),
-                           torch.from_numpy(beta), 8, 1e-5, True).numpy()
+    ty = torch.from_numpy(y)
+    got = group_normalise(ty, group_moments(ty, 8), torch.from_numpy(gamma),
+                          torch.from_numpy(beta), 1e-5, True, torch.float32).numpy()
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
 
 
@@ -193,14 +198,14 @@ def normalise_ref(y, staged, gamma, beta, act, groups=8, eps=1e-5):
 
 @pytest.mark.parametrize("percloud,act", [(False, False), (True, True)])
 def test_apply_group_norm_normalises_the_staged_values(percloud, act):
-    """staged=bf16: statistics from the f32 y, the values normalised are y
+    """K1's epilogue: the moments of the f32 y, the values normalised y
     rounded to bf16. y ~ 20 +- 1, as a grid of mostly empty voxels gives
     (y = bias there): a bf16 ulp at 20 is 0.125, so staging moves a
     normalised value by up to 0.0625 (measured 0.08 after the affine),
     while the f32 statistics, whose E[y^2] - m^2 cancels ~400 to 1, put the
     result ~1e-3 from the f64 reference (measured 9e-4); the tolerance is
-    3e-3 and the unstaged result must miss by ten times that. staged=f32
-    is the identity."""
+    3e-3 and the unstaged result must miss by ten times that. Normalising
+    y itself is group_norm_act_plain."""
     rng = np.random.default_rng(11)
     B, C = 2, 32
     y = (20 + rng.normal(size=(B, 6, 6, 6, C))).astype(np.float32)
@@ -208,20 +213,21 @@ def test_apply_group_norm_normalises_the_staged_values(percloud, act):
     gamma = (1 + 0.1 * rng.normal(size=shape)).astype(np.float32)
     beta = (0.1 * rng.normal(size=shape)).astype(np.float32)
     ty, tg, tb = map(torch.from_numpy, (y, gamma, beta))
-    got = apply_group_norm(ty, tg, tb, 8, 1e-5, act, staged=torch.bfloat16).numpy()
+    moments = group_moments(ty, 8)
+    got = group_normalise(ty.bfloat16(), moments, tg, tb, 1e-5, act, torch.float32).numpy()
     want = normalise_ref(y, ty.bfloat16().float().numpy(), gamma, beta, act)
     unstaged = normalise_ref(y, y, gamma, beta, act)
     assert np.abs(got - want).max() <= 3e-3
     assert np.abs(unstaged - want).max() > 3e-2  # staging shows here
-    plain = apply_group_norm(ty, tg, tb, 8, 1e-5, act)
-    assert torch.equal(apply_group_norm(ty, tg, tb, 8, 1e-5, act, staged=torch.float32), plain)
+    plain = group_norm_act_plain(ty, tg, tb, 8, 1e-5, act)
+    assert torch.equal(group_normalise(ty, moments, tg, tb, 1e-5, act, torch.float32), plain)
 
 
 @pytest.mark.parametrize("percloud,act", [(False, False), (True, True)])
 def test_conv3d_gn_plain_stages_the_prenorm_grid(percloud, act):
     """conv3d_gn_plain in bf16, the version the bf16 kernel is held to on
-    the card, is the f32 conv + bias normalised by apply_group_norm with
-    staged=bf16, bit for bit. x in {-1, 0, 1}, w in {-1, 0, 1} / 8 and a
+    the card, is the f32 conv + bias normalised from its own moments with
+    the values staged in bf16, bit for bit. x in {-1, 0, 1}, w in {-1, 0, 1} / 8 and a
     bias of multiples of 2^-10 near 60 make every sum exact in f32 (17
     significant bits at most), so JAX's f32 conv gives the port's y. There
     a bf16 ulp of y is 0.25 against a conv std of ~2.6, and the unstaged
@@ -238,10 +244,36 @@ def test_conv3d_gn_plain_stages_the_prenorm_grid(percloud, act):
     tx, tk = (torch.from_numpy(a).bfloat16() for a in (x, k))
     got = conv3d_gn_plain(tx, tk, torch.from_numpy(b), tg, tb, act=act)
     y = torch.from_numpy(np.array(_ref_conv(jnp.asarray(x), jnp.asarray(k), jnp.asarray(b))))
-    want = apply_group_norm(y, tg, tb, 8, 1e-5, act, staged=torch.bfloat16).bfloat16()
+    want = group_normalise(y.bfloat16(), group_moments(y, 8), tg, tb, 1e-5, act, torch.bfloat16)
     assert got.dtype == torch.bfloat16 and torch.equal(got, want)
-    unstaged = apply_group_norm(y, tg, tb, 8, 1e-5, act).bfloat16()
+    unstaged = group_norm_act_plain(y, tg, tb, 8, 1e-5, act, torch.bfloat16)
     assert (got != unstaged).float().mean() > 0.5
+
+
+@pytest.mark.parametrize("act", [False, True])
+def test_conv3d_gn_clamps_a_variance_that_rounds_below_zero(act):
+    """A constant grid (zero input and weight, one bias) has variance 0, but
+    for some constants E[y^2] - m^2 rounds below -eps in f32, where an
+    unclamped rsqrt(var + eps) is NaN. K1's plain version and its backward's
+    composition clamp it at 0, as the kernel does, and give
+    group_norm_act_plain's finite output."""
+    B, R, cin, cout = 2, 8, 16, 32
+    x, w = torch.zeros(B, R, R, R, cin), torch.zeros(3, 3, 3, cin, cout)
+    _, _, _, gamma, beta = map(torch.from_numpy, inputs(B, R, cin, cout, True))
+    for c in (97.3, 100.1, 250.7, 1000.3):
+        y = torch.full((B, R, R, R, cout), c)
+        yg = y.reshape(B, -1, 8, cout // 8)
+        m = yg.mean(dim=(1, 3), keepdim=True)
+        if ((yg * yg).mean(dim=(1, 3), keepdim=True) - m * m).min() < -1e-5:
+            break
+    else:
+        pytest.fail("no constant's f32 variance rounds below -eps")
+    want = group_norm_act_plain(y, gamma, beta, 8, 1e-5, act)
+    assert torch.isfinite(want).all()
+    bias = torch.full((cout,), c)
+    for got in (conv3d_gn_plain(x, w, bias, gamma, beta, act=act),
+                conv3d_gn_reference(x, w, bias, gamma, beta, act=act)):
+        assert torch.equal(got, want)
 
 
 def conv_shapes(config):
@@ -333,8 +365,9 @@ def test_bf16_bound_covers_another_summation_order(act, bias):
     want = conv3d_gn_plain(*args, 8, 1e-5, act)
     y = torch.nn.functional.conv3d(x.double().permute(0, 4, 1, 2, 3),
                                    w.double().permute(4, 3, 0, 1, 2), b.double(), padding=1)
-    got = apply_group_norm(y.float().permute(0, 2, 3, 4, 1), args[3], args[4], 8, 1e-5, act,
-                           staged=torch.bfloat16).to(torch.bfloat16)
+    y = y.float().permute(0, 2, 3, 4, 1)
+    got = group_normalise(y.bfloat16(), group_moments(y, 8), args[3], args[4], 1e-5, act,
+                          torch.bfloat16)
     diff = (got.float() - want.float()).abs()
     bound = chip_smoke.conv_bf16_bound(args, act, got, want)
     assert diff.max() > 0

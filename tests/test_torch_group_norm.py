@@ -1,6 +1,8 @@
 """The point branch's fused GroupNorm (``ops/group_norm.py``,
 ``csrc/group_norm.cu``) on the CPU: its plain formulation, its shape
-limits, and a numpy model of the kernel's partition of the work.
+limits, its route under autograd (on a pretended card, the kernel stood in
+for by the plain formulation), and a numpy model of the kernel's partition
+of the work.
 
 The model follows the kernel's index arithmetic line by line (block
 chunks, a thread's column and rows, the shared-memory layout of the block's
@@ -246,3 +248,107 @@ def test_the_kernels_take_an_affine_row_stride():
         head = src[src.index(f"P2PB_API int {entry}("):]
         assert "int affine_stride," in head[:head.index(")")]
         assert "affine_stride && affine_stride <" in head
+
+
+# ------------------------------------------------ the route under autograd
+@pytest.fixture
+def pretend_card(monkeypatch):
+    """CPU tensors count as on the card; the kernel is stood in for by the
+    plain formulation, and each call is recorded."""
+    calls = []
+
+    def kernel(x, gamma, beta, groups, eps, act, out_dtype):
+        calls.append(tuple(x.shape))
+        return gn_ops.group_norm_act_plain(x, gamma, beta, groups, eps, act, out_dtype)
+
+    monkeypatch.setattr(kernels, "on_card", lambda t: True)
+    monkeypatch.setattr(gn_ops, "_group_norm_act_cuda", kernel)
+    return calls
+
+
+def autograd_inputs(dtype, affine, seed=5, B=3, C=32):
+    """x [B, 7, 5, C] of ``dtype`` and an f32 affine: "shared" [C],
+    "per_cloud" [B, C], or "bank_column", gamma and beta column slices of
+    one wider [B, 4C] table (as AffineBank hands them); each leaf wants a
+    gradient. -> (x, gamma, beta, leaves)."""
+    g = torch.Generator().manual_seed(seed)
+    x = (torch.randn(B, 7, 5, C, generator=g) * 2 + 0.5).to(dtype).requires_grad_(True)
+    if affine == "bank_column":
+        table = torch.randn(B, 4 * C, generator=g).requires_grad_(True)
+        return x, table[:, C:2 * C], table[:, 2 * C:3 * C], [x, table]
+    shape = (C,) if affine == "shared" else (B, C)
+    gamma = (torch.randn(shape, generator=g) * 0.3 + 1).requires_grad_(True)
+    beta = torch.randn(shape, generator=g).requires_grad_(True)
+    return x, gamma, beta, [x, gamma, beta]
+
+
+@pytest.mark.parametrize("act", [False, True], ids=["norm", "norm_swish"])
+@pytest.mark.parametrize("affine", ["shared", "per_cloud", "bank_column"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_the_card_route_under_autograd_is_the_kernel_with_the_plain_gradients(
+        dtype, affine, act, pretend_card):
+    """On the card with a gradient wanted, the forward is one kernel call
+    and the backward calls none: the gradients of x and of the affine (a
+    column slice of a wider table included) equal autograd's through the
+    plain formulation."""
+    x, gamma, beta, leaves = autograd_inputs(dtype, affine)
+    got = gn_ops.group_norm_act(x, gamma, beta, 8, 1e-5, act)
+    assert pretend_card == [tuple(x.shape)] and got.grad_fn is not None
+    want = gn_ops.group_norm_act_plain(x, gamma, beta, 8, 1e-5, act)
+    assert got.dtype == dtype and torch.equal(got, want)
+    weight = torch.randn(got.shape, generator=torch.Generator().manual_seed(9))
+    g_got = torch.autograd.grad((got.float() * weight).sum(), leaves)
+    g_want = torch.autograd.grad((want.float() * weight).sum(), leaves)
+    assert all(torch.equal(a, b) for a, b in zip(g_got, g_want))
+    assert len(pretend_card) == 1
+
+
+@pytest.mark.parametrize("wanted", [("x",), ("gamma",), ("beta",), ("gamma", "beta")],
+                         ids="+".join)
+def test_the_card_route_gives_only_the_wanted_gradients(wanted, pretend_card):
+    """Where only some of x, gamma and beta want a gradient (bf16 x, an f32
+    output), the kernel still runs the forward and the backward gives
+    those gradients, each equal to the plain formulation's."""
+    x, gamma, beta, _ = autograd_inputs(torch.bfloat16, "per_cloud")
+    named = {"x": x.detach(), "gamma": gamma.detach(), "beta": beta.detach()}
+    for name in wanted:
+        named[name].requires_grad_(True)
+    args = (named["x"], named["gamma"], named["beta"], 8, 1e-5, True, torch.float32)
+    got = gn_ops.group_norm_act(*args)
+    want = gn_ops.group_norm_act_plain(*args)
+    assert len(pretend_card) == 1 and got.dtype == torch.float32 and torch.equal(got, want)
+    weight = torch.randn(got.shape, generator=torch.Generator().manual_seed(9))
+    leaves = [named[name] for name in wanted]
+    g_got = torch.autograd.grad((got * weight).sum(), leaves)
+    g_want = torch.autograd.grad((want * weight).sum(), leaves)
+    assert all(torch.equal(a, b) for a, b in zip(g_got, g_want))
+
+
+@pytest.mark.parametrize("no_grad", [True, False], ids=["no_grad", "nothing_wanted"])
+def test_the_card_route_without_a_gradient_makes_no_autograd_node(no_grad, pretend_card):
+    """Under no_grad, or where no input wants a gradient, the kernel runs
+    alone: no autograd node, nothing saved."""
+    x, gamma, beta, _ = autograd_inputs(torch.bfloat16, "shared")
+    if not no_grad:
+        x, gamma, beta = x.detach(), gamma.detach(), beta.detach()
+    with torch.set_grad_enabled(not no_grad):
+        got = gn_ops.group_norm_act(x, gamma, beta, 8, 1e-5, True)
+    assert len(pretend_card) == 1 and got.grad_fn is None and not got.requires_grad
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_the_cpu_route_under_autograd_is_the_plain_formulation(dtype, monkeypatch):
+    """On the CPU a gradient wanted never reaches the kernel: the op is the
+    plain formulation, which autograd differentiates."""
+    def kernel(*args):
+        raise AssertionError("the kernel was reached from the CPU")
+
+    monkeypatch.setattr(gn_ops, "_group_norm_act_cuda", kernel)
+    x, gamma, beta, leaves = autograd_inputs(dtype, "per_cloud")
+    got = gn_ops.group_norm_act(x, gamma, beta, 8, 1e-5, True)
+    want = gn_ops.group_norm_act_plain(x, gamma, beta, 8, 1e-5, True)
+    assert torch.equal(got, want)
+    weight = torch.randn(got.shape, generator=torch.Generator().manual_seed(9))
+    g_got = torch.autograd.grad((got.float() * weight).sum(), leaves)
+    g_want = torch.autograd.grad((want.float() * weight).sum(), leaves)
+    assert all(torch.equal(a, b) for a, b in zip(g_got, g_want))

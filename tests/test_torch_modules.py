@@ -16,6 +16,7 @@ from p2p_bridge_tpu.models import pvcnn as jp
 from p2p_bridge_tpu.utils.torch_compat import _norm_key, _pvconv_key, _shared_mlp_key
 from p2p_bridge_tpu_torch.models import modules as tm
 from p2p_bridge_tpu_torch.models import pvcnn as tp
+from p2p_bridge_tpu_torch.ops.group_norm import group_norm_act_plain
 from p2p_bridge_tpu_torch import weights
 from p2p_bridge_tpu_torch.weights import _to_torch_layout, flatten_params
 
@@ -416,56 +417,50 @@ def test_sa_and_fp_modules_bf16_match_jax():
         close_bf16(port(*targs), apply(fm, params, *args))
 
 
-# ------------------------------------------ the fused norm and its routes
-# The modules' composition before GroupNorm / AdaGN + swish became one
-# fused op on the card, copied here so that the CPU and autograd routes,
-# which still run it, are held bit-equal to it.
-def unfused_stats(x, groups, eps):
-    B, C = x.shape[0], x.shape[-1]
-    xg = x.float().reshape(B, -1, groups, C // groups)
-    m = xg.mean(dim=(1, 3), keepdim=True)
-    v = ((xg * xg).mean(dim=(1, 3), keepdim=True) - m * m).clamp_min(0.0)
-    return ((xg - m) * torch.rsqrt(v + eps)).reshape(x.shape)
+# ------------------------------------------ the one GroupNorm and its routes
+# Every GroupNorm / AdaGN (+ swish) of the modules is one group_norm_act
+# call: the kernel on the card with no gradient wanted, else the plain
+# formulation. The modules are held bit-equal to that formulation written
+# out layer by layer, AdaGN's fold included.
+def plain_group_norm(gn, x, act=False):
+    return group_norm_act_plain(x, gn.weight, gn.bias, gn.num_groups, gn.eps, act,
+                                gn.compute_dtype)
 
 
-def unfused_group_norm(gn, x):
-    y = unfused_stats(x, gn.num_groups, gn.eps) * gn.weight + gn.bias
-    return y.to(gn.compute_dtype)
+def plain_adagn(m, x, cond, act=False):
+    factor, shift = m.emd(cond).float().chunk(2, dim=-1)
+    gn = m.norm
+    return group_norm_act_plain(x, gn.weight[None] * factor, gn.bias[None] * factor + shift,
+                                gn.num_groups, gn.eps, act, gn.compute_dtype)
 
 
-def unfused_adagn(m, x, cond):
-    fb = m.emd(cond)
-    shape = (x.shape[0],) + (1,) * (x.dim() - 2) + (-1,)
-    factor, shift = fb.view(shape[:-1] + (2 * m.norm.num_channels,)).chunk(2, dim=-1)
-    return unfused_group_norm(m.norm, x) * factor + shift
-
-
-def unfused_shared_mlp(m, x, cond=None):
+def plain_shared_mlp(m, x, cond=None):
     for i in range(0, len(m.layers), 3):
         x = m.layers[i](x)
         norm = m.layers[i + 1]
-        x = unfused_adagn(norm, x, cond) if isinstance(norm, tm.AdaGN) else unfused_group_norm(norm, x)
-        x = tm.swish(x)
+        x = (plain_adagn(norm, x, cond, act=True) if isinstance(norm, tm.AdaGN)
+             else plain_group_norm(norm, x, act=True))
     return x
 
 
-def unfused_my_group_norm_mlp(m, x):
+def plain_my_group_norm_mlp(m, x):
     for k in range(m.depth):
         linear, norm, _ = getattr(m, f"shared_mlp_{k}").mlp
         x = linear(x)
         if norm.keep == x.shape[-1]:
-            x = unfused_group_norm(norm.group_norm, x)
+            x = plain_group_norm(norm.group_norm, x, act=True)
         elif norm.keep:
-            x = torch.cat([unfused_group_norm(norm.group_norm, x[..., :norm.keep]),
-                           x[..., norm.keep:]], -1)
-        x = tm.swish(x)
+            x = torch.cat([plain_group_norm(norm.group_norm, x[..., :norm.keep], act=True),
+                           tm.swish(x[..., norm.keep:])], -1)
+        else:
+            x = tm.swish(x)
     return x
 
 
-def unfused_pnet2stage(m, x):
-    feat = unfused_my_group_norm_mlp(m.mlp1, x)
+def plain_pnet2stage(m, x):
+    feat = plain_my_group_norm_mlp(m.mlp1, x)
     feat = torch.cat([feat, feat.amax(dim=1, keepdim=True).expand_as(feat)], dim=-1)
-    return unfused_my_group_norm_mlp(m.mlp2, feat).amax(dim=1)
+    return plain_my_group_norm_mlp(m.mlp2, feat).amax(dim=1)
 
 
 def randomised(module, seed=0):
@@ -479,7 +474,7 @@ def randomised(module, seed=0):
 
 
 def fused_cases():
-    """name -> (module, inputs, the unfused composition of the inputs)."""
+    """name -> (module, inputs, the plain formulation written out)."""
     x3, x4 = arr(2, 40, 11, scale=2.0), arr(2, 12, 6, 11, seed=3, scale=2.0)
     cond, coords = arr(2, COND, seed=1), arr(2, 64, 3, seed=2)
 
@@ -487,15 +482,15 @@ def fused_cases():
         return randomised(module), tuple(torch.from_numpy(t) for t in inputs), fn
 
     return {
-        "GroupNorm": case(tm.GroupNorm(8, 32), unfused_group_norm, arr(2, 40, 32, scale=2.0)),
-        "AdaGN": case(tm.AdaGN(32, COND), unfused_adagn, arr(2, 5, 8, 32, scale=2.0), cond),
-        "SharedMLP": case(tm.SharedMLP(11, (16, 24)), unfused_shared_mlp, x3),
-        "SharedMLP_cond": case(tm.SharedMLP(11, (16, 24), COND), unfused_shared_mlp, x4, cond),
+        "GroupNorm": case(tm.GroupNorm(8, 32), plain_group_norm, arr(2, 40, 32, scale=2.0)),
+        "AdaGN": case(tm.AdaGN(32, COND), plain_adagn, arr(2, 5, 8, 32, scale=2.0), cond),
+        "SharedMLP": case(tm.SharedMLP(11, (16, 24)), plain_shared_mlp, x3),
+        "SharedMLP_cond": case(tm.SharedMLP(11, (16, 24), COND), plain_shared_mlp, x4, cond),
         "MyGroupNorm_keep_lt_C": case(tm.MyGroupNormMLP(11, (40, 70)),
-                                      unfused_my_group_norm_mlp, x3),
+                                      plain_my_group_norm_mlp, x3),
         "MyGroupNorm_C_lt_32": case(tm.MyGroupNormMLP(11, (8, 64)),
-                                    unfused_my_group_norm_mlp, x3),
-        "Pnet2Stage": case(tm.Pnet2Stage(3, (32, 64), (64, 96)), unfused_pnet2stage, coords),
+                                    plain_my_group_norm_mlp, x3),
+        "Pnet2Stage": case(tm.Pnet2Stage(3, (32, 64), (64, 96)), plain_pnet2stage, coords),
     }
 
 
@@ -516,15 +511,18 @@ def as_dtype(module, inputs, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("name", FUSED_CASES)
+@pytest.mark.parametrize("name", ["AdaGN", "SharedMLP_cond", "MyGroupNorm_keep_lt_C",
+                                  "MyGroupNorm_C_lt_32"])
 def test_module_cpu_outputs_equal_the_unfused_composition(name, dtype):
-    """On the CPU each module gives bit for bit what the composition before
-    the fused op gave, in f32 and in bf16."""
-    module, inputs, unfused = fused_cases()[name]
+    """On the CPU the modules with logic of their own around the op (AdaGN's
+    fold of its modulation into the affine, MyGroupNorm's split at
+    ``keep``) give bit for bit the plain formulation written out layer by
+    layer (one rounding a norm), in f32 and in bf16."""
+    module, inputs, plain = fused_cases()[name]
     module, inputs = as_dtype(module.eval(), inputs, dtype)
     with torch.no_grad():
         got = module(*inputs)
-        want = unfused(module, *inputs)
+        want = plain(module, *inputs)
     assert got.dtype == want.dtype
     assert torch.equal(got, want)
 
@@ -549,13 +547,17 @@ def pretend_card(monkeypatch):
 
 @pytest.mark.parametrize("name", FUSED_CASES)
 def test_autograd_takes_the_plain_route_with_the_unfused_gradients(name, pretend_card):
-    """With a gradient wanted the modules never reach the kernel, even on
-    the card, and their gradients equal the unfused composition's."""
-    module, inputs, unfused = fused_cases()[name]
+    """With a gradient wanted on the card each norm's forward is still one
+    kernel call, and its backward takes the plain route: the output and
+    every gradient equal autograd's through ``group_norm_act_plain``
+    written out, and the backward calls no kernel."""
+    module, inputs, plain = fused_cases()[name]
     module.train()
     inputs = tuple(t.requires_grad_(True) for t in inputs)
     got = module(*inputs)
-    want = unfused(module, *inputs)
+    norms = sum(isinstance(m, tm.GroupNorm) for m in module.modules())
+    assert len(pretend_card) == norms and got.requires_grad
+    want = plain(module, *inputs)
     assert torch.equal(got, want)
     weight = torch.from_numpy(arr(*got.shape, seed=9))
     wanted = list(inputs) + list(module.parameters())
@@ -563,7 +565,7 @@ def test_autograd_takes_the_plain_route_with_the_unfused_gradients(name, pretend
     g_want = torch.autograd.grad((want * weight).sum(), wanted, allow_unused=True)
     for a, b in zip(g_got, g_want):
         assert (a is None and b is None) or torch.equal(a, b)
-    assert pretend_card == []
+    assert len(pretend_card) == norms
 
 
 @pytest.mark.parametrize("name", FUSED_CASES)
@@ -584,90 +586,3 @@ def test_no_grad_on_the_card_calls_the_kernel_once_a_norm(name, pretend_card):
     assert len(per_cloud) == sum(isinstance(m, tm.AdaGN) for m in module.modules())
     assert all(x[-1] == g[-1] and out_dtype == out.dtype == torch.float32
                for x, g, out_dtype in pretend_card)
-
-
-@pytest.mark.parametrize("shape", [(2, 40, 32), (3, 4, 5, 16)])
-def test_plain_formulation_with_a_shared_affine_is_group_norm_and_swish_in_f32(shape):
-    """In f32 the fused op's plain formulation is GroupNorm then swish, bit
-    for bit: the same operations, rounded as they were."""
-    from p2p_bridge_tpu_torch.ops.group_norm import group_norm_act_plain
-
-    gn = randomised(tm.GroupNorm(8, shape[-1]))
-    x = torch.from_numpy(arr(*shape, scale=2.0))
-    with torch.no_grad():
-        want = tm.swish(gn(x))
-        got = group_norm_act_plain(x, gn.weight, gn.bias, 8, gn.eps, True, torch.float32)
-    assert torch.equal(got, want)
-
-
-def ulp_bf16(v):
-    _, e = torch.frexp(v.float().abs().clamp_min(2.0 ** -126))
-    return torch.ldexp(torch.ones_like(v, dtype=torch.float32), e - 8)
-
-
-@pytest.mark.parametrize("shape", [(2, 40, 32), (2, 5, 8, 64)])
-def test_plain_formulation_with_the_per_cloud_affine_is_adagn_and_swish(shape):
-    """``group_norm_act_plain`` with ``AdaGN.affine``'s fold against
-    AdaGN.forward + swish. f32: the fold's products and sums in another
-    order, within TOL. bf16: the fused op rounds once, so it lies within
-    one bf16 ulp (half an ulp and the f32 roundings) of its f32 result;
-    the module's composition rounds the norm, the product, the sum, the
-    sigmoid and the swish, half an ulp of its terms' magnitude each, so
-    it lies within 4 ulps of the largest of norm * factor, shift and the
-    result."""
-    from p2p_bridge_tpu_torch.ops.group_norm import group_norm_act_plain
-
-    ada = randomised(tm.AdaGN(shape[-1], COND))
-    x, cond = torch.from_numpy(arr(*shape, scale=2.0)), torch.from_numpy(arr(2, COND, seed=1))
-    with torch.no_grad():
-        gamma, beta = ada.affine(cond)
-        fused = group_norm_act_plain(x, gamma, beta, 8, 1e-5, True, torch.float32)
-        close(fused, tm.swish(ada(x, cond)))
-        ada16, (x16, cond16) = as_dtype(ada, (x, cond), BF16)
-        gamma, beta = ada16.affine(cond16)
-        exact = group_norm_act_plain(x16, gamma, beta, 8, 1e-5, True, torch.float32)
-        fused16 = group_norm_act_plain(x16, gamma, beta, 8, 1e-5, True, BF16)
-        module16 = tm.swish(ada16(x16, cond16))
-        factor, shift = ada16.emd(cond16).float().chunk(2, dim=-1)
-        spatial = (2,) + (1,) * (len(shape) - 2) + (shape[-1],)
-        norm = tm.group_norm_stats(x16, 8, 1e-5) * ada16.norm.weight + ada16.norm.bias
-        terms = torch.maximum((norm * factor.reshape(spatial)).abs(),
-                              shift.reshape(spatial).abs().expand(norm.shape))
-    assert fused16.dtype == module16.dtype == BF16
-    assert ((fused16.float() - exact).abs() <= ulp_bf16(exact)).all()
-    assert ((module16.float() - exact).abs()
-            <= 4 * ulp_bf16(torch.maximum(terms, exact.abs()))).all()
-
-
-# Flax tests above, run again with every point-branch norm on the route it
-# takes on the card: ``fuses`` forced, so CPU tensors take the fused op's
-# plain formulation (one rounding, AdaGN folded into a per-cloud affine).
-FUSED_ROUTE_CASES = {
-    "shared_mlp_cond": lambda: test_shared_mlp_matches_jax(True),
-    "shared_mlp_cond_bf16": lambda: test_shared_mlp_bf16_matches_jax(True),
-    "my_group_norm_mlp_all": lambda: test_my_group_norm_mlp_matches_jax((40, 64)),
-    "my_group_norm_mlp_part": lambda: test_my_group_norm_mlp_matches_jax((32, 70)),
-    "pnet2stage": test_pnet2stage_matches_jax,
-    "pnet2stage_bf16": test_pnet2stage_bf16_matches_jax,
-    "pvconv": lambda: test_pvconv_matches_jax(True, True),
-    "pvconv_plain_group_norm": test_pvconv_plain_group_norm_matches_jax,
-    "pvconv_bf16": lambda: test_pvconv_bf16_matches_jax(False),
-    "sa_and_fp": test_sa_and_fp_modules_match_jax,
-    "sa_and_fp_bf16": test_sa_and_fp_modules_bf16_match_jax,
-}
-
-
-@pytest.mark.parametrize("case", list(FUSED_ROUTE_CASES))
-def test_fused_route_matches_jax(case, monkeypatch):
-    """The module on its fused route against flax, at the flax test's own
-    tolerances; each norm went through ``group_norm_act``."""
-    real, calls = tm.group_norm_act, []
-
-    def counted(*args):
-        calls.append(1)
-        return real(*args)
-
-    monkeypatch.setattr(tm, "fuses", lambda *args: True)
-    monkeypatch.setattr(tm, "group_norm_act", counted)
-    FUSED_ROUTE_CASES[case]()
-    assert calls

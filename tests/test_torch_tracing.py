@@ -22,7 +22,6 @@ import yaml
 from p2p_bridge_tpu_torch import denoise_room as room_cli
 from p2p_bridge_tpu_torch import inference, kernels, rooms
 from p2p_bridge_tpu_torch.config import pvdl_snpp, pvds_punet
-from p2p_bridge_tpu_torch.models import modules
 from p2p_bridge_tpu_torch.models.p2pb import P2PBridge
 from p2p_bridge_tpu_torch.models.unet_pvc import build_unet_from_config, init_parameters
 from p2p_bridge_tpu_torch.ops import fps as fps_ops
@@ -45,7 +44,7 @@ SPANS = ROOM_SPANS + ("inference.denoise", "sampler.step")
 WRAPPED = {"rooms.create_patches": "room", "rooms.bucket_fps": "room",
            "inference.recombine_exact": "object", "inference.furthest_point_sample": "object",
            "models.pvcnn.furthest_point_sample": "object", "models.pvcnn.conv3d_gn": "object",
-           "models.p2pb.P2PBridge.sample": "object", "models.modules.group_norm_act": "fused_object",
+           "models.p2pb.P2PBridge.sample": "object", "models.modules.group_norm_act": "object",
            "ops.fps.cluster_skips": "cluster_fps"}
 
 
@@ -81,9 +80,9 @@ def one_thread():
 
 @pytest.fixture(scope="module")
 def runs():
-    """{"room": run(), "object": run(), "bare_room": run(), "fused_object":
-    run(), "cluster_fps": run()}: each tiny run, returning its output; the
-    bare room has no conditioning."""
+    """{"room": run(), "object": run(), "bare_room": run(), "cluster_fps":
+    run()}: each tiny run, returning its output; the bare room has no
+    conditioning."""
     room_bridge = tiny_bridge(tiny_config(pvdl_snpp(), FEATS))
     bare_bridge = tiny_bridge(tiny_config(pvdl_snpp(), 0))
     object_bridge = tiny_bridge(tiny_config(pvds_punet(), 0))
@@ -103,16 +102,6 @@ def runs():
         return rooms.denoise_room(bare_bridge, pts, steps=STEPS, k=1, patch_size=PATCH,
                                   batch_size=BATCH, query_radius=0.3, seed=3)["denoised"]
 
-    def fused_obj():
-        """The object call with every point-branch norm on the route it takes
-        on the card (CPU tensors give the fused op's plain formulation)."""
-        real = modules.fuses
-        modules.fuses = lambda *args: True
-        try:
-            return obj()
-        finally:
-            modules.fuses = real
-
     def cluster_fps():
         """The exact recombination's FPS through the cluster kernel's wrapper
         (no card here: its entry points a stand-in that launches nothing)."""
@@ -127,8 +116,7 @@ def runs():
             kernels.entry_points, kernels.current_stream = real
         return np.zeros(1)
 
-    return {"room": room, "object": obj, "bare_room": bare_room, "fused_object": fused_obj,
-            "cluster_fps": cluster_fps}
+    return {"room": room, "object": obj, "bare_room": bare_room, "cluster_fps": cluster_fps}
 
 
 @pytest.fixture(scope="module")
